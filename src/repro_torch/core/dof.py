@@ -1,0 +1,189 @@
+"""The offline subgraph: deployment parameters inferred from the DoF set.
+
+Paper §3.3–3.4: the kernel scale matrix collapses to an outer product
+``S_w[m, n] = S_wL[m] · S_wR[n]`` with ``S_wL = 1/S_a`` of the input stream
+(Eq. 2).  Trainable DoF per quantized linear: the FP master ``w``, the bias,
+the input stream's ``log_sa`` (shared by fan-out siblings) and ``log_swr``,
+whose shape IS the weight-scale layout (scalar → layerwise, ``[out]`` →
+channel, ``[in/g, out]`` → group).  Scales live in the log domain.
+
+Parameters are plain dicts of tensors in the JAX package's layout, so a
+converted JAX tree and a tree built here are interchangeable; ``lead``
+prepends stacked axes (the JAX package's ``vmap`` over layers).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from .fakequant import (expand_group_scale, fake_quant, fake_quant_act,
+                        pack_int4, quantize, unpack_int4)
+from .qconfig import QuantConfig
+
+Params = dict[str, Any]
+
+
+def swr_layout_kind(w: torch.Tensor, log_swr: torch.Tensor) -> str:
+    """Layout kind from the shapes: ``w.ndim - log_swr.ndim`` is 2 for
+    layerwise, 1 for channel, 0 for group (stacked axes shift both)."""
+    diff = w.ndim - log_swr.ndim
+    if not 0 <= diff <= 2:
+        raise ValueError(f"log_swr {tuple(log_swr.shape)} does not fit "
+                         f"w {tuple(w.shape)}")
+    return ("group", "channel", "layerwise")[diff]
+
+
+# ---------------------------------------------------------------------------
+# Stream (activation quant point) — owns the S_a vector DoF.
+# ---------------------------------------------------------------------------
+
+def init_stream(dim: int, a_scale: float = 1.0 / 16.0, lead: tuple = (),
+                device=None) -> Params:
+    """A quantization point on an activation stream of width ``dim``."""
+    shape = tuple(lead) + (dim,)
+    return {"log_sa": torch.full(shape, math.log(a_scale),
+                                 dtype=torch.float32, device=device),
+            "zp": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def stream_fake_quant(x: torch.Tensor, stream: Params,
+                      cfg: QuantConfig) -> torch.Tensor:
+    """A-bit fake quantization at a stream point (no-op in permissive mode)."""
+    if not cfg.act_quant:
+        return x
+    scale = torch.exp(stream["log_sa"]).to(x.dtype)
+    return fake_quant_act(x, scale, cfg.a_bits,
+                          zero_point=stream["zp"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Quantized linear — offline subgraph for the kernel.
+# ---------------------------------------------------------------------------
+
+def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
+                 cfg: QuantConfig | None, bias: bool = False,
+                 w_bits: int | None = None, name: str | None = None,
+                 lead: tuple = ()) -> Params:
+    """Master weights + scale DoF on ``gen``'s device.  ``w_bits``
+    overrides ``cfg.w_bits`` (exempt layers, the head); ``name`` keys the
+    bare-name layout overrides of ``cfg``; the layout fixes the
+    ``log_swr`` shape."""
+    lead = tuple(lead)
+    dev = gen.device
+    std = d_in ** -0.5
+    p: Params = {"w": torch.randn(lead + (d_in, d_out), generator=gen,
+                                  device=dev, dtype=torch.float32) * std}
+    if bias:
+        p["b"] = torch.zeros(lead + (d_out,), dtype=torch.float32, device=dev)
+    if cfg is not None:
+        bits = w_bits or cfg.w_bits
+        layout = cfg.layout_for(name)
+        p["log_swr"] = torch.full(
+            lead + layout.swr_shape(d_in, d_out),
+            math.log(std / (2 ** (bits - 1) - 1)), dtype=torch.float32,
+            device=dev)
+    return p
+
+
+def _swr_dense(p: Params) -> torch.Tensor:
+    """exp(log_swr) broadcastable against ``w`` under any layout."""
+    w, log_swr = p["w"], p["log_swr"]
+    kind = swr_layout_kind(w, log_swr)
+    if kind == "layerwise":
+        s = torch.exp(log_swr)
+        return s[..., None, None] if log_swr.ndim else s
+    if kind == "channel":
+        return torch.exp(log_swr)[..., None, :]
+    return expand_group_scale(torch.exp(log_swr), w.shape[-2], axis=-2)
+
+
+def weight_scale(p: Params, log_sa_in: torch.Tensor | None) -> torch.Tensor:
+    """S_w = S_wL ⊗ S_wR with S_wL = 1/S_a_in (Eq. 2)."""
+    s_wr = _swr_dense(p)
+    if log_sa_in is None:
+        return (torch.broadcast_to(s_wr, p["w"].shape) if p["w"].ndim >= 3
+                else s_wr)
+    s_wl = torch.exp(-log_sa_in)[..., :, None]
+    while s_wl.ndim < p["w"].ndim:
+        s_wl = s_wl.unsqueeze(-3)
+    return s_wl * s_wr
+
+
+def effective_weight(p: Params, cfg: QuantConfig | None,
+                     log_sa_in: torch.Tensor | None = None,
+                     compute_dtype=torch.bfloat16,
+                     bits: int | None = None) -> torch.Tensor:
+    """The fake-quantized (deploy-equivalent) weight; ``cfg=None`` is the FP
+    path (teacher, deploy view)."""
+    w = p["w"]
+    if cfg is None:
+        return w.to(compute_dtype)
+    s = weight_scale(p, log_sa_in)
+    return fake_quant(w, s, bits or cfg.w_bits, signed=True).to(compute_dtype)
+
+
+def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
+            stream: Params | None = None,
+            bits: int | None = None) -> torch.Tensor:
+    """``y = x̂ @ W_eff + b``; ``stream`` supplies both the activation
+    fake-quant and S_wL (paper Appendix D)."""
+    log_sa = None
+    if stream is not None and cfg is not None:
+        x = stream_fake_quant(x, stream, cfg)
+        log_sa = stream["log_sa"]
+    w_eff = effective_weight(p, cfg, log_sa, compute_dtype=x.dtype, bits=bits)
+    y = torch.matmul(x, w_eff)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Deployment export — the offline computation run once.
+# ---------------------------------------------------------------------------
+
+def export_qlinear(p: Params, cfg: QuantConfig,
+                   log_sa_in: torch.Tensor | None = None,
+                   pack: bool = True, bits: int | None = None) -> Params:
+    """Freeze the offline subgraph: ``{q (nibble-packed uint8 | int8),
+    s_wl?, s_wr, b?}``; ``s_wr`` carries the layout in its shape."""
+    bits = bits or cfg.w_bits
+    s = weight_scale(p, log_sa_in)
+    q = quantize(p["w"], s, bits, signed=True).to(torch.int8)
+    out: Params = {}
+    if bits == 4 and pack and p["w"].shape[-2] % 2 == 0:
+        out["q"] = pack_int4(q, axis=-2)
+    else:
+        out["q"] = q
+    if log_sa_in is not None:
+        out["s_wl"] = torch.exp(-log_sa_in).to(torch.float32)
+    out["s_wr"] = torch.exp(p["log_swr"]).to(torch.float32)
+    if "b" in p:
+        out["b"] = p["b"].to(torch.float32)
+    return out
+
+
+def dequantize_export(ex: Params, compute_dtype=torch.bfloat16,
+                      packed: bool = True) -> torch.Tensor:
+    """Reference decode of an exported linear.  The total scale S_wL ⊗ S_wR
+    is assembled in f32 before touching q — the grouping of
+    weight_scale/fake_quant — so it is bit-exact against effective_weight."""
+    q = ex["q"]
+    if packed and q.dtype == torch.uint8:
+        q = unpack_int4(q, axis=-2)
+    w = q.to(torch.float32)
+    s_wr = ex["s_wr"]
+    if s_wr.ndim == w.ndim - 2:          # scalar per (stacked) linear
+        s = s_wr[..., None, None]
+    elif s_wr.ndim == w.ndim:            # group: [..., in/g, out]
+        s = expand_group_scale(s_wr, w.shape[-2], axis=-2)
+    else:                                # per-out-channel
+        s = s_wr[..., None, :]
+    if ex.get("s_wl") is not None:
+        s_wl = ex["s_wl"][..., :, None]
+        while s_wl.ndim < w.ndim:
+            s_wl = s_wl.unsqueeze(-3)
+        s = s_wl * s
+    return (w * s).to(compute_dtype)

@@ -1,0 +1,56 @@
+"""The deployed linear over an exported (nibble-packed) artifact leaf."""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .quant_matmul import quant_matmul, tiles_ok as kernel_tiles_ok
+
+__all__ = ["kernel_tiles_ok", "qlinear_deployed"]
+
+
+def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
+                     plan=None) -> torch.Tensor:
+    """``y = x @ dequant(export) (+b)``; x ``[..., K]``, export from
+    ``core.dof.export_qlinear``.
+
+    ``plan`` (a ``serve.deploy.DeployPlan``) overrides ``use_kernels``.  A
+    packed int4 leaf whose shape passes :func:`kernel_tiles_ok` goes through
+    ``quant_matmul`` (the CUDA kernel for CUDA tensors); other shapes take
+    the plain version.  int8 (exempt, unpacked) leaves keep the integer
+    weights as the dot operand with per-group partial sums, as the JAX
+    package does.
+    """
+    if plan is not None:
+        use_kernels = plan.use_kernels
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    q = export["q"]
+    s_wl = export.get("s_wl")
+    if s_wl is None:
+        s_wl = torch.ones((x.shape[-1],), dtype=torch.float32,
+                          device=x.device)
+    s_wr = export["s_wr"]
+    if s_wr.ndim == 0:
+        s_wr = torch.broadcast_to(s_wr, (q.shape[-1],)).contiguous()
+    n_groups = s_wr.shape[0] if s_wr.ndim == 2 else None
+    if q.dtype == torch.uint8:
+        if use_kernels and kernel_tiles_ok(x2.shape[0], q.shape[-1],
+                                           x2.shape[-1], n_groups):
+            y = quant_matmul(x2, q, s_wl, s_wr)
+        else:
+            y = ref.quant_matmul_ref(x2, q, s_wl, s_wr)
+    else:
+        xs = x2.to(torch.float32) * s_wl[None, :]
+        qf = q.to(torch.float32)
+        K, N = q.shape
+        if n_groups is not None:
+            g = K // n_groups
+            p = torch.einsum("bgk,gkn->gbn", xs.reshape(-1, n_groups, g),
+                             qf.reshape(n_groups, g, N))
+            y = torch.sum(p * s_wr[:, None, :], dim=0).to(x.dtype)
+        else:
+            y = (xs @ qf * s_wr[None, :]).to(x.dtype)
+    if "b" in export:
+        y = y + export["b"].to(y.dtype)
+    return y.reshape(*lead, -1)

@@ -1,0 +1,142 @@
+"""Quantization-aware dense transformer: init, caches and the forward.
+
+Teacher (``qcfg=None``) and student run the same code.  Layer parameters
+stay stacked on a leading axis, as the JAX package's ``vmap``-stacked trees
+are, so converted trees and exports line up; the ``lax.scan`` over layers is
+a loop over that axis.  Only the dense GQA family is ported.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..core import dof
+from ..core.plan import plan_view
+from ..core.qconfig import QuantConfig
+from ..device import resolve_device
+from .attention import attention, init_attention, init_kv_cache
+from .config import ModelConfig
+from .layers import embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm
+
+Params = dict[str, Any]
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.mlp != "swiglu" or cfg.tie_embeddings
+            or cfg.mrope_sections or cfg.moe or cfg.mla or cfg.ssm):
+        raise NotImplementedError(
+            f"repro_torch ports the dense GQA family (SwiGLU, untied head, "
+            f"RoPE); {cfg.name!r} is family {cfg.family!r}")
+
+
+def _sorted(tree):
+    return ({k: _sorted(tree[k]) for k in sorted(tree)}
+            if isinstance(tree, dict) else tree)
+
+
+def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
+                      qcfg: QuantConfig | None, n: int) -> Params:
+    lead = (n,)
+    layers = {"norm1": init_rmsnorm(cfg.d_model, lead, gen.device),
+              "norm2": init_rmsnorm(cfg.d_model, lead, gen.device),
+              "attn": init_attention(gen, cfg, qcfg, lead=lead),
+              "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, qcfg, bias=False,
+                              lead=lead)}
+    # the JAX package's vmap-stacked layer tree comes back with sorted keys;
+    # keeping that order keeps plan JSON and artifact walk order identical
+    return _sorted(layers)
+
+
+def init_model(gen: torch.Generator | int, cfg: ModelConfig,
+               qcfg: QuantConfig | None, device=None) -> Params:
+    """Random parameters from ``gen`` (or a seed) on ``device`` (``None`` →
+    the card).  Key order follows the JAX package, so the resolved plan's
+    JSON is the same for a converted tree and for one built here."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    if isinstance(gen, int):
+        gen = torch.Generator(device=dev).manual_seed(gen)
+    elif gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device} but device {dev}")
+    V, d = cfg.vocab_padded, cfg.d_model
+    params: Params = {"final_norm": init_rmsnorm(d, device=dev),
+                      "embed": init_embed(gen, V, d, qcfg),
+                      "lm_head": dof.init_qlinear(
+                          gen, d, V, qcfg, name="lm_head",
+                          w_bits=None if qcfg is None else qcfg.embed_bits)}
+    if qcfg is not None:
+        params["head_stream"] = dof.init_stream(d, device=dev)
+    params["layers"] = _init_attn_layers(gen, cfg, qcfg, cfg.n_layers)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Params:
+    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, dtype,
+                         device=device)
+
+
+def stack_depth(tree) -> int:
+    """Length of the leading (layer) axis of a stacked tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels):
+    h = rmsnorm(x, lp["norm1"])
+    x = x + attention(h, lp["attn"], cfg, qcfg, positions, cache,
+                      plan=pv.child("attn"), use_kernels=use_kernels)
+    h = rmsnorm(x, lp["norm2"])
+    return x + mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"))
+
+
+def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
+            batch: dict[str, torch.Tensor], cache: Params | None = None,
+            compute_dtype=torch.bfloat16, plan=None,
+            use_kernels: bool = False) -> dict[str, Any]:
+    """Returns {hidden, logits, cache}.
+
+    cache=None → full sequence (train / eval); a cache → prefill (S > 1) or
+    decode (S == 1), writing K/V into it in place and advancing its
+    ``pos``.  ``plan`` makes the fake-quant forward plan-aware (per-path
+    bits); ``use_kernels`` routes the per-slot decode attention through the
+    kernel (``models.attention.decode_route``).
+    """
+    _require_dense(cfg)
+    pv = plan_view(plan)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype)
+    base = 0 if cache is None else cache["pos"]
+    ar = torch.arange(S, device=tokens.device)
+    if isinstance(base, torch.Tensor) and base.ndim == 1:
+        positions = base[:, None] + ar[None, :]
+    else:
+        positions = torch.broadcast_to(base + ar[None, :], (B, S))
+    layers = params["layers"]
+    lpv = pv.child("layers")
+    shared = {} if cache is None else {
+        k: cache[k] for k in ("pos", "pt") if k in cache}
+    for i in range(stack_depth(layers)):
+        c = None if cache is None else {
+            **{k: v[i] for k, v in cache.items() if k not in ("pos", "pt")},
+            **shared}
+        x = _attn_block(x, layer_slice(layers, i), cfg, qcfg, positions, c,
+                        lpv, use_kernels)
+    if cache is not None:
+        cache["pos"] = cache["pos"] + S
+    h = rmsnorm(x, params["final_norm"])
+    logits = dof.qlinear(h, params["lm_head"], qcfg,
+                         stream=params.get("head_stream"),
+                         bits=None if qcfg is None
+                         else pv.bits("lm_head", qcfg.embed_bits))
+    return {"hidden": h, "logits": logits, "cache": cache}

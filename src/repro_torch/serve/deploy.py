@@ -1,0 +1,327 @@
+"""Deployment export: freeze the offline subgraph into serving constants.
+
+``export_for_layers`` walks the student tree, runs each linear's offline
+subgraph once (quantize → int4-pack) and drops the FP masters, streams and
+DoF.  ``deploy_view`` turns the artifact back into a forward()-compatible
+tree of dequantized weights — what the JAX package's ``Engine`` serves, and
+so what this one serves.  Per-tensor decisions come from the resolved
+:class:`~repro_torch.core.plan.QuantPlan` carried by the
+:class:`DeployPlan`; the artifact embeds the plan as a uint8 leaf.
+
+Stacked layer tensors are exported and dequantized one layer at a time, so
+a full-width model never holds more than one layer's f32 temporaries.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..core import dof
+from ..core.fakequant import quantize
+from ..core.plan import (PLAN_KEY, STREAM_KEYS, STREAM_OF, QuantPlan,
+                         _is_qlinear, plan_from_array, plan_to_array,
+                         resolve_plan)
+from ..core.qconfig import QLayout, QuantConfig
+from ..device import resolve_device
+from ..kernels.ops import kernel_tiles_ok, qlinear_deployed
+from ..kernels.quant_matmul import quant_matmul
+from ..models import init_cache
+from ..models.transformer import layer_slice, stack_depth
+from .kv_cache import PAGED_KV_FAMILIES, KVSpec
+
+Params = dict[str, Any]
+
+_STACKED = ("layers",)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeployPlan:
+    """Static deployment decisions, fixed at export time.
+
+    Per-tensor truth lives in ``quant_plan``.  ``use_kernels`` routes the
+    decode attention and ``qlinear_deployed`` through the CUDA kernels; it
+    is on by default, and ``False`` is the plain route on the card.
+    """
+    qcfg: QuantConfig
+    arch: str = ""
+    family: str = "dense"
+    use_kernels: bool = True
+    layout: QLayout | None = None
+    quant_plan: QuantPlan | None = None
+
+    def _plan(self) -> QuantPlan:
+        if self.quant_plan is None:
+            raise ValueError("DeployPlan has no resolved QuantPlan; build it "
+                             "with make_deploy_plan(params=...) or from an "
+                             "artifact that embeds one")
+        return self.quant_plan
+
+    def spec_for(self, path: str):
+        return None if self.quant_plan is None else self.quant_plan.get(path)
+
+    def bits_for(self, path: str) -> int:
+        return self._plan().bits_for(path)
+
+    def is_packed(self, path: str) -> bool:
+        return self._plan().is_packed(path)
+
+
+def make_deploy_plan(qcfg: QuantConfig, arch: str = "", family: str = "dense",
+                     use_kernels: bool = True,
+                     quant_plan: QuantPlan | None = None, params=None,
+                     model_cfg=None) -> DeployPlan:
+    """Pass a resolved ``quant_plan`` or the student ``params`` to resolve
+    one."""
+    if quant_plan is None and params is not None:
+        quant_plan = resolve_plan(qcfg, params, model_cfg=model_cfg)
+    return DeployPlan(qcfg=qcfg, arch=arch, family=family,
+                      use_kernels=use_kernels, layout=qcfg.layout,
+                      quant_plan=quant_plan)
+
+
+def plan_from_artifact(exported: Params) -> QuantPlan | None:
+    """The QuantPlan embedded in an artifact, or None if it has none."""
+    arr = exported.get(PLAN_KEY) if isinstance(exported, dict) else None
+    return None if arr is None else plan_from_array(arr)
+
+
+def _as_plan(plan_or_qcfg, params=None, artifact=None) -> DeployPlan:
+    plan = (plan_or_qcfg if isinstance(plan_or_qcfg, DeployPlan)
+            else make_deploy_plan(plan_or_qcfg))
+    if plan.quant_plan is None and artifact is not None:
+        plan = dataclasses.replace(plan,
+                                   quant_plan=plan_from_artifact(artifact))
+    if plan.quant_plan is None and params is not None:
+        plan = dataclasses.replace(
+            plan, quant_plan=resolve_plan(plan.qcfg, params))
+    return plan
+
+
+def init_slot_cache(cfg, max_slots: int, max_len: int,
+                    dtype=torch.bfloat16, kv: KVSpec | None = None,
+                    device=None) -> Params:
+    """The preallocated slot-indexed serving cache.
+
+    ``kv=None``: the monolithic cache with a per-slot ``pos [max_slots]``.
+    With a :class:`KVSpec`: per-layer int8 page pools (plus the trash page),
+    per-layer per-slot per-kv-head scales (1.0 until install fits them),
+    the shared page table (all trash) and ``pos``.
+    """
+    if kv is not None:
+        if cfg.family not in PAGED_KV_FAMILIES:
+            raise ValueError(f"paged KV cache is not defined for family "
+                             f"{cfg.family!r}")
+        L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads_padded, cfg.head_dim
+        pool = (L, kv.n_pages + 1, kv.page_size, Hkv, hd)
+        return {
+            "k": torch.zeros(pool, dtype=torch.int8, device=device),
+            "v": torch.zeros(pool, dtype=torch.int8, device=device),
+            "k_scale": torch.ones((L, max_slots, Hkv), dtype=torch.float32,
+                                  device=device),
+            "v_scale": torch.ones((L, max_slots, Hkv), dtype=torch.float32,
+                                  device=device),
+            "pt": torch.full((max_slots, kv.max_pages_per_slot),
+                             kv.trash_page, dtype=torch.int32, device=device),
+            "pos": torch.zeros((max_slots,), dtype=torch.int32,
+                               device=device),
+        }
+    cache = init_cache(cfg, max_slots, max_len, dtype, device=device)
+    cache["pos"] = torch.zeros((max_slots,), dtype=torch.int32, device=device)
+    return cache
+
+
+def init_slot_state(max_slots: int, device=None) -> Params:
+    """Per-slot decode bookkeeping and sampling state, all on the device, so
+    the decode loop needs one host transfer per step.  ``seed`` roots each
+    slot's counter-based sampling chain (core/sampling.py); the defaults
+    decode greedily."""
+    S = max_slots
+
+    def full(v, dtype):
+        return torch.full((S,), v, dtype=dtype, device=device)
+
+    return {"cur": full(0, torch.int32),
+            "done": full(True, torch.bool),
+            "counts": full(0, torch.int32),
+            "budget": full(0, torch.int32),
+            "eos": full(-1, torch.int32),
+            "seed": full(0, torch.int64),
+            "temp": full(0.0, torch.float32),
+            "top_k": full(0, torch.int32),
+            "top_p": full(1.0, torch.float32)}
+
+
+def _stream_log_sa(name: str, parent: Params):
+    sname = STREAM_OF.get(name)
+    stream = parent.get(sname) if sname else None
+    return None if stream is None else stream["log_sa"]
+
+
+def _export_node(path: tuple, node: Params, parent: Params,
+                 plan: DeployPlan) -> Params:
+    dotted = ".".join(path)
+    return dof.export_qlinear(node, plan.qcfg,
+                              log_sa_in=_stream_log_sa(path[-1], parent),
+                              pack=plan.is_packed(dotted),
+                              bits=plan.bits_for(dotted))
+
+
+def _walk(tree, plan: DeployPlan, prefix: tuple = ()):
+    if isinstance(tree, dict):
+        if "w" in tree and "log_s" in tree:          # quantized embedding
+            s = torch.exp(tree["log_s"])
+            q = quantize(tree["w"], s, plan.qcfg.embed_bits, signed=True)
+            return {"q": q.to(torch.int8), "s": s.to(torch.float32)}
+        out = {}
+        for k, v in tree.items():
+            if k in STREAM_KEYS:
+                continue                             # folded into weights
+            if _is_qlinear(v):
+                out[k] = _export_node(prefix + (k,), v, tree, plan)
+            else:
+                out[k] = _walk(v, plan, prefix + (k,))
+        return out
+    return tree
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def to_device(tree, dev) -> Any:
+    """A tree of tensors on ``dev`` (leaves already there are not copied)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def export_for_layers(params: Params, plan_or_qcfg, device=None) -> Params:
+    """Student params → deployment artifact on ``device`` (``None`` → the
+    card), with the serialized QuantPlan under ``PLAN_KEY``.  Stacked layers
+    are exported one at a time."""
+    dev = resolve_device(device)
+    plan = _as_plan(plan_or_qcfg, params=params)
+    out = {}
+    for k, v in params.items():
+        if k in _STACKED:
+            out[k] = _stack([_walk(to_device(layer_slice(v, i), dev), plan,
+                                   (k,)) for i in range(stack_depth(v))])
+        elif k in STREAM_KEYS:
+            continue
+        elif _is_qlinear(v):
+            streams = {s: to_device(params[s], dev)
+                       for s in STREAM_KEYS & params.keys()}
+            out[k] = _export_node((k,), to_device(v, dev), streams, plan)
+        else:
+            out[k] = _walk(to_device(v, dev), plan, (k,))
+    out[PLAN_KEY] = plan_to_array(plan._plan(), device=dev)
+    return out
+
+
+def _dequant(ex: Params, dtype) -> torch.Tensor:
+    """dequantize_export, one stacked slice at a time."""
+    packed = ex["q"].dtype == torch.uint8
+    if ex["q"].ndim == 2:
+        return dof.dequantize_export(ex, dtype, packed=packed)
+    return torch.stack([_dequant(layer_slice(ex, i), dtype)
+                        for i in range(ex["q"].shape[0])])
+
+
+def deploy_view(exported: Params, plan_or_qcfg,
+                dtype=torch.bfloat16) -> Params:
+    """Artifact → forward()-compatible tree of dequantized weights (use
+    with ``qcfg=None`` in forward), on the artifact's device."""
+    _as_plan(plan_or_qcfg, artifact=exported)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if "q" in tree and "s" in tree:          # embedding
+                return {"w": tree["q"].to(torch.float32) * tree["s"]}
+            if "q" in tree and "s_wr" in tree:
+                out: Params = {"w": _dequant(tree, dtype)}
+                if "b" in tree:
+                    out["b"] = tree["b"]
+                return out
+            return {k: walk(v) for k, v in tree.items() if k != PLAN_KEY}
+        return tree
+
+    return walk(exported)
+
+
+def find_exported_linears(tree, prefix: tuple = ()) -> list[tuple]:
+    """Paths of every exported linear ({q, s_wr} with a matmul-shaped q)."""
+    out: list[tuple] = []
+    if isinstance(tree, dict):
+        if "q" in tree and "s_wr" in tree:
+            if tree["s_wr"].ndim >= tree["q"].ndim - 2:
+                out.append(prefix)
+            return out
+        for k, v in tree.items():
+            if k == PLAN_KEY:
+                continue
+            out.extend(find_exported_linears(v, prefix + (k,)))
+    return out
+
+
+def kernel_route_check(exported: Params, plan: DeployPlan) -> dict | None:
+    """Drive ONE exported linear through ``kernels.ops.qlinear_deployed``
+    under the plan and compare with the dequantized f32 matmul.
+
+    Returns ``{path, layout, kernel, max_err}``; ``kernel`` says whether the
+    CUDA ``quant_matmul`` kernel actually launched (read off its launch
+    count), so the check cannot report parity that never ran the kernel.
+    Prefers a linear whose packed shape the kernel takes.  None if the
+    artifact has no matmul-shaped linear.
+    """
+    paths = find_exported_linears(exported)
+    if not paths:
+        return None
+    M = 4                                     # probe batch rows
+
+    def leaf(path):
+        ex = exported
+        for k in path:
+            ex = ex[k]
+        return ex
+
+    def unstack(ex):
+        while ex["q"].ndim > 2:
+            ex = layer_slice(ex, 0)
+        return ex
+
+    def reaches_kernel(ex):
+        if ex["q"].dtype != torch.uint8:
+            return False
+        n_groups = ex["s_wr"].shape[0] if ex["s_wr"].ndim == 2 else None
+        return kernel_tiles_ok(M, ex["q"].shape[-1], ex["q"].shape[-2] * 2,
+                               n_groups)
+
+    chosen = None
+    for path in paths:
+        ex = unstack(leaf(path))
+        if reaches_kernel(ex):
+            chosen = (path, ex)
+            break
+        if chosen is None:
+            chosen = (path, ex)
+    path, ex = chosen
+    dotted = ".".join(str(p) for p in path)
+    spec = plan.spec_for(dotted)
+    w = dof.dequantize_export(ex, torch.float32,
+                              packed=ex["q"].dtype == torch.uint8)
+    gen = torch.Generator(device=w.device).manual_seed(0)
+    x = torch.randn((M, w.shape[0]), generator=gen, device=w.device)
+    before = quant_matmul.launches
+    y = qlinear_deployed(x, ex, plan=plan)
+    launched = quant_matmul.launches > before
+    y_ref = x @ w
+    if "b" in ex:
+        y_ref = y_ref + ex["b"]
+    layout = spec.layout if spec is not None else str(
+        plan.layout if plan.layout is not None else plan.qcfg.layout)
+    return {"path": dotted, "layout": layout, "kernel": launched,
+            "max_err": float(torch.max(torch.abs(y - y_ref)))}

@@ -1,0 +1,192 @@
+"""repro_torch kernel wrappers and the deployed linear vs the JAX package.
+
+On the CPU each wrapper runs its plain PyTorch version; that is what is held
+against the JAX Pallas kernels here (in interpret mode, as
+tests/test_kernels.py runs them).  The CUDA kernels themselves are held
+against the plain versions on the card by tests/test_torch_cuda.py and by
+chip_smoke.py.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import dof as j_dof  # noqa: E402
+from repro.core import permissive as j_permissive  # noqa: E402
+from repro.kernels import decode_attention as j_decode_attention  # noqa: E402
+from repro.kernels import quant_matmul as j_quant_matmul  # noqa: E402
+from repro.kernels.ops import qlinear_deployed as j_qlinear_deployed  # noqa: E402
+from repro.serve.deploy import kernel_route_check as j_route_check  # noqa: E402
+from repro.serve.deploy import make_deploy_plan as j_make_plan  # noqa: E402
+from repro.serve.deploy import export_for_layers as j_export  # noqa: E402
+from repro.configs.qwen3_8b import SMOKE as J_SMOKE  # noqa: E402
+from repro.core.qconfig import QuantConfig as JQ  # noqa: E402
+from repro.models import init_model as j_init_model  # noqa: E402
+from repro_torch.core.fakequant import pack_int4  # noqa: E402
+from repro_torch.core.qconfig import QuantConfig as TQ  # noqa: E402
+from repro_torch.interop import from_numpy_tree  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.ops import kernel_tiles_ok, qlinear_deployed  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.serve.deploy import DeployPlan, kernel_route_check  # noqa: E402
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _qmm_case(M, K, N, layout, g, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    q4 = rng.integers(-8, 8, size=(K, N)).astype(np.int8)
+    swl = (np.exp(rng.normal(size=(K,)) * 0.2) * 0.05).astype(np.float32)
+    shape = (K // g, N) if layout == "group" else (N,)
+    swr = np.exp(rng.normal(size=shape) * 0.2).astype(np.float32)
+    return x, q4, swl, swr
+
+
+@pytest.mark.parametrize("M,K,N,bk", [
+    (64, 128, 64, 64), (128, 256, 128, 128), (32, 64, 256, 64),
+    (128, 512, 64, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channel", "group"])
+def test_quant_matmul_matches_jax(M, K, N, bk, dtype, layout):
+    """test_quant_matmul_sweep's shapes and layouts: the port's quant_matmul
+    (plain on the CPU) vs the JAX Pallas int8dot kernel in interpret mode;
+    2e-5 in f32, 2e-2 in bf16 (outputs round to bf16 in both)."""
+    g = min(bk, 64)
+    x, q4, swl, swr = _qmm_case(M, K, N, layout, g, M + K + N)
+    jdt = getattr(jnp, dtype)
+    qw = pack_int4(_t(q4), axis=0).numpy()
+    yj = j_quant_matmul(jnp.asarray(x, jdt), jnp.asarray(qw), jnp.asarray(swl),
+                        jnp.asarray(swr), bk=bk, interpret=True)  # qft: noqa[QFT004] parity oracle
+    xt = _t(x).to(getattr(torch, dtype))
+    before = quant_matmul.launches
+    yt = quant_matmul(xt, _t(qw), _t(swl), _t(swr))
+    assert quant_matmul.launches == before     # no kernel launch on the CPU
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(yt.float().numpy(),
+                               np.asarray(yj, np.float32), rtol=tol, atol=tol)
+
+
+def _fd_case(S, T, Hkv, G, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(S, Hkv, G, hd)).astype(np.float32)
+    k = rng.normal(size=(S, T, Hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(S, T, Hkv, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("S,T,Hkv,G,hd,bk", [
+    (3, 64, 2, 2, 16, 64), (5, 128, 2, 2, 8, 32), (4, 256, 1, 4, 32, 128),
+    (2, 64, 4, 1, 16, 64)])
+def test_decode_attention_matches_jax(S, T, Hkv, G, hd, bk):
+    """test_decode_attention_parity's shapes and odd per-slot lengths
+    (including length 1 and T), f32, 2e-5."""
+    q, k, v = _fd_case(S, T, Hkv, G, hd, S * T + hd)
+    lengths = (np.asarray([1, T // 3 + 1, bk, T, T // 2 + 3], np.int32)[:S]
+               % (T + 1)).clip(1)
+    oj = j_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lengths), bk=bk, interpret=True)  # qft: noqa[QFT004] parity oracle
+    ot = decode_attention(_t(q), _t(k), _t(v), _t(lengths))
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_decode_attention_int8_matches_jax():
+    """The int8 + per-slot per-kv-head scales path, f32, 2e-5."""
+    S, T, Hkv, G, hd = 4, 96, 2, 4, 16
+    q, _, _ = _fd_case(S, T, Hkv, G, hd, 11)
+    rng = np.random.default_rng(12)
+    k8 = rng.integers(-127, 128, size=(S, T, Hkv, hd)).astype(np.int8)
+    v8 = rng.integers(-127, 128, size=(S, T, Hkv, hd)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.03, size=(S, Hkv)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.03, size=(S, Hkv)).astype(np.float32)
+    lengths = np.asarray([1, 33, 64, 96], np.int32)
+    oj = j_decode_attention(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+                            jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+                            v_scale=jnp.asarray(vs), bk=32, interpret=True)  # qft: noqa[QFT004] parity oracle
+    ot = decode_attention(_t(q), _t(k8), _t(v8), _t(lengths), _t(ks), _t(vs))
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_wrappers_reject_inputs_they_cannot_take():
+    q, k, v = (_t(a) for a in _fd_case(2, 32, 2, 2, 16, 0))
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention(q, k.to(torch.int8), v.to(torch.int8),
+                         torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="qw"):
+        quant_matmul(torch.zeros(4, 64), torch.zeros(16, 8, dtype=torch.uint8),
+                     torch.ones(64), torch.ones(8))
+
+
+def test_wrappers_raise_off_cpu_instead_of_falling_back():
+    """Only a CPU tensor takes the plain version: any other device launches
+    the kernel or raises."""
+    q, k, v = (_t(a).to("meta") for a in _fd_case(2, 32, 2, 2, 16, 0))
+    lengths = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA device or on"):
+        decode_attention(q, k, v, lengths)
+    x, q4, swl, swr = _qmm_case(4, 64, 64, "channel", 64, 0)
+    args = [_t(x), pack_int4(_t(q4), axis=0), _t(swl), _t(swr)]
+    args[1] = args[1].to("meta")
+    with pytest.raises(RuntimeError, match="CUDA device or on"):
+        quant_matmul(*args)
+
+
+def test_kernel_tiles_ok_gate():
+    assert kernel_tiles_ok(8, 4096, 4096) and kernel_tiles_ok(1, 64, 64)
+    assert kernel_tiles_ok(128, 12288, 4096, n_groups=4096 // 128)
+    assert kernel_tiles_ok(4, 64, 128, n_groups=128 // 32)
+    assert not kernel_tiles_ok(4, 96, 64)                   # N % 64
+    assert not kernel_tiles_ok(4, 64, 96)                   # K % 64
+    assert not kernel_tiles_ok(4, 64, 192, n_groups=2)      # g = 96
+    assert not kernel_tiles_ok(4, 64, 128, n_groups=16)     # g = 8
+    assert not kernel_tiles_ok(0, 64, 64)
+
+
+@pytest.mark.parametrize("bits,layout", [(4, "channel"), (4, "group:32"),
+                                         (4, "layerwise"), (8, "channel"),
+                                         (8, "group:32")])
+def test_qlinear_deployed_matches_jax(bits, layout):
+    """Packed int4 (kernel route, plain on the CPU) and int8-exempt exports
+    with per-group partials, vs the JAX package's qlinear_deployed."""
+    cfg = j_permissive(w_layout=layout)
+    p = j_dof.init_qlinear(jax.random.PRNGKey(bits), 128, 64, cfg, bias=True)
+    p = j_dof.mmse_init_qlinear(p, cfg, bits=bits)
+    ex = jax.device_get(j_dof.export_qlinear(p, cfg, bits=bits))
+    x = np.random.default_rng(2).normal(size=(2, 3, 128)).astype(np.float32)
+    yj = j_qlinear_deployed(jnp.asarray(x), ex, use_pallas=True,
+                            interpret=True)  # qft: noqa[QFT004] parity oracle
+    yt = qlinear_deployed(_t(x), from_numpy_tree(ex, "cpu"))
+    assert yt.shape == (2, 3, 64)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_kernel_route_check_matches_jax_on_cpu():
+    """Same linear chosen, same layout; on the CPU the kernel does not
+    launch (``kernel`` False) and the plain route agrees with the f32
+    dequantized product.  Widths are multiples of 64 so both packages' tile
+    gates accept the same linears (SMOKE's 32-wide wk passes only the
+    Pallas gate)."""
+    jq = JQ()
+    cfg = dataclasses.replace(J_SMOKE, d_model=128, head_dim=32, d_ff=256)
+    params = j_init_model(jax.random.PRNGKey(0), cfg, jq)
+    plan = j_make_plan(jq, params=params, model_cfg=cfg, use_pallas=True,
+                       interpret=True)  # qft: noqa[QFT004] parity oracle
+    ex = jax.jit(lambda p: j_export(p, plan))(params)
+    want = j_route_check(ex, plan)
+    got = kernel_route_check(from_numpy_tree(jax.device_get(ex), "cpu"),
+                             DeployPlan(qcfg=TQ()))
+    assert (got["path"], got["layout"]) == (want["path"], want["layout"])
+    assert want["pallas"] and not got["kernel"]
+    assert got["max_err"] < 1e-5
