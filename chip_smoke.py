@@ -10,11 +10,14 @@ Phases, each fatal on failure:
 2. build — every CUDA source in src/repro_torch/csrc, one nvcc each, all
    started together.
 3. kernels — each kernel against its plain PyTorch version at the shapes
-   the main path gives it (decode_attention at the engine's slot pool and
+   the main paths give it (decode_attention at the engine's slot pool and
    paged view, bf16 and int8; quant_matmul at qwen3-8b's seven linear
-   shapes, decode and prefill M, channel and group:128), with the error,
-   the kernel's, the plain version's and a library call's time (CUDA
-   events, after warm-up) and the least time the card could take.
+   shapes, decode and prefill M, channel and group:128; fake_quant forward
+   and both backward rules at qwen3-8b's four layer-linear shapes with a
+   full doubly-channelwise scale, the embedding with a per-row scale and
+   the lm_head), with the error, the kernel's, the plain version's and a
+   library call's time (CUDA events, after warm-up) and the least time the
+   card could take.
 4. reference — a SMOKE-size model served on the card through the kernels
    and on the CPU through the plain route must emit the same greedy tokens
    (a token may differ only where the CPU's top-2 logit margin is within a
@@ -25,6 +28,15 @@ Phases, each fatal on failure:
    engine with paged int8 KV (decode_attention every layer of every decode
    step), counting each kernel's launches; the same requests again through
    the plain route, tokens compared.
+6. train path — QFT on qwen3-8b at full width, depth cut to 4 of 36
+   layers (the f32 training state of 36 layers does not fit one card):
+   f32 teacher from a seed → student → activation calibration → APQ/MMSE
+   scale init → 6 steps of joint finetuning (batch 16 x 512 tokens, 4
+   microbatches, the paper's Adam recipe), every quantized weight's
+   fake-quant forward and backward through fake_quant, launches counted;
+   one more step's loss and gradients through the plain route, compared;
+   then export, the route check and 2 greedy requests served from the
+   trained artifact (quant_matmul, decode_attention).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -48,10 +60,16 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 6
+TRAIN_MICROBATCHES = 4
+TRAIN_DATA = dict(n_samples=256, seq_len=512, batch_size=16, seed=0)
+
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
 MARGIN_ULPS = 4
+DEVICE = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -235,6 +253,90 @@ def check_quant_matmul(cfg) -> dict:
     return record
 
 
+def check_fake_quant(cfg) -> dict:
+    """fake_quant forward (bit-equal) and both backward rules (gx bit-equal,
+    gs bit-equal when elementwise, else within 1e-5 x max|ref|) against the
+    plain versions, at the shapes the train path gives it."""
+    import torch
+    from repro_torch.kernels.fake_quant import (fake_quant_bwd,
+                                                fake_quant_fwd)
+    from repro_torch.kernels.ref import fake_quant_grad_ref, fake_quant_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    d, hq, hkv, ff, V = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                         cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.vocab)
+    # (name, R, C, scale: "full" = s_wl ⊗ s_wr or "row" = per row, bits)
+    cases = [("wq/wo", d, hq, "full", 4), ("wk/wv", d, hkv, "full", 4),
+             ("gate/up", d, ff, "full", 4), ("down", ff, d, "full", 4),
+             ("embed", V, d, "row", 8), ("lm_head", d, V, "full", 8)]
+    record = None
+    for name, R, C, kind, bits in cases:
+        qmax = 2 ** (bits - 1) - 1
+        x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+        if kind == "full":            # an MMSE-like grid: ~3 sigma at qmax
+            s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * (
+                torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+                3 * R ** -0.5 / qmax)
+        else:
+            s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * (
+                3 * R ** -0.5 / qmax)
+        gy = torch.randn((R, C), generator=g, device=dev)
+        y = fake_quant_fwd(x, s, bits)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fake_quant_ref(x, s, bits)):
+            fail(f"fake_quant {name}: forward differs from the plain version")
+        err = 0.0
+        for rule in ("kernel", "ste"):
+            gx, gs = fake_quant_bwd(gy, x, s, bits, rule)
+            rx, rs = fake_quant_grad_ref(gy, x, s, bits, rule)
+            torch.cuda.synchronize()
+            if not torch.equal(gx, rx):
+                fail(f"fake_quant {name} {rule}: gx differs from the plain "
+                     f"version")
+            e = float((gs - rs).abs().max())
+            tol = 0.0 if kind == "full" else 1e-5 * float(rs.abs().max())
+            if not math.isfinite(e) or e > tol:
+                fail(f"fake_quant {name} {rule}: gs max_abs_err {e} > {tol}")
+            err = max(err, e)
+            del gx, gs, rx, rs
+        fwd_ms = time_ms(lambda: fake_quant_fwd(x, s, bits))
+        bwd_ms = time_ms(lambda: fake_quant_bwd(gy, x, s, bits, "ste"))
+        pfwd_ms = time_ms(lambda: fake_quant_ref(x, s, bits), iters=5)
+        pbwd_ms = time_ms(lambda: fake_quant_grad_ref(gy, x, s, bits, "ste"),
+                          iters=5)
+        n, ns = R * C, s.numel()
+        # forward: x read, y written, the scale read; backward: g and x
+        # read, gx written, the scale read and gs written
+        f_ms, f_by = bound(8 * n + 4 * ns, 4 * n, "f32")
+        b_ms, b_by = bound(12 * n + 8 * ns, 8 * n, "f32")
+        lib_ms = None
+        if kind == "row":             # one PyTorch call: the per-channel
+            xl = x.clone().requires_grad_()       # learnable fake-quant
+            sl = s[:, 0].clone().requires_grad_()
+            zl = torch.zeros_like(sl)
+
+            def lib():
+                out = torch._fake_quantize_learnable_per_channel_affine(
+                    xl, sl, zl, 0, -qmax, qmax, 1.0)
+                torch.autograd.grad(out, (xl, sl), gy)
+            lib_ms = time_ms(lib, iters=10)
+            del xl, sl, zl
+        say(f"[kernel] fake_quant {name} R={R} C={C} {kind} scale {bits}b "
+            f"max_abs_err={err:.3e} fwd ms={fwd_ms:.4f} plain_ms="
+            f"{pfwd_ms:.4f} bound_ms={f_ms:.4f} ({f_by}); bwd(ste) ms="
+            f"{bwd_ms:.4f} plain_ms={pbwd_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}); library_ms(fwd+bwd)="
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}")
+        if kind == "row":             # the largest K3 call of the train path
+            record = {"max_abs_err": err, "ms": fwd_ms + bwd_ms,
+                      "plain_ms": pfwd_ms + pbwd_ms, "bound_ms": f_ms + b_ms,
+                      "bound_by": "bytes" if "bytes" in (f_by, b_by)
+                      else "operations", "library_ms": lib_ms}
+        del x, s, gy, y
+        torch.cuda.empty_cache()
+    return record
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small model, card (kernels) vs CPU (plain route)
 # ---------------------------------------------------------------------------
@@ -312,27 +414,17 @@ def _serve(engine, reqs, timing: dict) -> list[list[int]]:
     return engine.generate(reqs)
 
 
-def profile_decode(engine, cfg, steps: int = 4) -> None:
-    """Trace a few steady decode steps (8 live slots) with torch.profiler:
-    the device's busy share of the window and the kernels by device time."""
+def _profile(run, what: str, steps: int) -> None:
+    """Run ``run()`` (``steps`` steps of work) under torch.profiler: the
+    device's busy share of the window and the kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import Request
-    engine.reset()
-    rng = torch.Generator().manual_seed(5)
-    for _ in range(engine.scfg.max_slots):
-        engine.submit(Request(prompt=torch.randint(
-            0, cfg.vocab, (64,), generator=rng).tolist(),
-            max_new_tokens=steps + 4))
-    engine.step()                         # admit, prefill, install, decode
-    engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []                             # device-side events only
@@ -349,13 +441,32 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
         say("[profile] torch.profiler recorded no device time")
         return
     rows.sort(reverse=True)
-    say(f"[profile] {steps} decode steps, 8 live slots: wall "
-        f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
-        f"{busy / steps / 1e3:.3f} ms/step ({100 * busy / wall_us:.1f}% of "
-        f"the window), {sum(r[1] for r in rows) // steps} kernel launches/step")
+    say(f"[profile] {steps} {what}: wall {wall_us / steps / 1e3:.3f} ms/step,"
+        f" device busy {busy / steps / 1e3:.3f} ms/step "
+        f"({100 * busy / wall_us:.1f}% of the window), "
+        f"{sum(r[1] for r in rows) // steps} kernel launches/step")
     for dev_us, count, key in rows[:8]:
         say(f"[profile]   {100 * dev_us / busy:5.1f}% {dev_us / steps:9.1f} "
             f"us/step x{count // steps:<4d} {key[:90]}")
+
+
+def profile_decode(engine, cfg, steps: int = 4) -> None:
+    """Trace a few steady decode steps (8 live slots)."""
+    import torch
+    from repro_torch.serve.engine import Request
+    engine.reset()
+    rng = torch.Generator().manual_seed(5)
+    for _ in range(engine.scfg.max_slots):
+        engine.submit(Request(prompt=torch.randint(
+            0, cfg.vocab, (64,), generator=rng).tolist(),
+            max_new_tokens=steps + 4))
+    engine.step()                         # admit, prefill, install, decode
+    engine.step()
+
+    def run():
+        for _ in range(steps):
+            engine.step()
+    _profile(run, "decode steps, 8 live slots", steps)
 
 
 def main_path(cfg) -> dict:
@@ -463,6 +574,194 @@ def main_path(cfg) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the train path at full width
+# ---------------------------------------------------------------------------
+
+def _counts() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.fake_quant import fake_quant_kernel
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return {"fake_quant_fwd": fake_quant_kernel.launches_fwd,
+            "fake_quant_bwd": fake_quant_kernel.launches_bwd,
+            "quant_matmul": quant_matmul.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.fake_quant import fake_quant_kernel
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    fake_quant_kernel.launches_fwd = fake_quant_kernel.launches_bwd = 0
+    quant_matmul.launches = decode_attention.launches = 0
+
+
+def _gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_path(cfg) -> dict:
+    """QFT at full width, 4 layers: prepare, 6 steps, the plain-route
+    comparison, export and serve.  Returns the kernels' launch counts."""
+    import torch
+    from repro_torch.core import dof
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.calib import CalibConfig, CalibDataset
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.serve.deploy import (export_for_layers,
+                                          kernel_route_check,
+                                          make_deploy_plan)
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
+    from repro_torch.train.steps import make_value_and_grad
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    L = cfg.n_layers
+    qcfg = QuantConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                         None, device=DEVICE)
+    n_params = sum(t.numel() for _, t in tree_items(teacher))
+    data = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
+    calib = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
+    trainer = QFTTrainer(cfg, qcfg, teacher, QFTConfig(),
+                         steps_per_epoch=data.steps_per_epoch,
+                         microbatches=TRAIN_MICROBATCHES)
+
+    # --- the path, with every kernel count at 0 just before it
+    _zero_counts()
+    student = trainer.prepare_student(1, [next(calib) for _ in range(2)])
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    peak_prep = _gib()
+    say(f"[train] {cfg.name} full width, {L} of 36 layers ({n_params / 1e9:.3f}"
+        f" B parameters): teacher + prepare_student (calibration on 2 "
+        f"batches, APQ/MMSE init) {t_prep:.1f} s, peak {peak_prep:.2f} GiB")
+    if _counts()["fake_quant_fwd"]:
+        fail("prepare_student launched fake_quant: the teacher is FP")
+    torch.cuda.reset_peak_memory_stats()
+    student, hist = trainer.run(student, data, steps=TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    peak_run = _gib()
+    losses = [h["loss"] for h in hist]
+    ts = [h["t"] for h in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip([0.0] + ts[:-1], ts)]
+    per_fwd = 1 + 7 * L           # embed + 7 linears a layer; no lm_head
+    want = TRAIN_STEPS * TRAIN_MICROBATCHES * per_fwd
+    run_counts = _counts()
+    say(f"[train] {TRAIN_STEPS} steps, batch {TRAIN_DATA['batch_size']} x "
+        f"{TRAIN_DATA['seq_len']} in {TRAIN_MICROBATCHES} microbatches: "
+        f"loss {', '.join(f'{x:.6f}' for x in losses)}; ms/step "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{TRAIN_STEPS} "
+        f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
+        f"{peak_run:.2f} GiB")
+    say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
+        f"backward {run_counts['fake_quant_bwd']} (= {TRAIN_STEPS} steps x "
+        f"{TRAIN_MICROBATCHES} microbatches x (1 embed + 7 x {L} linears); "
+        f"lm_head is not run: the backbone-L2 loss never reads it)")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train losses {losses}")
+    if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
+            want, want):
+        fail(f"fake_quant launched {run_counts['fake_quant_fwd']} forward / "
+             f"{run_counts['fake_quant_bwd']} backward, want {want} each")
+
+    # --- export the trained student and serve it
+    plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
+                            params=student, model_cfg=cfg)
+    exempt = sorted(plan._plan().exempt_names)
+    if exempt:                    # trained on the role ladder's grid
+        fail(f"the export plan exempts {exempt}: not the trained grid")
+    with torch.no_grad():
+        exported = export_for_layers(student, plan, device=DEVICE)
+        lp0 = layer_slice(student["layers"], 0)
+        w_eff = dof.effective_weight(lp0["attn"]["wq"], qcfg,
+                                     lp0["attn"]["in_stream"]["log_sa"],
+                                     compute_dtype=torch.float32)
+        w_dq = dof.dequantize_export(
+            layer_slice(exported["layers"]["attn"]["wq"], 0), torch.float32)
+        parity = float((w_eff - w_dq).abs().max())
+        w_max = float(w_eff.abs().max())
+    del w_eff, w_dq
+    if parity > 1e-6 * w_max:
+        fail(f"export parity: layer 0 wq dequantized export vs the trained "
+             f"effective weight, max err {parity}")
+    check = kernel_route_check(exported, plan)
+    scfg = ServeConfig(max_slots=2, max_len=256, prefill_chunk=128)
+    rng = torch.Generator().manual_seed(8)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=NEW_TOKENS) for n in (40, 100)]
+    engine = Engine.from_artifact(cfg, plan, exported, scfg, device=DEVICE)
+    toks = engine.generate(reqs)
+    torch.cuda.synchronize()
+    counts = _counts()
+    # ---
+    if not (check and check["kernel"] and check["max_err"] <= 1e-4):
+        fail(f"kernel_route_check on the trained artifact: {check}")
+    for t in toks:
+        if len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t):
+            fail(f"bad output from the trained artifact: {t}")
+    if counts["decode_attention"] != L * engine.decode_steps \
+            or engine.decode_steps == 0:
+        fail(f"decode_attention launched {counts['decode_attention']} times "
+             f"over {engine.decode_steps} decode steps of {L} layers")
+    say(f"[train] export parity (layer 0 wq) {parity:.3e}; "
+        f"kernel_route_check {check['path']}: quant_matmul ran, max_err "
+        f"{check['max_err']:.3e}; served {len(reqs)} greedy requests from "
+        f"the trained artifact: {toks}; launches quant_matmul="
+        f"{counts['quant_matmul']} decode_attention="
+        f"{counts['decode_attention']} (= {L} x {engine.decode_steps}); "
+        f"peak {_gib():.2f} GiB")
+    del engine, exported
+    torch.cuda.empty_cache()
+
+    # --- one more step's loss and gradients: kernel route (profiled) vs
+    # plain route, from the trained state
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in next(data).items()}
+    grads = {}
+    for use in (True, False):
+        before = _counts()
+        vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
+                                 use_kernels=use)
+        if use:
+            def run(vg=vg):
+                grads[True] = vg(student, teacher, batch)
+            _profile(run, "train-step forward+backward (kernel route, 4 "
+                     "microbatches, no optimizer)", 1)
+        else:
+            grads[False] = vg(student, teacher, batch)
+        torch.cuda.synchronize()
+        if not use and _counts() != before:
+            fail("the plain route launched fake_quant")
+    (lk, gk), (lp, gp) = grads[True], grads[False]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    plain = dict(tree_items(gp))
+    worst, worst_at = 0.0, None
+    for path, gr in tree_items(gk):
+        ref = plain[path]
+        if gr is None or ref is None:
+            if (gr is None) != (ref is None):
+                fail(f"gradient of {path}: one route has none")
+            continue
+        rel = float((gr - ref).norm()) / max(float(ref.norm()), 1e-30)
+        if rel > worst:
+            worst, worst_at = rel, ".".join(path)
+    say(f"[train] step {TRAIN_STEPS + 1}, kernel vs plain route: loss "
+        f"{float(lk):.8f} vs {float(lp):.8f} (rel {loss_rel:.2e}); "
+        f"gradients: worst leaf {worst_at} rel L2 {worst:.2e}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if loss_rel > 1e-6:
+        fail(f"train loss kernel route {float(lk)} vs plain {float(lp)}")
+    if worst > 1e-4:
+        fail(f"gradient of {worst_at}: rel L2 {worst} > 1e-4")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -480,8 +779,10 @@ def main() -> int:
     fd = check_decode_attention(
         resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)).view_len)
     qmm = check_quant_matmul(CONFIG)
+    fq = check_fake_quant(CONFIG)
     check_reference()
     launches = main_path(CONFIG)
+    train = train_path(CONFIG)
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -491,6 +792,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
          "launches": launches["quant_matmul"], **qmm},
+        {"name": "fake_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/fake_quant.py:24",
+         "launches": train["fake_quant_fwd"] + train["fake_quant_bwd"],
+         "launches_fwd": train["fake_quant_fwd"],
+         "launches_bwd": train["fake_quant_bwd"], **fq},
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

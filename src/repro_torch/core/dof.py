@@ -18,8 +18,10 @@ from typing import Any
 
 import torch
 
+from ..kernels.fake_quant import fake_quant_kernel
 from .fakequant import (expand_group_scale, fake_quant, fake_quant_act,
                         pack_int4, quantize, unpack_int4)
+from .mmse import apq_scales, ppq_scale, ppq_scale_grouped
 from .qconfig import QuantConfig
 
 Params = dict[str, Any]
@@ -111,33 +113,135 @@ def weight_scale(p: Params, log_sa_in: torch.Tensor | None) -> torch.Tensor:
     return s_wl * s_wr
 
 
+def weight_fake_quant(w: torch.Tensor, s: torch.Tensor, bits: int,
+                      use_kernels: bool = False) -> torch.Tensor:
+    """Signed fake-quant of a weight: a CUDA weight with ``use_kernels``
+    goes through the ``fake_quant`` kernel under the ``"ste"`` rule (the
+    gradient of the plain composition), a stacked ``[..., in, out]`` one
+    slice by slice along its leading axes; anything else through the plain
+    composition.  The forward is the same bits either way."""
+    if not (use_kernels and w.is_cuda):
+        return fake_quant(w, s, bits, signed=True)
+    if w.ndim == 2:
+        return fake_quant_kernel(w, s, bits, rule="ste")
+    if w.ndim < 2:
+        raise ValueError(f"a weight has at least 2 dims, got {tuple(w.shape)}")
+    if s.ndim < w.ndim:
+        s = s.reshape((1,) * (w.ndim - s.ndim) + tuple(s.shape))
+    return torch.stack([
+        weight_fake_quant(w[i], s[i if s.shape[0] > 1 else 0], bits, True)
+        for i in range(w.shape[0])])
+
+
 def effective_weight(p: Params, cfg: QuantConfig | None,
                      log_sa_in: torch.Tensor | None = None,
                      compute_dtype=torch.bfloat16,
-                     bits: int | None = None) -> torch.Tensor:
+                     bits: int | None = None,
+                     use_kernels: bool = False) -> torch.Tensor:
     """The fake-quantized (deploy-equivalent) weight; ``cfg=None`` is the FP
     path (teacher, deploy view)."""
     w = p["w"]
     if cfg is None:
         return w.to(compute_dtype)
     s = weight_scale(p, log_sa_in)
-    return fake_quant(w, s, bits or cfg.w_bits, signed=True).to(compute_dtype)
+    return weight_fake_quant(w, s, bits or cfg.w_bits,
+                             use_kernels).to(compute_dtype)
 
 
 def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
             stream: Params | None = None,
-            bits: int | None = None) -> torch.Tensor:
+            bits: int | None = None,
+            use_kernels: bool = False) -> torch.Tensor:
     """``y = x̂ @ W_eff + b``; ``stream`` supplies both the activation
     fake-quant and S_wL (paper Appendix D)."""
     log_sa = None
     if stream is not None and cfg is not None:
         x = stream_fake_quant(x, stream, cfg)
         log_sa = stream["log_sa"]
-    w_eff = effective_weight(p, cfg, log_sa, compute_dtype=x.dtype, bits=bits)
+    w_eff = effective_weight(p, cfg, log_sa, compute_dtype=x.dtype, bits=bits,
+                             use_kernels=use_kernels)
     y = torch.matmul(x, w_eff)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# MMSE initialization (the paper's sole pre-QFT step, §4)
+# ---------------------------------------------------------------------------
+
+def _log_scale(s: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.clamp(s, min=1e-12))
+
+
+def mmse_init_qlinear(p: Params, cfg: QuantConfig, bits: int | None = None,
+                      log_sa_in: torch.Tensor | None = None) -> Params:
+    """``log_swr`` from MMSE, inverting Eq. 2: the fit runs on the
+    pre-scaled kernel ``W ⊙ S_a[:, None]`` because the total scale is
+    ``S_wL ⊗ S_wR`` with ``S_wL = 1/S_a``.  The fit granularity is read off
+    the existing ``log_swr`` shape (layerwise → scalar PPQ, channel →
+    per-out-channel PPQ, group → per-(in-group, out) PPQ); a stacked
+    (``[E, in, out]``) weight is fitted per leading index."""
+    w = p["w"]
+    bits = bits or cfg.w_bits
+    kind = swr_layout_kind(w, p["log_swr"])
+    if log_sa_in is not None:
+        w = w * torch.exp(log_sa_in)[..., :, None]
+
+    def one(wm):
+        if kind == "group":
+            s = ppq_scale_grouped(wm, bits, p["log_swr"].shape[-2],
+                                  iters=cfg.mmse_iters)
+        elif kind == "channel":
+            s = ppq_scale(wm, bits, axes=(0,), iters=cfg.mmse_iters)[0]
+        else:
+            s = ppq_scale(wm, bits, axes=None,
+                          iters=cfg.mmse_iters).reshape(())
+        return _log_scale(s)
+
+    log_swr = (torch.stack([one(wm) for wm in w]) if w.ndim == 3
+               else one(w))
+    return {**p, "log_swr": log_swr.to(torch.float32)}
+
+
+def apq_init_qlinear(p: Params, cfg: QuantConfig, bits: int | None = None
+                     ) -> tuple[Params, torch.Tensor]:
+    """Doubly-channelwise init via APQ (Alg. 2) → ``(params, log_swl)``; the
+    caller folds ``log_swl`` into the input stream (``log_sa = -log_swl``).
+
+    Non-channel layouts keep APQ's rows × columns alternation for the left
+    scale, then refit the right factor at the layer's layout resolution
+    (PPQ over ``W / S_wL``), so the ``log_swr`` shape is preserved.  A
+    stacked (``[E, in, out]``) weight shares one left scale, the geometric
+    mean over the leading index."""
+    w = p["w"]
+    bits = bits or cfg.w_bits
+    kind = swr_layout_kind(w, p["log_swr"])
+
+    def refit(wm, log_swl):
+        wn = wm / torch.exp(log_swl)[:, None]
+        if kind == "group":
+            s = ppq_scale_grouped(wn, bits, p["log_swr"].shape[-2],
+                                  iters=cfg.mmse_iters)
+        else:
+            s = ppq_scale(wn, bits, axes=None,
+                          iters=cfg.mmse_iters).reshape(())
+        return _log_scale(s)
+
+    if w.ndim == 3:
+        st = [apq_scales(we, bits, cfg.mmse_iters) for we in w]
+        s = torch.stack([a for a, _ in st])
+        t = torch.stack([b for _, b in st])
+        log_swl = torch.mean(torch.log(s[..., 0]), dim=0)
+        log_swr = (torch.log(t[:, 0, :]) if kind == "channel"
+                   else torch.stack([refit(we, log_swl) for we in w]))
+    else:
+        s, t = apq_scales(w, bits, iters=cfg.mmse_iters)
+        log_swl = torch.log(s[:, 0])
+        log_swr = (torch.log(t[0, :]) if kind == "channel"
+                   else refit(w, log_swl))
+    return ({**p, "log_swr": log_swr.to(torch.float32)},
+            log_swl.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

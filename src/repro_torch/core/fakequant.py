@@ -28,12 +28,18 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int,
              signed: bool = True,
              zero_point: torch.Tensor | None = None) -> torch.Tensor:
     """Lossy encode ``clip(round(x/scale) + zp)`` with STE; ``scale``
-    broadcasts against ``x``."""
+    broadcasts against ``x``.
+
+    The clip is ``minimum(maximum(q, lo), hi)`` on tensor bounds, as
+    ``jnp.clip`` is: where ``q`` lands exactly on a bound both split the
+    gradient ½/½ (``torch.clamp`` would pass all of it)."""
     lo, hi = qrange(bits, signed)
     q = ste_round(x / scale)
     if zero_point is not None:
         q = q + zero_point
-    return torch.clamp(q, lo, hi)
+    lo_t = torch.tensor(lo, dtype=q.dtype, device=q.device)
+    hi_t = torch.tensor(hi, dtype=q.dtype, device=q.device)
+    return torch.minimum(torch.maximum(q, lo_t), hi_t)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,

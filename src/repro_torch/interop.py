@@ -18,7 +18,7 @@ from .device import resolve_device
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 

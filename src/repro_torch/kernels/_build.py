@@ -19,7 +19,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-KERNELS = ("decode_attention", "quant_matmul")
+KERNELS = ("decode_attention", "fake_quant", "quant_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -4,9 +4,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .fake_quant import fake_quant_kernel
 from .quant_matmul import quant_matmul, tiles_ok as kernel_tiles_ok
 
-__all__ = ["kernel_tiles_ok", "qlinear_deployed"]
+__all__ = ["fused_fake_quant", "kernel_tiles_ok", "qlinear_deployed"]
 
 
 def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
@@ -54,3 +55,13 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
     if "b" in export:
         y = y + export["b"].to(y.dtype)
     return y.reshape(*lead, -1)
+
+
+def fused_fake_quant(x: torch.Tensor, scale: torch.Tensor, bits: int = 4,
+                     use_kernels: bool = False) -> torch.Tensor:
+    """``clip(round(x/s), ±qmax)·s``: a 2-D ``x`` with ``use_kernels`` goes
+    through ``fake_quant_kernel`` (the CUDA kernel for CUDA tensors) with
+    the reference kernel's gradient rule; otherwise the plain version."""
+    if use_kernels and x.ndim == 2:
+        return fake_quant_kernel(x, scale, bits, rule="kernel")
+    return ref.fake_quant_ref(x, scale, bits)

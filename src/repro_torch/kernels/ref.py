@@ -7,6 +7,7 @@ import torch
 from ..core.fakequant import expand_group_scale, unpack_int4
 
 _NEG = -1e30
+_RULES = ("kernel", "ste")
 
 
 def quant_matmul_ref(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
@@ -46,3 +47,52 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if v_scale is not None:
         ctx = ctx * v_scale.to(torch.float32)[:, :, None, None]
     return ctx.to(q.dtype)
+
+
+def fake_quant_ref(x: torch.Tensor, scale: torch.Tensor,
+                   bits: int) -> torch.Tensor:
+    """``clip(round(x/s), ±qmax)·s`` in f32, returned in x's type; ``scale``
+    broadcasts against ``x``."""
+    qmax = float(2 ** (bits - 1) - 1)
+    s = scale.to(torch.float32)
+    q = torch.clamp(torch.round(x.to(torch.float32) / s), -qmax, qmax)
+    return (q * s).to(x.dtype)
+
+
+def fake_quant_grad_ref(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                        bits: int, rule: str = "kernel"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two backwards of :func:`fake_quant_ref` → ``(gx, gs)``, with
+    ``gs`` summed to the scale's (broadcast) shape.  With ``ratio = x/s``,
+    ``r = round(ratio)`` and ``q = clip(r, ±qmax)``:
+
+    - ``"kernel"``: the Pallas kernel's custom VJP (``_fq_bwd``) — the hard
+      indicator ``inside = |ratio| <= qmax``; ``gx = g·inside``,
+      ``gs = g·(q − ratio)`` inside and ``g·q`` outside.
+    - ``"ste"``: the gradient of ``s·clip(ste_round(x/s), ±qmax)`` as autograd
+      takes it through ``minimum(maximum(·))`` (½ where ``|r| == qmax``):
+      ``c = 1, ½, 0`` for ``|r| <, ==, > qmax``; ``gx = (g·s·c)/s`` in that
+      order (the composition's chain rule) and ``gs = g·(q − c·ratio)``.
+
+    The CUDA kernel computes these expressions in the same order, so ``gx``
+    and a full-shape ``gs`` agree bit for bit; a reduced ``gs`` differs in
+    summation order only.
+    """
+    if rule not in _RULES:
+        raise ValueError(f"rule must be one of {_RULES}, got {rule!r}")
+    qmax = float(2 ** (bits - 1) - 1)
+    gf = g.to(torch.float32)
+    s = scale.to(torch.float32)
+    ratio = x.to(torch.float32) / s
+    r = torch.round(ratio)
+    q = torch.clamp(r, -qmax, qmax)
+    if rule == "kernel":
+        inside = (torch.abs(ratio) <= qmax).to(torch.float32)
+        gx = gf * inside
+        gs = gf * torch.where(inside > 0, q - ratio, q)
+    else:
+        a = torch.abs(r)
+        c = torch.where(a < qmax, 1.0, torch.where(a == qmax, 0.5, 0.0))
+        gx = gf * s * c / s
+        gs = gf * (q - c * ratio)
+    return gx.to(x.dtype), gs.sum_to_size(scale.shape).to(scale.dtype)

@@ -17,7 +17,7 @@ from ..core.qconfig import QuantConfig
 from ..kernels.decode_attention import decode_attention, kernel_takes
 from ..serve.kv_cache import quantize_kv
 from .config import ModelConfig
-from .layers import apply_rope, init_rmsnorm, rmsnorm
+from .layers import apply_rope, init_rmsnorm, rmsnorm, tap
 
 Params = dict[str, Any]
 
@@ -170,26 +170,28 @@ def _paged_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, positions: torch.Tensor,
               cache: Params | None = None, plan=None,
-              use_kernels: bool = False) -> torch.Tensor:
+              use_kernels: bool = False, taps: dict | None = None,
+              prefix: str = "") -> torch.Tensor:
     """GQA forward; writes this step's K/V into ``cache`` (in place) when one
     is given.  Cache modes: none (full sequence, causal); monolithic with a
     scalar ``pos`` (batch prefill); monolithic with a per-slot ``pos [B]``
     (serving decode); paged (``"pt"`` in the cache, serving decode).
 
     ``use_kernels`` routes the per-slot decode attention through
-    ``kernels.decode_attention`` under :func:`decode_route`; ``_sdpa`` /
-    ``_paged_sdpa`` are the plain route."""
+    ``kernels.decode_attention`` under :func:`decode_route` (``_sdpa`` /
+    ``_paged_sdpa`` are the plain route) and the weights' fake-quant through
+    the ``fake_quant`` kernel.  ``taps`` records ``{prefix}.pre_o``."""
     B, Sq, _ = x.shape
     hd = cfg.head_dim
     H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
     pv = plan_view(plan)
     ins = p.get("in_stream")
-    q = dof.qlinear(x, p["wq"], qcfg, stream=ins,
-                    bits=pv.bits("wq")).reshape(B, Sq, H, hd)
-    k = dof.qlinear(x, p["wk"], qcfg, stream=ins,
-                    bits=pv.bits("wk")).reshape(B, Sq, Hkv, hd)
-    v = dof.qlinear(x, p["wv"], qcfg, stream=ins,
-                    bits=pv.bits("wv")).reshape(B, Sq, Hkv, hd)
+    q = dof.qlinear(x, p["wq"], qcfg, stream=ins, bits=pv.bits("wq"),
+                    use_kernels=use_kernels).reshape(B, Sq, H, hd)
+    k = dof.qlinear(x, p["wk"], qcfg, stream=ins, bits=pv.bits("wk"),
+                    use_kernels=use_kernels).reshape(B, Sq, Hkv, hd)
+    v = dof.qlinear(x, p["wv"], qcfg, stream=ins, bits=pv.bits("wv"),
+                    use_kernels=use_kernels).reshape(B, Sq, Hkv, hd)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -223,5 +225,6 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
             out = _sdpa(q, ck, cv, causal=Sq > 1, q_offset=pos,
                         kv_len=pos + Sq)
     out = out.reshape(B, Sq, H * hd)
+    tap(taps, prefix + ".pre_o", out)
     return dof.qlinear(out, p["wo"], qcfg, stream=p.get("out_stream"),
-                       bits=pv.bits("wo"))
+                       bits=pv.bits("wo"), use_kernels=use_kernels)

@@ -12,11 +12,20 @@ from typing import Any
 import torch
 
 from ..core import dof
-from ..core.fakequant import fake_quant
 from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 
 Params = dict[str, Any]
+
+
+def tap(taps: dict | None, name: str, x: torch.Tensor) -> None:
+    """Record per-channel ``{min, max, mean}`` (f32) of ``x`` under ``name``
+    when ``taps`` is a dict (calibration; no graph is kept)."""
+    if taps is None:
+        return
+    xf = x.detach().to(torch.float32).reshape(-1, x.shape[-1])
+    taps[name] = {"min": torch.amin(xf, 0), "max": torch.amax(xf, 0),
+                  "mean": torch.mean(xf, 0)}
 
 
 def init_rmsnorm(dim: int, lead: tuple = (), device=None) -> Params:
@@ -66,16 +75,21 @@ def init_mlp(gen: torch.Generator, d: int, ff: int,
 
 
 def mlp(x: torch.Tensor, p: Params, qcfg: QuantConfig | None,
-        plan=None) -> torch.Tensor:
+        plan=None, taps: dict | None = None, prefix: str = "",
+        use_kernels: bool = False) -> torch.Tensor:
     """SwiGLU forward; ``plan`` (scoped to e.g. ``layers.mlp``) supplies
-    per-path fake-quant bits."""
+    per-path fake-quant bits; ``taps`` records ``{prefix}.act``;
+    ``use_kernels`` routes the weights' fake-quant through the kernel."""
     pv = plan_view(plan)
     ins = p.get("in_stream")
-    up = dof.qlinear(x, p["up"], qcfg, stream=ins, bits=pv.bits("up"))
-    gate = dof.qlinear(x, p["gate"], qcfg, stream=ins, bits=pv.bits("gate"))
+    up = dof.qlinear(x, p["up"], qcfg, stream=ins, bits=pv.bits("up"),
+                     use_kernels=use_kernels)
+    gate = dof.qlinear(x, p["gate"], qcfg, stream=ins, bits=pv.bits("gate"),
+                       use_kernels=use_kernels)
     h = torch.nn.functional.silu(gate) * up
+    tap(taps, prefix + ".act", h)
     return dof.qlinear(h, p["down"], qcfg, stream=p.get("act_stream"),
-                       bits=pv.bits("down"))
+                       bits=pv.bits("down"), use_kernels=use_kernels)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int,
@@ -90,8 +104,11 @@ def init_embed(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed_lookup(tokens: torch.Tensor, p: Params, qcfg: QuantConfig | None,
-                 dtype=torch.bfloat16) -> torch.Tensor:
+                 dtype=torch.bfloat16, use_kernels: bool = False) -> torch.Tensor:
+    """Rows of the (student: per-row fake-quantized) table; the
+    fake-quant takes the weights' route (``core.dof.weight_fake_quant``)."""
     w = p["w"]
     if qcfg is not None:
-        w = fake_quant(w, torch.exp(p["log_s"]), qcfg.embed_bits, signed=True)
+        w = dof.weight_fake_quant(w, torch.exp(p["log_s"]), qcfg.embed_bits,
+                                  use_kernels)
     return w[tokens].to(dtype)

@@ -15,9 +15,11 @@ from ..core import dof
 from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..device import resolve_device
+from ..tree import tree_from_items, tree_items
 from .attention import attention, init_attention, init_kv_cache
 from .config import ModelConfig
-from .layers import embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm
+from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
+                     rmsnorm, tap)
 
 Params = dict[str, Any]
 
@@ -91,31 +93,60 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels):
+def unstack(tree) -> list:
+    """Every layer of a stacked tree, as views from one ``unbind`` per leaf.
+    Its backward stacks the layers' gradients once; indexing each layer
+    (``layer_slice``) would add a zero-filled full-depth gradient per
+    layer, quadratic in depth."""
+    items = list(tree_items(tree))
+    cols = [torch.unbind(t) for _, t in items]
+    return [tree_from_items((path, col[i]) for (path, _), col
+                            in zip(items, cols))
+            for i in range(stack_depth(tree))]
+
+
+def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
+                prefix):
     h = rmsnorm(x, lp["norm1"])
-    x = x + attention(h, lp["attn"], cfg, qcfg, positions, cache,
-                      plan=pv.child("attn"), use_kernels=use_kernels)
+    tap(taps, prefix + ".attn_in", h)
+    a = attention(h, lp["attn"], cfg, qcfg, positions, cache,
+                  plan=pv.child("attn"), use_kernels=use_kernels, taps=taps,
+                  prefix=prefix + ".attn")
+    tap(taps, prefix + ".attn_out", a)
+    x = x + a
     h = rmsnorm(x, lp["norm2"])
-    return x + mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"))
+    tap(taps, prefix + ".mlp_in", h)
+    m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
+            prefix=prefix + ".mlp", use_kernels=use_kernels)
+    tap(taps, prefix + ".mlp_out", m)
+    return x + m
 
 
 def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
             batch: dict[str, torch.Tensor], cache: Params | None = None,
             compute_dtype=torch.bfloat16, plan=None,
-            use_kernels: bool = False) -> dict[str, Any]:
-    """Returns {hidden, logits, cache}.
+            use_kernels: bool = False, collect_taps: bool = False,
+            logits: bool = True) -> dict[str, Any]:
+    """Returns {hidden, logits, cache, taps}.
 
     cache=None → full sequence (train / eval); a cache → prefill (S > 1) or
     decode (S == 1), writing K/V into it in place and advancing its
     ``pos``.  ``plan`` makes the fake-quant forward plan-aware (per-path
-    bits); ``use_kernels`` routes the per-slot decode attention through the
-    kernel (``models.attention.decode_route``).
+    bits); ``use_kernels`` routes the per-slot decode attention
+    (``models.attention.decode_route``) and the weights' fake-quant
+    (``core.dof.weight_fake_quant``) through the kernels.
+    ``collect_taps`` records per-channel ``{min, max, mean}`` at every
+    stream point as ``L{i}.attn_in`` … (the JAX package's tap names);
+    ``logits=False`` skips the head (``logits`` is then None), as XLA drops
+    it from a step whose loss reads only the hidden states.
     """
     _require_dense(cfg)
     pv = plan_view(plan)
+    taps: dict | None = {} if collect_taps else None
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype)
+    x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
+                     use_kernels=use_kernels)
     base = 0 if cache is None else cache["pos"]
     ar = torch.arange(S, device=tokens.device)
     if isinstance(base, torch.Tensor) and base.ndim == 1:
@@ -126,17 +157,20 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     lpv = pv.child("layers")
     shared = {} if cache is None else {
         k: cache[k] for k in ("pos", "pt") if k in cache}
-    for i in range(stack_depth(layers)):
+    for i, lp in enumerate(unstack(layers)):
         c = None if cache is None else {
             **{k: v[i] for k, v in cache.items() if k not in ("pos", "pt")},
             **shared}
-        x = _attn_block(x, layer_slice(layers, i), cfg, qcfg, positions, c,
-                        lpv, use_kernels)
+        x = _attn_block(x, lp, cfg, qcfg, positions, c, lpv, use_kernels,
+                        taps, f"L{i}")
     if cache is not None:
         cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
-    logits = dof.qlinear(h, params["lm_head"], qcfg,
-                         stream=params.get("head_stream"),
-                         bits=None if qcfg is None
-                         else pv.bits("lm_head", qcfg.embed_bits))
-    return {"hidden": h, "logits": logits, "cache": cache}
+    out = None
+    if logits:
+        out = dof.qlinear(h, params["lm_head"], qcfg,
+                          stream=params.get("head_stream"),
+                          bits=None if qcfg is None
+                          else pv.bits("lm_head", qcfg.embed_bits),
+                          use_kernels=use_kernels)
+    return {"hidden": h, "logits": out, "cache": cache, "taps": taps}

@@ -1,13 +1,107 @@
-"""The serve step functions: chunked prefill and the slot-masked decode.
+"""The QFT step functions and the serve steps.
 
-(The QFT training step of the JAX package is not ported yet.)
+train_step = teacher forward (FP, no grad) + student forward (fake-quant,
+             offline subgraph inside) + backbone-L2 distillation + Adam.
+prefill / slot decode = the deployed inference graph (serve/).
 """
 from __future__ import annotations
 
+from typing import Callable
+
+import torch
+
+from ..core.distill import qft_loss
 from ..core.qconfig import QuantConfig
 from ..core.sampling import sample_tokens
 from ..models import forward
 from ..models.config import ModelConfig
+from ..optim.adam import Adam
+from ..tree import tree_from_items, tree_items
+
+
+def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
+                        ce_proportion: float = 0.0, microbatches: int = 1,
+                        plan=None, compute_dtype=torch.bfloat16,
+                        use_kernels: bool = True) -> Callable:
+    """value_and_grad(student, teacher, batch) -> (loss, grads).
+
+    ``grads`` has the student's structure; a leaf that no gradient reaches
+    (``lm_head`` and ``head_stream`` when ``ce_proportion == 0``: the head
+    is then not run at all) is ``None``.  ``microbatches`` splits the batch
+    on axis 0 and accumulates in f32 as the JAX package's ``lax.scan`` body
+    does: ``acc + g / microbatches`` and the sum of ``loss / microbatches``.
+    The teacher runs under ``torch.no_grad()``; ``use_kernels`` routes the
+    student's weight fake-quant through the kernel on the card.
+    """
+    with_logits = ce_proportion > 0
+
+    def loss_fn(student, teacher, batch):
+        s_out = forward(student, cfg, qcfg, batch, plan=plan,
+                        compute_dtype=compute_dtype, use_kernels=use_kernels,
+                        logits=with_logits)
+        with torch.no_grad():
+            t_out = forward(teacher, cfg, None, batch,
+                            compute_dtype=compute_dtype, logits=with_logits)
+        return qft_loss(s_out["hidden"], t_out["hidden"], s_out["logits"],
+                        t_out["logits"], ce_proportion=ce_proportion)
+
+    def value_and_grad(student, teacher, batch):
+        items = list(tree_items(student))
+        leaves = [t.requires_grad_() for _, t in items]
+        n_mb = max(microbatches, 1)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n_mb:
+            raise ValueError(f"a batch of {rows} does not split into {n_mb} "
+                             f"equal microbatches")
+        size = rows // n_mb
+        acc: list = [None] * len(leaves)
+        losses = []
+        for i in range(n_mb):
+            loss = loss_fn(student, teacher, {
+                k: v[i * size:(i + 1) * size] for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for j, g in enumerate(grads):
+                if g is not None:
+                    g = g.to(torch.float32) / n_mb
+                    acc[j] = g if acc[j] is None else acc[j].add_(g)
+            del grads
+            losses.append(loss.detach() / n_mb)
+        return torch.sum(torch.stack(losses)), tree_from_items(
+            (path, g) for (path, _), g in zip(items, acc))
+
+    return value_and_grad
+
+
+def make_train_step(cfg: ModelConfig, qcfg: QuantConfig | None, opt: Adam,
+                    ce_proportion: float = 0.0, grad_mask=None,
+                    microbatches: int = 1, plan=None,
+                    compute_dtype=torch.bfloat16):
+    """train_step(student, opt_state, teacher, batch) -> (student, opt_state,
+    {"loss", "grad_norm"}).
+
+    ``grad_mask``: optional ``fn(path, g) -> g`` (``path`` a tuple of keys)
+    — zero out DoF subsets for the paper's frozen-scales ablations.
+    ``plan``: the resolved ``core.plan.QuantPlan`` — the student forward
+    fake-quants each tensor at its plan bits.  The student's tensors and
+    the optimizer state are updated in place (``optim.adam.Adam.update``).
+    """
+    value_and_grad = make_value_and_grad(
+        cfg, qcfg, ce_proportion=ce_proportion, microbatches=microbatches,
+        plan=plan, compute_dtype=compute_dtype)
+
+    def train_step(student, opt_state, teacher, batch):
+        loss, grads = value_and_grad(student, teacher, batch)
+        if grad_mask is not None:
+            grads = tree_from_items(
+                (path, None if g is None else grad_mask(path, g))
+                for path, g in tree_items(grads))
+        student, opt_state = opt.update(grads, opt_state, student)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for _, g in tree_items(grads)
+                               if g is not None))
+        return student, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, qcfg: QuantConfig | None, plan=None):
