@@ -11,13 +11,16 @@ Phases, each fatal on failure:
    started together.
 3. kernels — each kernel against its plain PyTorch version at the shapes
    the main paths give it (decode_attention at the engine's slot pool and
-   paged view, bf16 and int8; quant_matmul at qwen3-8b's seven linear
-   shapes, decode and prefill M, channel and group:128; fake_quant forward
-   and both backward rules at qwen3-8b's four layer-linear shapes with a
-   full doubly-channelwise scale, the embedding with a per-row scale and
-   the lm_head), with the error, the kernel's, the plain version's and a
-   library call's time (CUDA events, after warm-up) and the least time the
-   card could take.
+   paged view, bf16 and int8; both bodies of quant_matmul — int8dot and
+   the dequant baseline — at qwen3-8b's seven linear shapes, decode and
+   prefill M, channel and group:128, then the variant benchmark, the
+   dequant body's only path; fake_quant forward and both backward rules at
+   qwen3-8b's four layer-linear shapes with a full doubly-channelwise
+   scale, the embedding with a per-row scale and the lm_head;
+   flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
+   B 1 x S 300, 32/8 heads, f32 and bf16, causal and not), with the error,
+   the kernel's, the plain version's and a library call's time (CUDA
+   events, after warm-up) and the least time the card could take.
 4. reference — a SMOKE-size model served on the card through the kernels
    and on the CPU through the plain route must emit the same greedy tokens
    (a token may differ only where the CPU's top-2 logit margin is within a
@@ -33,10 +36,19 @@ Phases, each fatal on failure:
    f32 teacher from a seed → student → activation calibration → APQ/MMSE
    scale init → 6 steps of joint finetuning (batch 16 x 512 tokens, 4
    microbatches, the paper's Adam recipe), every quantized weight's
-   fake-quant forward and backward through fake_quant, launches counted;
-   one more step's loss and gradients through the plain route, compared;
-   then export, the route check and 2 greedy requests served from the
-   trained artifact (quant_matmul, decode_attention).
+   fake-quant forward and backward through fake_quant and the teacher's
+   attention through flash_attention, launches counted; then export, the
+   route check and 2 greedy requests served from the trained artifact
+   (quant_matmul, decode_attention); then the teacher's hidden states
+   through flash_attention and through the plain route, compared, and one
+   more step's loss and gradients through both student routes on those
+   same teacher targets, compared.
+7. pipeline — run_pipeline, the path of `python -m repro_torch quantize`,
+   at full width with the depth cut to 4 layers (calibrate, APQ/MMSE init,
+   4 finetune steps of batch 16 x 512, export, evaluate with the serve
+   smoke) in a temporary workdir, launches counted per stage; then again
+   on the same workdir, which skips calibrate, init and finetune and must
+   give the same evaluate metrics.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -64,6 +76,15 @@ TRAIN_LAYERS = 4
 TRAIN_STEPS = 6
 TRAIN_MICROBATCHES = 4
 TRAIN_DATA = dict(n_samples=256, seq_len=512, batch_size=16, seed=0)
+#: teacher hidden states, flash_attention vs the plain route (bf16 compute,
+#: 4 layers): relative L2.  The plain route rounds the probabilities to bf16
+#: before P.V and the kernel does not; tests/test_torch_flash_attention.py
+#: emulates the gap on the CPU (the kernel's plain version on the route).
+TEACHER_HIDDEN_BOUND = 3e-2
+#: phase 7: the pipeline's own knobs (PipelineConfig), on qwen3-8b at full
+#: width with the depth cut to TRAIN_LAYERS
+PIPELINE = dict(calib_seq_len=512, calib_batch_size=16, calib_batches=2,
+                eval_batches=2, steps=4, serve_smoke=True)
 
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
@@ -199,7 +220,11 @@ def check_decode_attention(view_len: int) -> dict:
     return record
 
 
-def check_quant_matmul(cfg) -> dict:
+def check_quant_matmul(cfg) -> tuple[dict, dict]:
+    """Both bodies of quant_matmul against the plain version at qwen3-8b's
+    seven linear shapes, then the variant benchmark — the dequant body's
+    only caller (the JAX package's benchmarks/run.py:70-76), its launches
+    counted from 0 over that run.  Returns (int8dot, dequant) records."""
     import torch
     from repro_torch.core.fakequant import pack_int4
     from repro_torch.kernels.quant_matmul import quant_matmul
@@ -216,7 +241,7 @@ def check_quant_matmul(cfg) -> dict:
              for name in shapes for M in (8, 128)
              for layout in ("channel", "group:128")]
     cases.append(("wk", 4, torch.float32, "channel"))
-    record = None
+    inputs = []
     for name, M, dt, layout in cases:
         K, N = shapes[name]
         x = torch.randn((M, K), generator=g, device=dev).to(dt)
@@ -226,30 +251,124 @@ def check_quant_matmul(cfg) -> dict:
         s_wl = torch.rand((K,), generator=g, device=dev) + 0.5
         swr_shape = (N,) if layout == "channel" else (K // 128, N)
         s_wr = (torch.rand(swr_shape, generator=g, device=dev) + 0.5) * 0.01
-        args = (x, qw, s_wl, s_wr)
-        y = quant_matmul(*args)
+        inputs.append((x, qw, s_wl, s_wr))
+    errs = {}
+    for (name, M, dt, layout), args in zip(cases, inputs):
         ref = quant_matmul_ref(*args)
-        torch.cuda.synchronize()
-        err = float((y.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
-        # f32: summation order only; bf16: one rounding of the f32 result
-        tol = (5e-5 if dt == torch.float32 else 1e-2) * scale
-        if not math.isfinite(err) or err > tol:
-            fail(f"quant_matmul {name} M={M} {layout}: max_abs_err {err} > "
-                 f"{tol}")
-        ms = time_ms(lambda: quant_matmul(*args))
+        for variant in ("int8dot", "dequant"):
+            y = quant_matmul(*args, variant=variant)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            # f32: summation order only; bf16: one rounding of the f32
+            # result (the reference sweep's 2e-5 / 2e-2, of the output's
+            # largest magnitude)
+            tol = (2e-5 if dt == torch.float32 else 2e-2) * scale
+            if not math.isfinite(err) or err > tol:
+                fail(f"quant_matmul {variant} {name} M={M} {layout}: "
+                     f"max_abs_err {err} > {tol}")
+            errs[(name, M, dt, layout, variant)] = (err, tol)
+
+    # --- the variant benchmark, with the dequant body's count at 0
+    quant_matmul.launches_dequant = 0
+    records = {}
+    for (name, M, dt, layout), args in zip(cases, inputs):
+        x, qw, s_wl, s_wr = args
+        K, N = shapes[name]
+        ms = {v: time_ms(lambda v=v: quant_matmul(*args, variant=v))
+              for v in ("int8dot", "dequant")}
         plain_ms = time_ms(lambda: quant_matmul_ref(*args))
         nbytes = (x.numel() * x.element_size() + qw.numel() + 4 * K
                   + 4 * s_wr.numel() + M * N * x.element_size())
         b_ms, b_by = bound(nbytes, 2.0 * M * K * N,
                            "f32" if dt == torch.float32 else "bf16")
-        say(f"[kernel] quant_matmul {name} M={M} K={K} N={N} {layout} "
-            f"{str(dt).split('.')[-1]} max_abs_err={err:.3e} (tol {tol:.3e}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        if dt == torch.float32:     # what the main path's route check runs
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        for v in ("int8dot", "dequant"):
+            err, tol = errs[(name, M, dt, layout, v)]
+            say(f"[kernel] quant_matmul {v} {name} M={M} K={K} N={N} "
+                f"{layout} {str(dt).split('.')[-1]} max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) ms={ms[v]:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms=null bound_ms={b_ms:.4f} ({b_by})")
+            if dt == torch.float32:   # what the main path's route check runs
+                records[v] = {"max_abs_err": err, "ms": ms[v],
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None}
+    records["dequant"]["launches"] = quant_matmul.launches_dequant
+    # ---
+    say(f"[kernel] quant_matmul variant benchmark: dequant launched "
+        f"{quant_matmul.launches_dequant} times")
+    return records["int8dot"], records["dequant"]
+
+
+def check_flash_attention(cfg) -> dict:
+    """flash_attention (through ops.attention_prefill, GQA read in the
+    kernel) against its plain version at qwen3-8b's heads: the teacher's
+    prefill (B 16 x S 512) and a ragged S (B 1 x S 300), f32 and bf16,
+    causal and not, within the reference's own tolerances (f32 rtol 2e-4
+    atol 2e-5; bf16 3e-2); then two runs' bits compared.  Returns the
+    teacher shape's bf16 causal record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_prefill,
+                                                     flash_attention)
+    from repro_torch.kernels.ref import (attention_prefill_ref,
+                                         flash_attention_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    record = None
+    for (B, S) in ((16, 512), (1, 300)):
+        base = [torch.randn((B, S, h, hd), generator=g, device=dev)
+                for h in (H, Hkv, Hkv)]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt) for t in base)
+            rtol, atol = (2e-4, 2e-5) if dt == torch.float32 else (3e-2, 3e-2)
+            for causal in (True, False):
+                out = attention_prefill(q, k, v, causal=causal)
+                ref = attention_prefill_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                excess = float((diff - rtol * ref.float().abs()).max())
+                err = float(diff.max())
+                if not math.isfinite(err) or excess > atol:
+                    fail(f"flash_attention B={B} S={S} {dt} causal={causal}: "
+                         f"max_abs_err {err}, beyond rtol {rtol} + atol "
+                         f"{atol} by {excess - atol}")
+                if not torch.equal(out, attention_prefill(q, k, v,
+                                                          causal=causal)):
+                    fail("flash_attention: two runs differ")
+                kind = "f32" if dt == torch.float32 else "bf16"
+                ms = time_ms(lambda: attention_prefill(q, k, v,
+                                                       causal=causal), iters=10)
+                plain_ms = time_ms(lambda: attention_prefill_ref(
+                    q, k, v, causal=causal), iters=5)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
+                elt = q.element_size()
+                nbytes = elt * hd * B * S * (2 * H + 2 * Hkv)
+                pairs = S * (S + 1) // 2 if causal else S * S
+                b_ms, b_by = bound(nbytes, 4.0 * B * H * pairs * hd, kind)
+                say(f"[kernel] flash_attention B={B} S={S} H={H} Hkv={Hkv} "
+                    f"hd={hd} {kind} causal={causal} max_abs_err={err:.3e} "
+                    f"(rtol {rtol} atol {atol}) ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by})")
+                if (B, S, kind, causal) == (16, 512, "bf16", True):
+                    record = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": lib_ms}
+                del out, ref, diff
+        del base, q, k, v
+    # the reference's own [BH, S, hd] signature, on one small f32 case
+    q3, k3, v3 = (torch.randn((4, 200, 64), generator=g, device=dev)
+                  for _ in range(3))
+    ref3 = flash_attention_ref(q3, k3, v3)
+    excess = float(((flash_attention(q3, k3, v3) - ref3).abs()
+                    - 2e-4 * ref3.abs()).max())
+    if not excess <= 2e-5:
+        fail(f"flash_attention [BH, S, hd]: beyond rtol 2e-4 + atol 2e-5 by "
+             f"{excess - 2e-5}")
+    torch.cuda.empty_cache()
     return record
 
 
@@ -414,9 +533,10 @@ def _serve(engine, reqs, timing: dict) -> list[list[int]]:
     return engine.generate(reqs)
 
 
-def _profile(run, what: str, steps: int) -> None:
+def _profile(run, what: str, steps: int, watch: tuple = ()) -> None:
     """Run ``run()`` (``steps`` steps of work) under torch.profiler: the
-    device's busy share of the window and the kernels by device time."""
+    device's busy share of the window, the kernels by device time, and the
+    share of each ``watch`` name (kernels whose name holds it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -448,6 +568,11 @@ def _profile(run, what: str, steps: int) -> None:
     for dev_us, count, key in rows[:8]:
         say(f"[profile]   {100 * dev_us / busy:5.1f}% {dev_us / steps:9.1f} "
             f"us/step x{count // steps:<4d} {key[:90]}")
+    for name in watch:
+        us = sum(r[0] for r in rows if name in r[2])
+        n = sum(r[1] for r in rows if name in r[2])
+        say(f"[profile]   {name}: {100 * us / busy:.2f}% of device time, "
+            f"{us / steps:.1f} us/step over {n // steps} launches/step")
 
 
 def profile_decode(engine, cfg, steps: int = 4) -> None:
@@ -581,19 +706,24 @@ def main_path(cfg) -> dict:
 def _counts() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.fake_quant import fake_quant_kernel
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.quant_matmul import quant_matmul
     return {"fake_quant_fwd": fake_quant_kernel.launches_fwd,
             "fake_quant_bwd": fake_quant_kernel.launches_bwd,
             "quant_matmul": quant_matmul.launches,
-            "decode_attention": decode_attention.launches}
+            "quant_matmul_dequant": quant_matmul.launches_dequant,
+            "decode_attention": decode_attention.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def _zero_counts() -> None:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.fake_quant import fake_quant_kernel
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.quant_matmul import quant_matmul
     fake_quant_kernel.launches_fwd = fake_quant_kernel.launches_bwd = 0
-    quant_matmul.launches = decode_attention.launches = 0
+    quant_matmul.launches = quant_matmul.launches_dequant = 0
+    decode_attention.launches = flash_attention.launches = 0
 
 
 def _gib() -> float:
@@ -608,7 +738,7 @@ def train_path(cfg) -> dict:
     from repro_torch.core import dof
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.calib import CalibConfig, CalibDataset
-    from repro_torch.models import init_model
+    from repro_torch.models import forward, init_model
     from repro_torch.models.transformer import layer_slice
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
@@ -643,6 +773,10 @@ def train_path(cfg) -> dict:
         f"batches, APQ/MMSE init) {t_prep:.1f} s, peak {peak_prep:.2f} GiB")
     if _counts()["fake_quant_fwd"]:
         fail("prepare_student launched fake_quant: the teacher is FP")
+    prep_fa = _counts()["flash_attention"]
+    if prep_fa != 2 * L:          # the teacher over 2 calibration batches
+        fail(f"calibration launched flash_attention {prep_fa} times, want "
+             f"{2 * L}")
     torch.cuda.reset_peak_memory_stats()
     student, hist = trainer.run(student, data, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.synchronize()
@@ -659,10 +793,18 @@ def train_path(cfg) -> dict:
         f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{TRAIN_STEPS} "
         f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
         f"{peak_run:.2f} GiB")
+    fa_want = TRAIN_STEPS * TRAIN_MICROBATCHES * L
     say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
         f"backward {run_counts['fake_quant_bwd']} (= {TRAIN_STEPS} steps x "
         f"{TRAIN_MICROBATCHES} microbatches x (1 embed + 7 x {L} linears); "
-        f"lm_head is not run: the backbone-L2 loss never reads it)")
+        f"lm_head is not run: the backbone-L2 loss never reads it); "
+        f"flash_attention (the teacher) {prep_fa} in calibration + "
+        f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
+        f"{TRAIN_STEPS} x {TRAIN_MICROBATCHES} x {L} layers)")
+    if run_counts["flash_attention"] - prep_fa != fa_want:
+        fail(f"the steps launched flash_attention "
+             f"{run_counts['flash_attention'] - prep_fa} times, want "
+             f"{fa_want}")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}")
     if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
@@ -721,23 +863,45 @@ def train_path(cfg) -> dict:
     torch.cuda.empty_cache()
 
     # --- one more step's loss and gradients: kernel route (profiled) vs
-    # plain route, from the trained state
+    # plain route, from the trained state.  The teacher's hidden states are
+    # compared route against route first; then both student routes take
+    # the kernel route's targets, so their gap is fake_quant's alone.
     batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in next(data).items()}
+    hidden = {}
+    with torch.no_grad():
+        for use in (True, False):
+            before = _counts()["flash_attention"]
+            hidden[use] = forward(teacher, cfg, None, batch, use_kernels=use,
+                                  logits=False)
+            if _counts()["flash_attention"] - before != (L if use else 0):
+                fail(f"teacher forward (use_kernels={use}) launched "
+                     f"flash_attention {_counts()['flash_attention'] - before}"
+                     f" times over {L} layers")
+    hk, hp = hidden[True]["hidden"].float(), hidden[False]["hidden"].float()
+    hid_rel = float((hk - hp).norm() / hp.norm())
+    del hk, hp
+    say(f"[train] teacher hidden states, flash_attention vs the plain route "
+        f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
+        f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
+        f"{TEACHER_HIDDEN_BOUND:.0e}: the plain route rounds the "
+        f"probabilities to bf16 before P.V, the kernel keeps them f32)")
+    if not hid_rel <= TEACHER_HIDDEN_BOUND:
+        fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
+    targets = hidden[True]
+    del hidden
+    vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES)
+    _profile(lambda: vg(student, teacher, batch), "train-step forward+"
+             "backward (kernel route, teacher included, 4 microbatches, no "
+             "optimizer)", 1, watch=("fa_kernel", "fq_"))
     grads = {}
     for use in (True, False):
         before = _counts()
         vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
                                  use_kernels=use)
-        if use:
-            def run(vg=vg):
-                grads[True] = vg(student, teacher, batch)
-            _profile(run, "train-step forward+backward (kernel route, 4 "
-                     "microbatches, no optimizer)", 1)
-        else:
-            grads[False] = vg(student, teacher, batch)
+        grads[use] = vg(student, teacher, batch, targets=targets)
         torch.cuda.synchronize()
         if not use and _counts() != before:
-            fail("the plain route launched fake_quant")
+            fail("the plain route launched a kernel")
     (lk, gk), (lp, gp) = grads[True], grads[False]
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     plain = dict(tree_items(gp))
@@ -762,6 +926,125 @@ def train_path(cfg) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the pipeline at full width, run twice on one workdir
+# ---------------------------------------------------------------------------
+
+def _pipeline_run(pcfg, adapter, tag: str) -> dict:
+    """run_pipeline with every kernel count at 0 just before it; the
+    launches of each stage are read off the counts at its log line."""
+    import torch
+    from repro_torch.pipeline import run_pipeline
+    per_stage: dict = {}
+    mark = [_counts()]
+
+    def log(msg: str) -> None:
+        torch.cuda.synchronize()
+        say(f"[pipeline] {tag}: {msg}")
+        if msg.startswith("stage "):
+            now = _counts()
+            per_stage[msg.split()[1]] = {k: now[k] - mark[0][k] for k in now}
+            mark[0] = now
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    mark[0] = _counts()
+    t0 = time.perf_counter()
+    result = run_pipeline(pcfg, log=log, adapter=adapter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"wall": wall, "peak": _gib(), "per_stage": per_stage,
+           "counts": _counts(), "run": result.stages_run,
+           "skipped": result.stages_skipped, "history": result.history,
+           "metrics": result.metrics}
+    for stage, c in per_stage.items():
+        say(f"[pipeline] {tag}: {stage} launches " + ", ".join(
+            f"{k}={v}" for k, v in c.items() if v))
+    return out
+
+
+def pipeline_path(cfg) -> dict:
+    """python -m repro_torch quantize's path (run_pipeline) at full width,
+    depth cut to 4 layers, in a temporary workdir; then again on the same
+    workdir, which must skip the student stages and reproduce evaluate.
+    Returns the first run's launch counts."""
+    import tempfile
+    from repro_torch.pipeline import STAGES, PipelineConfig
+    from repro_torch.pipeline.adapters import TransformerAdapter
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    saves: list = []
+    save = CheckpointManager.save
+
+    def timed_save(self, step, *a, **k):     # host clock around each write
+        t0 = time.perf_counter()
+        save(self, step, *a, **k)
+        self.wait()
+        saves.append(f"{self.dir.name}/{step} "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+    CheckpointManager.save = timed_save
+    with tempfile.TemporaryDirectory(prefix="qft_pipeline_") as workdir:
+        pcfg = PipelineConfig(arch=cfg.name, smoke=False, workdir=workdir,
+                              device=DEVICE, log_every=1, **PIPELINE)
+        say(f"[pipeline] {cfg.name} full width, {TRAIN_LAYERS} of "
+            f"{cfg.n_layers} layers, mode {pcfg.mode}: {PIPELINE}")
+        runs = [_pipeline_run(pcfg, TransformerAdapter(
+            pcfg, cfg4, pcfg.quant_config()), tag) for tag in ("run 1",
+                                                                "run 2")]
+        disk = sum(f.stat().st_size for f in Path(workdir).rglob("*")
+                   if f.is_file())
+    CheckpointManager.save = save
+    first, second = runs
+    ev1, ev2 = first["metrics"]["evaluate"], second["metrics"]["evaluate"]
+    losses = [h["loss"] for h in first["history"]]
+    say(f"[pipeline] run 1: {first['wall']:.1f} s, peak {first['peak']:.2f} "
+        f"GiB; checkpoint writes ({disk / 2**30:.2f} GiB on disk): "
+        f"{', '.join(saves)}; finetune loss (each step's batch, before "
+        f"its update) {', '.join(f'{x:.6f}' for x in losses)}")
+    say(f"[pipeline] run 1 evaluate: distill_loss {ev1['distill_loss']:.6f} "
+        f"top1_agree {ev1['top1_agree']:.6f} export_parity_max_err "
+        f"{ev1['export_parity_max_err']:.3e} artifact_bytes "
+        f"{ev1['artifact_bytes']} kernel_route {ev1.get('kernel_route')} "
+        f"serve {ev1.get('serve')}")
+    say(f"[pipeline] run 2 (resume): {second['wall']:.1f} s, peak "
+        f"{second['peak']:.2f} GiB, skipped {second['skipped']}; "
+        f"distill_loss {ev2['distill_loss']:.6f} top1_agree "
+        f"{ev2['top1_agree']:.6f} export_parity_max_err "
+        f"{ev2['export_parity_max_err']:.3e}")
+    if first["run"] != list(STAGES) or first["skipped"]:
+        fail(f"pipeline run 1 ran {first['run']}, skipped {first['skipped']}")
+    if len(losses) != PIPELINE["steps"] or not all(map(math.isfinite,
+                                                       losses)):
+        fail(f"pipeline finetune losses {losses}")
+    for stage in ("calibrate", "finetune", "evaluate"):
+        if first["per_stage"][stage]["flash_attention"] < 1:
+            fail(f"flash_attention did not launch in {stage}")
+    ev_counts = first["per_stage"]["evaluate"]
+    if ev_counts["quant_matmul"] < 1 or ev_counts["decode_attention"] < 1:
+        fail(f"evaluate's route check and serve smoke did not launch "
+             f"quant_matmul and decode_attention: {ev_counts}")
+    if not (ev1.get("kernel_route") or {}).get("kernel"):
+        fail(f"kernel_route_check did not run quant_matmul: "
+             f"{ev1.get('kernel_route')}")
+    if ev1.get("serve", {}).get("tokens") != 12:
+        fail(f"serve smoke: {ev1.get('serve')}")
+    if not ev1["export_parity_max_err"] < 1e-4:
+        fail(f"export parity {ev1['export_parity_max_err']} >= 1e-4")
+    if second["skipped"] != ["calibrate", "init", "finetune"] \
+            or second["run"] != ["export", "evaluate"]:
+        fail(f"pipeline run 2 ran {second['run']}, skipped "
+             f"{second['skipped']}")
+    for key in ("distill_loss", "top1_agree", "export_parity_max_err"):
+        a, b = ev1[key], ev2[key]
+        if abs(a - b) > 1e-6 * max(abs(a), 1e-30):
+            fail(f"resumed evaluate {key} {b} != first run's {a}")
+    if ev1["artifact_bytes"] != ev2["artifact_bytes"]:
+        fail("resumed artifact differs in size")
+    return first["counts"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -778,11 +1061,13 @@ def main() -> int:
     build()
     fd = check_decode_attention(
         resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)).view_len)
-    qmm = check_quant_matmul(CONFIG)
+    qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
+    fa = check_flash_attention(CONFIG)
     check_reference()
     launches = main_path(CONFIG)
     train = train_path(CONFIG)
+    pipeline = pipeline_path(CONFIG)
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -798,6 +1083,14 @@ def main() -> int:
          "launches": train["fake_quant_fwd"] + train["fake_quant_bwd"],
          "launches_fwd": train["fake_quant_fwd"],
          "launches_bwd": train["fake_quant_bwd"], **fq},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:24",
+         "launches": pipeline["flash_attention"], **fa},
+        {"name": "quant_matmul_dequant", "route": "cuda",
+         "source": "src/repro_torch/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul.py:115",
+         **qmm_dequant},
     ]
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

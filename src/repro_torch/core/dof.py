@@ -64,6 +64,14 @@ def stream_fake_quant(x: torch.Tensor, stream: Params,
 # Quantized linear — offline subgraph for the kernel.
 # ---------------------------------------------------------------------------
 
+def randn(shape: tuple, gen) -> torch.Tensor:
+    """Standard normal f32 draws from ``gen`` on its device; on the meta
+    device (a shape-only skeleton) nothing is drawn."""
+    dev = gen.device
+    return torch.randn(shape, generator=None if dev.type == "meta" else gen,
+                       device=dev, dtype=torch.float32)
+
+
 def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
                  cfg: QuantConfig | None, bias: bool = False,
                  w_bits: int | None = None, name: str | None = None,
@@ -75,8 +83,7 @@ def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
     lead = tuple(lead)
     dev = gen.device
     std = d_in ** -0.5
-    p: Params = {"w": torch.randn(lead + (d_in, d_out), generator=gen,
-                                  device=dev, dtype=torch.float32) * std}
+    p: Params = {"w": randn(lead + (d_in, d_out), gen) * std}
     if bias:
         p["b"] = torch.zeros(lead + (d_out,), dtype=torch.float32, device=dev)
     if cfg is not None:

@@ -187,6 +187,32 @@ class QuantPlan:
         return cls(entries=entries, default_bits=doc["default_bits"],
                    default_layout=doc["default_layout"])
 
+    # ------------------------------------------------------------- display
+    def describe(self) -> str:
+        """The resolved table ``python -m repro_torch plan`` prints (the
+        JAX package's, character for character)."""
+        head = f"{'tensor':<28s} {'shape':<18s} bits layout      " \
+               f"{'stream':<16s} pack role    origin"
+        lines = [head, "-" * len(head)]
+        for p, s in self.entries:
+            layout = s.layout + ("!" if s.layout_fallback else "")
+            lines.append(
+                f"{p:<28s} {str(list(s.shape)):<18s} {s.w_bits:<4d} "
+                f"{layout:<11s} {s.stream or '-':<16s} "
+                f"{'y' if s.packed else '-':<4s} {s.role:<7s} {s.origin}")
+        # same denominator the exemption rule budgets against: the backbone
+        backbone = [s for _, s in self.entries
+                    if s.role in ("linear", "conv", "router")]
+        total = sum(s.size for s in backbone) or 1
+        ex = sum(s.size for s in backbone if s.exempt)
+        lines.append(f"# {len(self.entries)} tensors; exempt (1%-rule) "
+                     f"backbone weight fraction: {ex / total:.4f}"
+                     + ("; '!' = group layout fell back to a single group"
+                        if any(s.layout_fallback for _, s in self.entries)
+                        else ""))
+        return "\n".join(lines)
+
+
 # ---------------------------------------------------------------------------
 # PlanView: the training forward's scoped lookup handle
 # ---------------------------------------------------------------------------
@@ -490,6 +516,38 @@ def resolve_plan(qcfg: QuantConfig, params, model_cfg=None) -> QuantPlan:
     return QuantPlan(entries=tuple(specs.items()),
                      default_bits=qcfg.w_bits,
                      default_layout=str(qcfg.layout))
+
+
+def apply_plan(tree: Params, plan: QuantPlan) -> Params:
+    """Reconcile a freshly initialized student with the resolved plan.
+
+    ``init_qlinear`` resolves bare-name layout overrides, but path-glob
+    overrides (and producer-assigned layouts) are only known after
+    resolution; this pass re-shapes any ``log_swr`` whose layout disagrees
+    with the plan.  Values are a constant fill (the mean of the old leaf) —
+    the MMSE init stage refits them right after.
+    """
+    def walk(node, prefix: tuple):
+        if isinstance(node, dict):
+            if _is_qlinear(node):
+                spec = plan.get(".".join(prefix))
+                if spec is None or spec.role == "conv":
+                    return node
+                w = node["w"]
+                layout = QLayout.parse(spec.layout)
+                want = tuple(w.shape[:-2]) + tuple(
+                    layout.swr_shape(w.shape[-2], w.shape[-1]))
+                old = node["log_swr"]
+                if tuple(old.shape) == want:
+                    return node
+                return {**node, "log_swr": torch.full(
+                    want, float(torch.mean(old)), dtype=torch.float32,
+                    device=old.device)}
+            return {k: v if k in STREAM_KEYS else walk(v, prefix + (k,))
+                    for k, v in node.items()}
+        return node
+
+    return walk(tree, ())
 
 
 # ---------------------------------------------------------------------------

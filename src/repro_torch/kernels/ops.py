@@ -1,13 +1,17 @@
-"""The deployed linear over an exported (nibble-packed) artifact leaf."""
+"""The deployed linear over an exported (nibble-packed) artifact leaf, the
+fused fake-quant and the cache-free prefill attention: the layout shims
+between the model code and the kernels."""
 from __future__ import annotations
 
 import torch
 
 from . import ref
 from .fake_quant import fake_quant_kernel
+from .flash_attention import attention_prefill
 from .quant_matmul import quant_matmul, tiles_ok as kernel_tiles_ok
 
-__all__ = ["fused_fake_quant", "kernel_tiles_ok", "qlinear_deployed"]
+__all__ = ["attention_prefill", "fused_fake_quant", "kernel_tiles_ok",
+           "qlinear_deployed"]
 
 
 def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,

@@ -49,6 +49,36 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.to(q.dtype)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Softmax attention in f32 over ``[BH, S, hd]``, in q's type; the
+    causal mask is ``query index >= key index`` (aligned at 0)."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    s = torch.einsum("bqh,bkh->bqk", qf, kf) * (q.shape[-1] ** -0.5)
+    if causal:
+        Sq, Sk = s.shape[1], s.shape[2]
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask[None], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", p, vf).to(q.dtype)
+
+
+def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention_ref` in the ``[B, S, H, hd]`` layout, k/v
+    ``[B, Sk, Hkv, hd]`` with each kv head repeated for its ``H / Hkv``
+    query heads (the JAX shim's input)."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    qt = q.transpose(1, 2).reshape(B * H, S, hd)
+    kt = k.transpose(1, 2).reshape(B * H, -1, hd)
+    vt = v.transpose(1, 2).reshape(B * H, -1, hd)
+    o = flash_attention_ref(qt, kt, vt, causal=causal)
+    return o.reshape(B, H, S, hd).transpose(1, 2)
+
+
 def fake_quant_ref(x: torch.Tensor, scale: torch.Tensor,
                    bits: int) -> torch.Tensor:
     """``clip(round(x/s), ±qmax)·s`` in f32, returned in x's type; ``scale``

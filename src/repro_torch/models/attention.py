@@ -15,6 +15,7 @@ from ..core import dof
 from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..kernels.decode_attention import decode_attention, kernel_takes
+from ..kernels.ops import attention_prefill
 from ..serve.kv_cache import quantize_kv
 from .config import ModelConfig
 from .layers import apply_rope, init_rmsnorm, rmsnorm, tap
@@ -36,6 +37,18 @@ def decode_route(cfg: ModelConfig, max_len: int, use_kernels: bool) -> bool:
     G = cfg.n_heads_padded // cfg.n_kv_heads_padded
     return (bool(use_kernels) and cfg.mla is None and max_len >= 1
             and kernel_takes(G, cfg.head_dim))
+
+
+def prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  use_kernels: bool) -> bool:
+    """Whether the cache-free causal attention goes through
+    ``kernels.ops.attention_prefill`` (the ``flash_attention`` kernel).
+
+    Only a forward that takes no gradient on the card: the kernel has no
+    backward (nor has the reference's), so the student's training forward
+    stays on ``_sdpa``, and CPU tensors keep ``_sdpa`` too."""
+    return (bool(use_kernels) and q.is_cuda
+            and not (q.requires_grad or k.requires_grad or v.requires_grad))
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -178,9 +191,11 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     (serving decode); paged (``"pt"`` in the cache, serving decode).
 
     ``use_kernels`` routes the per-slot decode attention through
-    ``kernels.decode_attention`` under :func:`decode_route` (``_sdpa`` /
-    ``_paged_sdpa`` are the plain route) and the weights' fake-quant through
-    the ``fake_quant`` kernel.  ``taps`` records ``{prefix}.pre_o``."""
+    ``kernels.decode_attention`` under :func:`decode_route`, the cache-free
+    causal attention of a no-gradient forward through
+    ``kernels.ops.attention_prefill`` under :func:`prefill_route` (``_sdpa``
+    / ``_paged_sdpa`` are the plain route) and the weights' fake-quant
+    through the ``fake_quant`` kernel.  ``taps`` records ``{prefix}.pre_o``."""
     B, Sq, _ = x.shape
     hd = cfg.head_dim
     H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
@@ -198,7 +213,10 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = _sdpa(q, k, v, causal=True, q_offset=0)
+        if prefill_route(q, k, v, use_kernels):
+            out = attention_prefill(q, k, v, causal=True)
+        else:
+            out = _sdpa(q, k, v, causal=True, q_offset=0)
     elif "pt" in cache:
         out = _paged_decode(q, k, v, cache, cfg, use_kernels).to(x.dtype)
     else:

@@ -94,8 +94,7 @@ def mlp(x: torch.Tensor, p: Params, qcfg: QuantConfig | None,
 
 def init_embed(gen: torch.Generator, vocab: int, d: int,
                qcfg: QuantConfig | None) -> Params:
-    p: Params = {"w": torch.randn((vocab, d), generator=gen, device=gen.device,
-                                  dtype=torch.float32) * 0.02}
+    p: Params = {"w": dof.randn((vocab, d), gen) * 0.02}
     if qcfg is not None:
         # per-row (token) scale: embedding tables quantize at embed_bits
         p["log_s"] = torch.full((vocab, 1), math.log(0.02 / 127.0),

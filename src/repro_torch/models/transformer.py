@@ -50,14 +50,23 @@ def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
     return _sorted(layers)
 
 
+class _ShapeOnly:
+    """Stands in for a generator on the meta device: the init code reads
+    its ``device`` and draws nothing."""
+    device = torch.device("meta")
+
+
 def init_model(gen: torch.Generator | int, cfg: ModelConfig,
                qcfg: QuantConfig | None, device=None) -> Params:
     """Random parameters from ``gen`` (or a seed) on ``device`` (``None`` →
-    the card).  Key order follows the JAX package, so the resolved plan's
-    JSON is the same for a converted tree and for one built here."""
+    the card; ``"meta"`` → a skeleton of shapes, nothing allocated, the
+    seed unused).  Key order follows the JAX package, so the resolved
+    plan's JSON is the same for a converted tree and for one built here."""
     _require_dense(cfg)
     dev = resolve_device(device)
-    if isinstance(gen, int):
+    if dev.type == "meta":
+        gen = _ShapeOnly()
+    elif isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
     elif gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device} but device {dev}")
@@ -133,8 +142,10 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     decode (S == 1), writing K/V into it in place and advancing its
     ``pos``.  ``plan`` makes the fake-quant forward plan-aware (per-path
     bits); ``use_kernels`` routes the per-slot decode attention
-    (``models.attention.decode_route``) and the weights' fake-quant
-    (``core.dof.weight_fake_quant``) through the kernels.
+    (``models.attention.decode_route``), the cache-free attention of a
+    no-gradient forward (``models.attention.prefill_route``) and the
+    weights' fake-quant (``core.dof.weight_fake_quant``) through the
+    kernels.
     ``collect_taps`` records per-channel ``{min, max, mean}`` at every
     stream point as ``L{i}.attn_in`` … (the JAX package's tap names);
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops

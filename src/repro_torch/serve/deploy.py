@@ -4,7 +4,9 @@
 subgraph once (quantize → int4-pack) and drops the FP masters, streams and
 DoF.  ``deploy_view`` turns the artifact back into a forward()-compatible
 tree of dequantized weights — what the JAX package's ``Engine`` serves, and
-so what this one serves.  Per-tensor decisions come from the resolved
+so what this one serves; ``effective_view`` is the student's fake-quant
+weights in the same structure, the oracle the export is held against.
+Per-tensor decisions come from the resolved
 :class:`~repro_torch.core.plan.QuantPlan` carried by the
 :class:`DeployPlan`; the artifact embeds the plan as a uint8 leaf.
 
@@ -19,7 +21,7 @@ from typing import Any
 import torch
 
 from ..core import dof
-from ..core.fakequant import quantize
+from ..core.fakequant import fake_quant, quantize
 from ..core.plan import (PLAN_KEY, STREAM_KEYS, STREAM_OF, QuantPlan,
                          _is_qlinear, plan_from_array, plan_to_array,
                          resolve_plan)
@@ -250,6 +252,60 @@ def deploy_view(exported: Params, plan_or_qcfg,
         return tree
 
     return walk(exported)
+
+
+def _effective_node(path: tuple, node: Params, parent: Params,
+                    plan: DeployPlan, dtype) -> Params:
+    out: Params = {"w": dof.effective_weight(
+        node, plan.qcfg, _stream_log_sa(path[-1], parent),
+        compute_dtype=dtype, bits=plan.bits_for(".".join(path)))}
+    if "b" in node:
+        out["b"] = node["b"]
+    return out
+
+
+@torch.no_grad()
+def effective_view(params: Params, plan_or_qcfg,
+                   dtype=torch.float32) -> Params:
+    """Fake-quant (training-time) weights in :func:`deploy_view`'s tree
+    structure, through the plain composition, one stacked layer at a time.
+
+    The oracle for export fidelity: ``deploy_view(export_for_layers(p))``
+    must match ``effective_view(p)`` leaf for leaf up to float tolerance.
+    """
+    plan = _as_plan(plan_or_qcfg, params=params)
+    qcfg = plan.qcfg
+
+    def walk(tree, prefix: tuple):
+        if isinstance(tree, dict):
+            if "w" in tree and "log_s" in tree:      # quantized embedding
+                s = torch.exp(tree["log_s"])
+                return {"w": fake_quant(tree["w"], s, qcfg.embed_bits,
+                                        signed=True).to(torch.float32)}
+            out = {}
+            for k, v in tree.items():
+                if k in STREAM_KEYS:
+                    continue
+                if _is_qlinear(v):
+                    out[k] = _effective_node(prefix + (k,), v, tree, plan,
+                                             dtype)
+                else:
+                    out[k] = walk(v, prefix + (k,))
+            return out
+        return tree
+
+    out = {}
+    for k, v in params.items():
+        if k in _STACKED:
+            out[k] = _stack([walk(layer_slice(v, i), (k,))
+                             for i in range(stack_depth(v))])
+        elif k in STREAM_KEYS:
+            continue
+        elif _is_qlinear(v):
+            out[k] = _effective_node((k,), v, params, plan, dtype)
+        else:
+            out[k] = walk(v, (k,))
+    return out
 
 
 def find_exported_linears(tree, prefix: tuple = ()) -> list[tuple]:

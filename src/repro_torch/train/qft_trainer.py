@@ -30,6 +30,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import unstack
 from ..optim.adam import paper_recipe
 from ..tree import tree_items, tree_map
+from .checkpoint import CheckpointManager
 from .steps import make_train_step
 
 Params = dict[str, Any]
@@ -140,10 +141,13 @@ def _as_batch(batch: dict, device: torch.device) -> dict:
 
 
 def calibrate_student(student: Params, cfg: ModelConfig, qcfg: QuantConfig,
-                      teacher: Params, batches: Iterable[dict]) -> Params:
+                      teacher: Params, batches: Iterable[dict],
+                      use_kernels: bool = True) -> Params:
     """Naive max-min activation calibration (paper's pre-QFT step) from
     teacher taps; writes per-layer stream ``(log_sa, zp)`` into a new tree
-    (the written leaves are fresh tensors; the input is unchanged)."""
+    (the written leaves are fresh tensors; the input is unchanged).
+    ``use_kernels`` routes the teacher's attention through the
+    ``flash_attention`` kernel on the card."""
     if not qcfg.act_quant:
         return student
     dev = _device_of(teacher)
@@ -151,7 +155,8 @@ def calibrate_student(student: Params, cfg: ModelConfig, qcfg: QuantConfig,
     with torch.no_grad():
         for batch in batches:
             taps = forward(teacher, cfg, None, _as_batch(batch, dev),
-                           collect_taps=True, logits=False)["taps"]
+                           collect_taps=True, logits=False,
+                           use_kernels=use_kernels)["taps"]
             for name, st in taps.items():
                 lo, hi = st["min"], st["max"]
                 if name in acc:
@@ -231,12 +236,39 @@ def init_scales(student: Params, cfg: ModelConfig, qcfg: QuantConfig,
     return student
 
 
+# -------------------------------------------------------------------------
+# Step-checkpoint convention, shared by QFTTrainer.run and the pipeline:
+# checkpoint number == completed steps.
+# -------------------------------------------------------------------------
+
+def restore_step_state(ckpt, like: dict, steps: int,
+                       resume: bool) -> tuple[dict, int]:
+    """(state, start_step) from the newest usable step checkpoint.
+
+    A checkpoint beyond the requested step count can't produce the requested
+    state — then (and with resume off / no checkpoint) train from scratch.
+    """
+    if not resume or ckpt is None:
+        return like, 0
+    latest = ckpt.latest_step()
+    if not latest or latest > steps:
+        return like, 0
+    return ckpt.restore(latest, like), latest
+
+
+def step_ckpt_due(completed: int, every: int, steps: int) -> bool:
+    """Periodic save points; the final state is saved separately at ``steps``."""
+    return completed % every == 0 and completed < steps
+
+
 @dataclasses.dataclass
 class QFTConfig:
     ce_proportion: float = 0.0        # Fig. 6 ablation knob
     cle_init: bool = False            # Fig. 8: CLE+QFT two-step
     base_lr: float = 1e-4             # Fig. 7 robust region
     freeze_scales: bool = False       # Fig. 8/9 ablation: train W&b only
+    checkpoint_dir: str | None = None  # step checkpoints when run() gets none
+    checkpoint_every: int = 200
 
 
 _SCALE_LEAVES = ("log_swr", "log_sa", "zp", "log_s")
@@ -251,12 +283,14 @@ class QFTTrainer:
     resolved ``core.plan.QuantPlan``) threads per-tensor bits through both
     the MMSE scale init and the fake-quant training forward;
     ``microbatches`` accumulates each step's gradient over that many slices
-    of the batch.  On the card the student's weight fake-quant runs
-    through the ``fake_quant`` kernel."""
+    of the batch.  With ``use_kernels``, on the card, the student's weight
+    fake-quant runs through the ``fake_quant`` kernel and the teacher's
+    attention through ``flash_attention``."""
 
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, teacher: Params,
                  qft: QFTConfig = QFTConfig(), steps_per_epoch: int = 500,
-                 plan: QuantPlan | None = None, microbatches: int = 1):
+                 plan: QuantPlan | None = None, microbatches: int = 1,
+                 use_kernels: bool = True):
         self.cfg = cfg
         self.qcfg = qcfg
         self.teacher = teacher
@@ -268,7 +302,9 @@ class QFTTrainer:
         self._grad_mask = _freeze_scales_mask if qft.freeze_scales else None
         self.train_step = make_train_step(
             cfg, qcfg, self.opt, ce_proportion=qft.ce_proportion,
-            grad_mask=self._grad_mask, microbatches=microbatches, plan=plan)
+            grad_mask=self._grad_mask, microbatches=microbatches, plan=plan,
+            use_kernels=use_kernels)
+        self.use_kernels = use_kernels
 
     # -------------------------------------------------------------- prepare
     def prepare_student(self, gen: torch.Generator | int,
@@ -277,27 +313,47 @@ class QFTTrainer:
                                 device=self.device)
         # order matters: calibrate S_a first, THEN invert Eq. 2 for S_wR
         student = calibrate_student(student, self.cfg, self.qcfg,
-                                    self.teacher, calib_batches)
+                                    self.teacher, calib_batches,
+                                    use_kernels=self.use_kernels)
         return init_scales(student, self.cfg, self.qcfg,
                            cle_init=self.qft.cle_init, plan=self.plan)
 
     # ------------------------------------------------------------------ run
     def run(self, student: Params, data: Iterable[dict], steps: int,
-            log_every: int = 50) -> tuple[Params, list[dict]]:
+            log_every: int = 50, ckpt: CheckpointManager | None = None,
+            resume: bool = False) -> tuple[Params, list[dict]]:
         """``steps`` train steps over ``data``; the student is trained in
         place and returned with the logged ``{step, loss, t}`` history.
-        Checkpointed and resumed runs wait for ``train/checkpoint.py``."""
-        opt_state = self.opt.init(student)
+
+        With ``ckpt`` (or ``QFTConfig.checkpoint_dir``) the state is saved
+        every ``checkpoint_every`` completed steps (in the background) and
+        at the end; ``resume`` continues from the newest step checkpoint
+        not past ``steps``, replaying ``data`` up to it (deterministic
+        streams give the same batch per step index)."""
+        if ckpt is None and self.qft.checkpoint_dir is not None:
+            ckpt = CheckpointManager(self.qft.checkpoint_dir)
+        state, start = restore_step_state(
+            ckpt, {"student": student, "opt": self.opt.init(student)},
+            steps, resume)
+        student, opt_state = state["student"], state["opt"]
         history = []
         it = iter(data)
+        for _ in range(start):
+            next(it)
         t0 = time.time()
-        for s in range(steps):
+        for s in range(start, steps):
             batch = _as_batch(next(it), self.device)
             student, opt_state, metrics = self.train_step(
                 student, opt_state, self.teacher, batch)
             if s % log_every == 0 or s == steps - 1:
                 history.append({"step": s, "loss": float(metrics["loss"]),
                                 "t": time.time() - t0})
+            if ckpt is not None and step_ckpt_due(
+                    s + 1, self.qft.checkpoint_every, steps):
+                ckpt.save(s + 1, {"student": student, "opt": opt_state},
+                          blocking=False)
+        if ckpt is not None and steps > start:
+            ckpt.save(steps, {"student": student, "opt": opt_state})
         for _, leaf in tree_items(student):
             leaf.requires_grad_(False)
         return student, history

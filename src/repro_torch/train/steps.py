@@ -23,7 +23,7 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
                         ce_proportion: float = 0.0, microbatches: int = 1,
                         plan=None, compute_dtype=torch.bfloat16,
                         use_kernels: bool = True) -> Callable:
-    """value_and_grad(student, teacher, batch) -> (loss, grads).
+    """value_and_grad(student, teacher, batch, targets=None) -> (loss, grads).
 
     ``grads`` has the student's structure; a leaf that no gradient reaches
     (``lm_head`` and ``head_stream`` when ``ce_proportion == 0``: the head
@@ -31,21 +31,27 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
     on axis 0 and accumulates in f32 as the JAX package's ``lax.scan`` body
     does: ``acc + g / microbatches`` and the sum of ``loss / microbatches``.
     The teacher runs under ``torch.no_grad()``; ``use_kernels`` routes the
-    student's weight fake-quant through the kernel on the card.
+    student's weight fake-quant and the teacher's attention through the
+    kernels on the card.  ``targets`` — the teacher's forward output
+    (``{"hidden", "logits"}``) over the whole batch, computed once by the
+    caller — replaces the teacher forward, so two routes can be held
+    against each other on the same targets.
     """
     with_logits = ce_proportion > 0
 
-    def loss_fn(student, teacher, batch):
+    def loss_fn(student, teacher, batch, targets):
         s_out = forward(student, cfg, qcfg, batch, plan=plan,
                         compute_dtype=compute_dtype, use_kernels=use_kernels,
                         logits=with_logits)
-        with torch.no_grad():
-            t_out = forward(teacher, cfg, None, batch,
-                            compute_dtype=compute_dtype, logits=with_logits)
-        return qft_loss(s_out["hidden"], t_out["hidden"], s_out["logits"],
-                        t_out["logits"], ce_proportion=ce_proportion)
+        if targets is None:
+            with torch.no_grad():
+                targets = forward(teacher, cfg, None, batch,
+                                  compute_dtype=compute_dtype,
+                                  use_kernels=use_kernels, logits=with_logits)
+        return qft_loss(s_out["hidden"], targets["hidden"], s_out["logits"],
+                        targets["logits"], ce_proportion=ce_proportion)
 
-    def value_and_grad(student, teacher, batch):
+    def value_and_grad(student, teacher, batch, targets=None):
         items = list(tree_items(student))
         leaves = [t.requires_grad_() for _, t in items]
         n_mb = max(microbatches, 1)
@@ -57,8 +63,13 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
         acc: list = [None] * len(leaves)
         losses = []
         for i in range(n_mb):
-            loss = loss_fn(student, teacher, {
-                k: v[i * size:(i + 1) * size] for k, v in batch.items()})
+            rows_i = slice(i * size, (i + 1) * size)
+            mb_targets = None if targets is None else {
+                k: None if targets[k] is None else targets[k][rows_i]
+                for k in ("hidden", "logits")}
+            loss = loss_fn(student, teacher,
+                           {k: v[rows_i] for k, v in batch.items()},
+                           mb_targets)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             for j, g in enumerate(grads):
                 if g is not None:
@@ -75,19 +86,20 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
 def make_train_step(cfg: ModelConfig, qcfg: QuantConfig | None, opt: Adam,
                     ce_proportion: float = 0.0, grad_mask=None,
                     microbatches: int = 1, plan=None,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, use_kernels: bool = True):
     """train_step(student, opt_state, teacher, batch) -> (student, opt_state,
     {"loss", "grad_norm"}).
 
     ``grad_mask``: optional ``fn(path, g) -> g`` (``path`` a tuple of keys)
     — zero out DoF subsets for the paper's frozen-scales ablations.
     ``plan``: the resolved ``core.plan.QuantPlan`` — the student forward
-    fake-quants each tensor at its plan bits.  The student's tensors and
-    the optimizer state are updated in place (``optim.adam.Adam.update``).
+    fake-quants each tensor at its plan bits.  ``use_kernels`` as in
+    :func:`make_value_and_grad`.  The student's tensors and the optimizer
+    state are updated in place (``optim.adam.Adam.update``).
     """
     value_and_grad = make_value_and_grad(
         cfg, qcfg, ce_proportion=ce_proportion, microbatches=microbatches,
-        plan=plan, compute_dtype=compute_dtype)
+        plan=plan, compute_dtype=compute_dtype, use_kernels=use_kernels)
 
     def train_step(student, opt_state, teacher, batch):
         loss, grads = value_and_grad(student, teacher, batch)

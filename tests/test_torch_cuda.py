@@ -12,10 +12,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.fakequant import pack_int4  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_prefill, flash_attention)
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
-from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
+from repro_torch.kernels.ref import (attention_prefill_ref,  # noqa: E402
+                                     decode_attention_ref,
                                      fake_quant_grad_ref, fake_quant_ref,
-                                     quant_matmul_ref)
+                                     flash_attention_ref, quant_matmul_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +87,97 @@ def test_quant_matmul_kernel(cuda, layout, M):
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("layout", ["channel", "group:128", "group:32"])
+@pytest.mark.parametrize("M", [1, 8, 130])
+def test_quant_matmul_dequant_kernel(cuda, layout, M):
+    """The dequant body (the baseline variant) against the plain version:
+    f32 2e-5, bf16 2e-2; it counts on its own counter."""
+    K, N = 256, 128
+    rng = np.random.default_rng(M + 7)
+    x = _rand((M, K), 4, cuda)
+    q4 = torch.from_numpy(rng.integers(-8, 8, size=(K, N)).astype(np.int8))
+    qw = pack_int4(q4, axis=0).to(cuda)
+    s_wl = torch.from_numpy(np.exp(rng.normal(size=K) * 0.2).astype(
+        np.float32) * 0.05).to(cuda)
+    shape = (N,) if layout == "channel" else (K // int(layout[6:]), N)
+    s_wr = torch.from_numpy(np.exp(rng.normal(size=shape) * 0.2).astype(
+        np.float32)).to(cuda)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        args = (x.to(dt), qw, s_wl, s_wr)
+        before = (quant_matmul.launches, quant_matmul.launches_dequant)
+        y = quant_matmul(*args, variant="dequant")
+        torch.cuda.synchronize()
+        assert (quant_matmul.launches, quant_matmul.launches_dequant) == (
+            before[0], before[1] + 1)
+        torch.testing.assert_close(y.float(), quant_matmul_ref(*args).float(),
+                                   rtol=tol, atol=tol)
+
+
+FA_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+          "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,hd", [(128, 64), (200, 128), (64, 256), (70, 16)])
+def test_flash_attention_kernel(cuda, dtype, causal, S, hd):
+    """[BH, S, hd] against the plain version within the reference's
+    tolerances; a ragged last tile (S = 200, 70); two runs bit-equal."""
+    dt = getattr(torch, dtype)
+    q, k, v = (_rand((3, S, hd), i, cuda).to(dt) for i in (5, 6, 7))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert out.shape == q.shape and out.dtype == dt
+    assert torch.equal(out, again)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **FA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_prefill_gqa_kernel(cuda, dtype):
+    """The [B, S, H, hd] layout with 4 query heads per kv head, read
+    through strides (a non-contiguous q as the model hands it)."""
+    dt = getattr(torch, dtype)
+    B, S, H, Hkv, hd = 2, 130, 8, 2, 128
+    q = _rand((B, H, S, hd), 8, cuda).to(dt).transpose(1, 2)
+    k, v = (_rand((B, S, Hkv, hd), i, cuda).to(dt) for i in (9, 10))
+    out = attention_prefill(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, H, hd)
+    ref = attention_prefill_ref(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), **FA_TOL[dtype])
+
+
+def test_teacher_forward_goes_through_flash_attention(cuda):
+    """A no-gradient forward with use_kernels runs the kernel once a layer
+    and stays within f32 summation order of the plain route; a forward
+    that needs a gradient keeps _sdpa (the kernel has no backward)."""
+    from repro_torch.configs.qwen3_8b import SMOKE
+    from repro_torch.models import forward, init_model
+    teacher = init_model(0, SMOKE, None, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, SMOKE.vocab, (2, 100))).to(cuda)
+    out = {}
+    for use in (True, False):
+        before = flash_attention.launches
+        with torch.no_grad():
+            out[use] = forward(teacher, SMOKE, None, {"tokens": tokens},
+                               compute_dtype=torch.float32,
+                               use_kernels=use)["hidden"]
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == (
+            SMOKE.n_layers if use else 0)
+    torch.testing.assert_close(out[True], out[False], rtol=1e-4, atol=1e-4)
+    for leaf in teacher["layers"]["attn"]["wq"].values():
+        leaf.requires_grad_()
+    before = flash_attention.launches
+    forward(teacher, SMOKE, None, {"tokens": tokens}, use_kernels=True)
+    assert flash_attention.launches == before
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     q = torch.zeros((2, 1, 2, 48), device=cuda)       # hd 48: not built
     kv = torch.zeros((2, 8, 1, 48), device=cuda)
@@ -94,6 +188,12 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError, match="tiles_ok"):
         quant_matmul(x, torch.zeros((48, 64), dtype=torch.uint8, device=cuda),
                      torch.ones(96, device=cuda), torch.ones(64, device=cuda))
+    big = torch.zeros((1, 8, 300), device=cuda)         # hd > 256
+    with pytest.raises(ValueError, match="hd <= 256"):
+        flash_attention(big, big, big)
+    q16 = torch.zeros((1, 8, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        flash_attention(q16, q16, q16)
 
 
 FQ_SCALES = {"full": lambda R, C: (R, C), "row": lambda R, C: (R, 1),
@@ -163,33 +263,42 @@ def test_fake_quant_kernel_backward(cuda, rule, scale, dtype):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
-def test_training_step_kernel_route_matches_plain_route(cuda):
-    """One SMOKE student step on the card: the weights' fake-quant through
-    the kernel (the "ste" rule) and through the plain composition give the
-    same loss and gradients (1e-6 / 1e-4 relative L2 per leaf), with one
-    forward and one backward launch per quantized weight and microbatch."""
+def _route_step_gap(qcfg, device):
+    """One SMOKE student step's loss and gradients through the kernels and
+    through the plain route, both on the same teacher targets (computed
+    once, through flash_attention), so the gap measures fake_quant alone;
+    asserts one forward and one backward launch per quantized weight and
+    microbatch.  Returns (loss pair, gradient pair)."""
     from repro_torch.configs.qwen3_8b import SMOKE
-    from repro_torch.core.qconfig import QuantConfig
-    from repro_torch.models import init_model
+    from repro_torch.models import forward, init_model
     from repro_torch.train.steps import make_value_and_grad
-    from repro_torch.tree import tree_items
-    qcfg = QuantConfig()
-    teacher = init_model(0, SMOKE, None, device=cuda)
-    student = init_model(1, SMOKE, qcfg, device=cuda)
+    teacher = init_model(0, SMOKE, None, device=device)
+    student = init_model(1, SMOKE, qcfg, device=device)
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
-        0, SMOKE.vocab, (4, 16))).to(cuda)
+        0, SMOKE.vocab, (4, 16))).to(device)
+    with torch.no_grad():
+        targets = forward(teacher, SMOKE, None, {"tokens": tokens},
+                          compute_dtype=torch.float32, use_kernels=True,
+                          logits=False)
     out = {}
     for use in (True, False):
         fwd, bwd = fake_quant_kernel.launches_fwd, fake_quant_kernel.launches_bwd
+        fa = flash_attention.launches
         vg = make_value_and_grad(SMOKE, qcfg, microbatches=2,
                                  compute_dtype=torch.float32,
                                  use_kernels=use)
-        out[use] = vg(student, teacher, {"tokens": tokens})
+        out[use] = vg(student, teacher, {"tokens": tokens}, targets=targets)
+        assert flash_attention.launches == fa     # the teacher is not run
         torch.cuda.synchronize()
         n = (1 + 7 * SMOKE.n_layers) * 2 if use else 0
         assert fake_quant_kernel.launches_fwd - fwd == n
         assert fake_quant_kernel.launches_bwd - bwd == n
-    (lk, gk), (lp, gp) = out[True], out[False]
+    return out[True], out[False]
+
+
+def _assert_same_step(kernel, plain):
+    from repro_torch.tree import tree_items
+    (lk, gk), (lp, gp) = kernel, plain
     assert abs(float(lk) - float(lp)) <= 1e-6 * abs(float(lp))
     plain = dict(tree_items(gp))
     for path, g in tree_items(gk):
@@ -199,6 +308,23 @@ def test_training_step_kernel_route_matches_plain_route(cuda):
         ref = plain[path]
         assert float((g - ref).norm()) <= 1e-4 * float(ref.norm()) + 1e-12, \
             path
+
+
+def test_training_step_kernel_route_matches_plain_route(cuda):
+    """One SMOKE student step on the card (W4A8 DCHW: full weight scales):
+    the weights' fake-quant through the kernel (the "ste" rule) and through
+    the plain composition give the same loss and gradients (1e-6 / 1e-4
+    relative L2 per leaf), on the same teacher targets."""
+    from repro_torch.core.qconfig import QuantConfig
+    _assert_same_step(*_route_step_gap(QuantConfig(), cuda))
+
+
+def test_training_step_routes_match_for_the_pipeline_mode(cuda):
+    """The same for the pipeline's default mode, w4a8 (deployment-oriented:
+    layerwise right scales, so the weight scale reaches the kernel as one
+    value per row and its gradient is a reduced sum)."""
+    from repro_torch.core.qconfig import deployment_oriented
+    _assert_same_step(*_route_step_gap(deployment_oriented(), cuda))
 
 
 @pytest.mark.parametrize("scale", ["full", "col", "shared"])
@@ -233,3 +359,43 @@ def test_stacked_weight_fake_quant_goes_through_kernel(cuda, scale):
         assert got.shape == ref.shape
         err = float((got - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def test_cli_quantize_on_the_card(cuda, tmp_path, capsys):
+    """``python -m repro_torch quantize`` on the SMOKE model on the card:
+    every stage, through the kernels, export parity below 1e-4; a rerun on
+    the workdir resumes after finetune."""
+    from repro_torch.pipeline.cli import main
+    args = ["quantize", "--config", "qwen3_8b", "--steps", "2",
+            "--calib-samples", "32", "--calib-seq-len", "64",
+            "--calib-batch-size", "4", "--serve-smoke",
+            "--workdir", str(tmp_path)]
+    before = flash_attention.launches
+    assert main(args) == 0
+    out = capsys.readouterr().out
+    assert "stage evaluate" in out and "pipeline complete" in out
+    assert "'kernel': True" in out
+    assert flash_attention.launches > before
+    assert main(args) == 0
+    assert "skipped (resume): calibrate, init, finetune" in \
+        capsys.readouterr().out
+
+
+def test_pipeline_plain_route_launches_no_kernel(cuda):
+    """``PipelineConfig(use_kernels=False)`` reaches every stage: a whole
+    run on the card launches none of the five kernels, and evaluate has no
+    kernel-route record."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.pipeline import PipelineConfig, run_pipeline
+    counts = lambda: (fake_quant_kernel.launches_fwd,  # noqa: E731
+                      fake_quant_kernel.launches_bwd,
+                      flash_attention.launches, quant_matmul.launches,
+                      quant_matmul.launches_dequant, decode_attention.launches)
+    before = counts()
+    result = run_pipeline(PipelineConfig(
+        steps=1, calib_samples=32, calib_seq_len=64, calib_batch_size=4,
+        serve_smoke=True, use_kernels=False))
+    torch.cuda.synchronize()
+    assert counts() == before
+    ev = result.metrics["evaluate"]
+    assert "kernel_route" not in ev and ev["export_parity_max_err"] < 1e-4

@@ -81,6 +81,33 @@ def test_entry_points_raise_without_cuda(no_cuda):
                                 device="cpu").device.type == "cpu"
 
 
+def test_pipeline_runs_on_the_card_unless_asked_for_the_cpu(no_cuda):
+    """PipelineConfig defaults to the card: run_pipeline raises without one
+    (no CPU fallback); ``device="cpu"`` is the explicit request."""
+    from repro_torch.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.pipeline.adapters import get_adapter
+    assert PipelineConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_pipeline(PipelineConfig(steps=0))
+    assert get_adapter(PipelineConfig(device="cpu")).device.type == "cpu"
+
+
+def test_cli_runs_with_jax_blocked():
+    """``python -m repro_torch`` (plan, list-configs) with jax and the JAX
+    package unimportable."""
+    code = ("import sys, runpy\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "sys.argv = ['repro_torch', 'plan', '--config', 'qwen3-8b']\n"
+            "runpy.run_module('repro_torch', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("## qwen3-8b mode=w4a8")
+
+
 def test_kernel_build_needs_nvcc(monkeypatch):
     from repro_torch.kernels import _build
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
