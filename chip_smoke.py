@@ -18,7 +18,8 @@ Phases, each fatal on failure:
    qwen3-8b's four layer-linear shapes with a full doubly-channelwise
    scale, the embedding with a per-row scale and the lm_head;
    flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
-   B 1 x S 300, 32/8 heads, f32 and bf16, causal and not), with the error,
+   B 1 x S 300, 32/8 heads, f32 through its FMA body and bf16 through its
+   tensor-core body, causal and not), with the error,
    the kernel's, the plain version's and a library call's time (CUDA
    events, after warm-up) and the least time the card could take.
 4. reference — a SMOKE-size model served on the card through the kernels
@@ -30,25 +31,31 @@ Phases, each fatal on failure:
    (quant_matmul), then 4 greedy requests through the continuous-batching
    engine with paged int8 KV (decode_attention every layer of every decode
    step), counting each kernel's launches; the same requests again through
-   the plain route, tokens compared.
+   the plain route, tokens compared: where a request's tokens differ, the
+   plain route's logits at the first differing step (the request served
+   alone again) must have a top-2 margin within a few bf16 ulps.
 6. train path — QFT on qwen3-8b at full width, depth cut to 4 of 36
    layers (the f32 training state of 36 layers does not fit one card):
    f32 teacher from a seed → student → activation calibration → APQ/MMSE
    scale init → 6 steps of joint finetuning (batch 16 x 512 tokens, 4
    microbatches, the paper's Adam recipe), every quantized weight's
    fake-quant forward and backward through fake_quant and the teacher's
-   attention through flash_attention, launches counted; then export, the
+   attention through flash_attention's tensor-core body, launches counted
+   per body; then export, the
    route check and 2 greedy requests served from the trained artifact
    (quant_matmul, decode_attention); then the teacher's hidden states
    through flash_attention and through the plain route, compared, and one
    more step's loss and gradients through both student routes on those
    same teacher targets, compared.
 7. pipeline — run_pipeline, the path of `python -m repro_torch quantize`,
-   at full width with the depth cut to 4 layers (calibrate, APQ/MMSE init,
+   at full width with the depth cut to 3 layers (calibrate, APQ/MMSE init,
    4 finetune steps of batch 16 x 512, export, evaluate with the serve
-   smoke) in a temporary workdir, launches counted per stage; then again
-   on the same workdir, which skips calibrate, init and finetune and must
-   give the same evaluate metrics.
+   smoke) in a temporary workdir, launches counted per stage (every
+   flash_attention launch the teacher's, on the tensor-core body; evaluate
+   keeps the student on _sdpa); then again on the same workdir, which
+   skips calibrate, init and finetune and must give the same evaluate
+   metrics, and also reports them with the student's attention on
+   flash_attention, for the record.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -77,12 +84,18 @@ TRAIN_STEPS = 6
 TRAIN_MICROBATCHES = 4
 TRAIN_DATA = dict(n_samples=256, seq_len=512, batch_size=16, seed=0)
 #: teacher hidden states, flash_attention vs the plain route (bf16 compute,
-#: 4 layers): relative L2.  The plain route rounds the probabilities to bf16
-#: before P.V and the kernel does not; tests/test_torch_flash_attention.py
-#: emulates the gap on the CPU (the kernel's plain version on the route).
+#: 4 layers): relative L2.  Both round the probabilities to bf16 before P.V,
+#: the kernel the unnormalised ones of its online softmax, the plain route
+#: the normalised ones; tests/test_torch_flash_attention.py bounds the
+#: plain version's gap (f32 probabilities) on the CPU.
 TEACHER_HIDDEN_BOUND = 3e-2
 #: phase 7: the pipeline's own knobs (PipelineConfig), on qwen3-8b at full
-#: width with the depth cut to TRAIN_LAYERS
+#: width with the depth cut to PIPELINE_LAYERS.  Run 1 writes three stage
+#: checkpoints of the f32 student and one of student + Adam state: 40.8 GiB
+#: at 3 layers, 45.1 GiB at 4, which is more than the 45 GiB of disk writes
+#: the whole script may make (the fixed embedding and head are 68 % of the
+#: student at 3 layers, so depth buys little)
+PIPELINE_LAYERS = 3
 PIPELINE = dict(calib_seq_len=512, calib_batch_size=16, calib_batches=2,
                 eval_batches=2, steps=4, serve_smoke=True)
 
@@ -302,9 +315,10 @@ def check_quant_matmul(cfg) -> tuple[dict, dict]:
 def check_flash_attention(cfg) -> dict:
     """flash_attention (through ops.attention_prefill, GQA read in the
     kernel) against its plain version at qwen3-8b's heads: the teacher's
-    prefill (B 16 x S 512) and a ragged S (B 1 x S 300), f32 and bf16,
-    causal and not, within the reference's own tolerances (f32 rtol 2e-4
-    atol 2e-5; bf16 3e-2); then two runs' bits compared.  Returns the
+    prefill (B 16 x S 512) and a ragged S (B 1 x S 300), f32 (the FMA body)
+    and bf16 (the tensor-core body), causal and not, within the reference's
+    own tolerances (f32 rtol 2e-4 atol 2e-5; bf16 3e-2); two runs' bits
+    compared; the body each launch took read off its count.  Returns the
     teacher shape's bf16 causal record."""
     import torch
     import torch.nn.functional as F
@@ -316,14 +330,31 @@ def check_flash_attention(cfg) -> dict:
     g = torch.Generator(device=dev).manual_seed(9)
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     record = None
+
+    def body_of(fn) -> str:
+        before = flash_attention.launches_wgmma, flash_attention.launches_fma
+        out = fn()
+        ran = [n for n, b, a in zip(("wgmma", "fma"), before, (
+            flash_attention.launches_wgmma, flash_attention.launches_fma))
+            if a == b + 1]
+        if len(ran) != 1:
+            fail(f"flash_attention: one call counted {ran}")
+        return out, ran[0]
+
     for (B, S) in ((16, 512), (1, 300)):
         base = [torch.randn((B, S, h, hd), generator=g, device=dev)
                 for h in (H, Hkv, Hkv)]
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dt) for t in base)
             rtol, atol = (2e-4, 2e-5) if dt == torch.float32 else (3e-2, 3e-2)
+            kind = "f32" if dt == torch.float32 else "bf16"
             for causal in (True, False):
-                out = attention_prefill(q, k, v, causal=causal)
+                out, body = body_of(lambda: attention_prefill(
+                    q, k, v, causal=causal))
+                want = "fma" if kind == "f32" else "wgmma"
+                if body != want:
+                    fail(f"flash_attention {kind} B={B} S={S} ran the {body}"
+                         f" body, want {want}")
                 ref = attention_prefill_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 diff = (out.float() - ref.float()).abs()
@@ -336,38 +367,41 @@ def check_flash_attention(cfg) -> dict:
                 if not torch.equal(out, attention_prefill(q, k, v,
                                                           causal=causal)):
                     fail("flash_attention: two runs differ")
-                kind = "f32" if dt == torch.float32 else "bf16"
-                ms = time_ms(lambda: attention_prefill(q, k, v,
-                                                       causal=causal), iters=10)
+                ms = time_ms(lambda: attention_prefill(
+                    q, k, v, causal=causal), iters=20)
                 plain_ms = time_ms(lambda: attention_prefill_ref(
                     q, k, v, causal=causal), iters=5)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), iters=10)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
                 elt = q.element_size()
                 nbytes = elt * hd * B * S * (2 * H + 2 * Hkv)
                 pairs = S * (S + 1) // 2 if causal else S * S
-                b_ms, b_by = bound(nbytes, 4.0 * B * H * pairs * hd, kind)
+                flops = 4.0 * B * H * pairs * hd
+                b_ms, b_by = bound(nbytes, flops, kind)
                 say(f"[kernel] flash_attention B={B} S={S} H={H} Hkv={Hkv} "
-                    f"hd={hd} {kind} causal={causal} max_abs_err={err:.3e} "
-                    f"(rtol {rtol} atol {atol}) ms={ms:.4f} plain_ms="
-                    f"{plain_ms:.4f} library_ms={lib_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by})")
+                    f"hd={hd} {kind} causal={causal} body={body} "
+                    f"max_abs_err={err:.3e} (rtol {rtol} atol {atol}) "
+                    f"ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+                    f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"(kernel/SDPA {ms / lib_ms:.2f}x) bound_ms={b_ms:.4f} "
+                    f"({b_by})")
                 if (B, S, kind, causal) == (16, 512, "bf16", True):
                     record = {"max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "library_ms": lib_ms}
+                              "bound_by": b_by, "library_ms": lib_ms,
+                              "body": body}
                 del out, ref, diff
         del base, q, k, v
     # the reference's own [BH, S, hd] signature, on one small f32 case
     q3, k3, v3 = (torch.randn((4, 200, 64), generator=g, device=dev)
                   for _ in range(3))
     ref3 = flash_attention_ref(q3, k3, v3)
-    excess = float(((flash_attention(q3, k3, v3) - ref3).abs()
-                    - 2e-4 * ref3.abs()).max())
-    if not excess <= 2e-5:
-        fail(f"flash_attention [BH, S, hd]: beyond rtol 2e-4 + atol 2e-5 by "
-             f"{excess - 2e-5}")
+    out3, body = body_of(lambda: flash_attention(q3, k3, v3))
+    excess = float(((out3 - ref3).abs() - 2e-4 * ref3.abs()).max())
+    if body != "fma" or not excess <= 2e-5:
+        fail(f"flash_attention [BH, S, hd] ({body} body): beyond rtol 2e-4 + "
+             f"atol 2e-5 by {excess - 2e-5}")
     torch.cuda.empty_cache()
     return record
 
@@ -692,38 +726,100 @@ def main_path(cfg) -> dict:
     say(f"[main] plain route: {same}/{len(reqs)} requests token-identical to "
         f"the kernel route (greedy); decode "
         f"{ptiming['decode_s'] * 1e3 / plain.decode_steps:.3f} ms/step")
-    for a, b in zip(toks, ptoks):
+    for p, a, b in zip(prompts, toks, ptoks):
         if a != b:
             i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            say(f"[main]   first difference at token {i}: {a} vs {b}")
+            margin, ulp = _plain_margin(plain, p, i, b[i])
+            say(f"[main]   first difference at token {i}: {a} vs {b}; the "
+                f"plain route's top-2 margin there {margin:.6g} = "
+                f"{margin / ulp:.2f} bf16 ulps (limit {MARGIN_ULPS})")
+            if margin > MARGIN_ULPS * ulp:
+                fail(f"main path: kernel tokens {a} != plain tokens {b} at "
+                     f"step {i}, top-2 margin {margin} > {MARGIN_ULPS} ulps")
     return launches
+
+
+def _plain_margin(engine, prompt: list[int], i: int, token: int
+                  ) -> tuple[float, float]:
+    """The plain route's logits for token ``i`` of ``prompt``'s greedy
+    continuation — the request served alone again through ``engine`` (a
+    request's tokens do not depend on what shares its batch), the logits
+    read where the engine draws: the prefill's for token 0, decode step
+    ``i``'s for token ``i``.  Returns (top-2 margin, one bf16 ulp of the
+    top logit)."""
+    import torch
+    from repro_torch.serve.engine import Request
+    from repro_torch.train import steps
+    seen = {"decode": [], "prefill": None}
+    forward, prefill = steps.forward, engine._prefill
+
+    def decode_forward(*a, **k):
+        out = forward(*a, **k)
+        if "pt" in (k.get("cache") or {}):        # the paged decode step
+            seen["decode"].append(out["logits"][0, -1].float().cpu())
+        return out
+
+    def recording_prefill(*a, **k):
+        logits, cache = prefill(*a, **k)
+        seen["prefill"] = logits[0].float().cpu()
+        return logits, cache
+
+    steps.forward, engine._prefill = decode_forward, recording_prefill
+    try:
+        engine.reset()
+        got = engine.generate([Request(prompt=prompt, max_new_tokens=i + 1)])
+    finally:
+        steps.forward, engine._prefill = forward, prefill
+    z = seen["prefill"] if i == 0 else seen["decode"][i - 1]
+    if got[0][i] != token or int(torch.argmax(z)) != token:
+        fail(f"main path: the plain route served alone gave token "
+             f"{got[0][i]} (argmax {int(torch.argmax(z))}) at step {i}, "
+             f"not {token}")
+    top = torch.topk(z, 2).values
+    ulp = 2.0 ** (math.floor(math.log2(abs(float(top[0])))) - 7)
+    return float(top[0] - top[1]), ulp
 
 
 # ---------------------------------------------------------------------------
 # phase 6: the train path at full width
 # ---------------------------------------------------------------------------
 
-def _counts() -> dict:
+def _counters() -> dict:
+    """Each kernel launch count: name -> (wrapper, attribute)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.fake_quant import fake_quant_kernel
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.quant_matmul import quant_matmul
-    return {"fake_quant_fwd": fake_quant_kernel.launches_fwd,
-            "fake_quant_bwd": fake_quant_kernel.launches_bwd,
-            "quant_matmul": quant_matmul.launches,
-            "quant_matmul_dequant": quant_matmul.launches_dequant,
-            "decode_attention": decode_attention.launches,
-            "flash_attention": flash_attention.launches}
+    return {"fake_quant_fwd": (fake_quant_kernel, "launches_fwd"),
+            "fake_quant_bwd": (fake_quant_kernel, "launches_bwd"),
+            "quant_matmul": (quant_matmul, "launches"),
+            "quant_matmul_dequant": (quant_matmul, "launches_dequant"),
+            "decode_attention": (decode_attention, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_wgmma": (flash_attention, "launches_wgmma"),
+            "flash_attention_fma": (flash_attention, "launches_fma")}
+
+
+def _counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def _set_counts(values: dict) -> None:
+    for k, (fn, attr) in _counters().items():
+        setattr(fn, attr, values[k])
 
 
 def _zero_counts() -> None:
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.fake_quant import fake_quant_kernel
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.quant_matmul import quant_matmul
-    fake_quant_kernel.launches_fwd = fake_quant_kernel.launches_bwd = 0
-    quant_matmul.launches = quant_matmul.launches_dequant = 0
-    decode_attention.launches = flash_attention.launches = 0
+    _set_counts(dict.fromkeys(_counters(), 0))
+
+
+def _teacher_on_tensor_cores(counts: dict, where: str) -> None:
+    """Every flash_attention launch in ``counts`` went through the
+    tensor-core body (the teacher's bf16 attention at hd 128)."""
+    if counts["flash_attention_wgmma"] != counts["flash_attention"]:
+        fail(f"{where}: {counts['flash_attention_fma']} of "
+             f"{counts['flash_attention']} flash_attention launches took the "
+             f"FMA body")
 
 
 def _gib() -> float:
@@ -777,6 +873,7 @@ def train_path(cfg) -> dict:
     if prep_fa != 2 * L:          # the teacher over 2 calibration batches
         fail(f"calibration launched flash_attention {prep_fa} times, want "
              f"{2 * L}")
+    _teacher_on_tensor_cores(_counts(), "calibration")
     torch.cuda.reset_peak_memory_stats()
     student, hist = trainer.run(student, data, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.synchronize()
@@ -805,6 +902,7 @@ def train_path(cfg) -> dict:
         fail(f"the steps launched flash_attention "
              f"{run_counts['flash_attention'] - prep_fa} times, want "
              f"{fa_want}")
+    _teacher_on_tensor_cores(run_counts, "the train steps")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}")
     if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
@@ -870,21 +968,24 @@ def train_path(cfg) -> dict:
     hidden = {}
     with torch.no_grad():
         for use in (True, False):
-            before = _counts()["flash_attention"]
+            before = _counts()
             hidden[use] = forward(teacher, cfg, None, batch, use_kernels=use,
                                   logits=False)
-            if _counts()["flash_attention"] - before != (L if use else 0):
+            now = _counts()
+            delta = {k: now[k] - before[k] for k in now}
+            if delta["flash_attention"] != (L if use else 0):
                 fail(f"teacher forward (use_kernels={use}) launched "
-                     f"flash_attention {_counts()['flash_attention'] - before}"
-                     f" times over {L} layers")
+                     f"flash_attention {delta['flash_attention']} times over "
+                     f"{L} layers")
+            _teacher_on_tensor_cores(delta, "the teacher forward")
     hk, hp = hidden[True]["hidden"].float(), hidden[False]["hidden"].float()
     hid_rel = float((hk - hp).norm() / hp.norm())
     del hk, hp
     say(f"[train] teacher hidden states, flash_attention vs the plain route "
         f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
         f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
-        f"{TEACHER_HIDDEN_BOUND:.0e}: the plain route rounds the "
-        f"probabilities to bf16 before P.V, the kernel keeps them f32)")
+        f"{TEACHER_HIDDEN_BOUND:.0e}; both round P to bf16 before P.V, the "
+        f"kernel unnormalised, the plain route normalised)")
     if not hid_rel <= TEACHER_HIDDEN_BOUND:
         fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
     targets = hidden[True]
@@ -892,7 +993,7 @@ def train_path(cfg) -> dict:
     vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES)
     _profile(lambda: vg(student, teacher, batch), "train-step forward+"
              "backward (kernel route, teacher included, 4 microbatches, no "
-             "optimizer)", 1, watch=("fa_kernel", "fq_"))
+             "optimizer)", 1, watch=("fa_wgmma_kernel", "fq_"))
     grads = {}
     for use in (True, False):
         before = _counts()
@@ -964,16 +1065,47 @@ def _pipeline_run(pcfg, adapter, tag: str) -> dict:
     return out
 
 
+def _record_student_routes(adapter) -> dict:
+    """Wrap ``adapter.degradation``: after evaluate's metrics (the student's
+    attention on ``_sdpa``, the route it trained on), once, the same metrics
+    with the student's attention on K4 too, for the record.  That extra
+    pass's launches are taken back off the counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_prefill
+    from repro_torch.models import attention as attn
+    degradation, sdpa, record = adapter.degradation, attn._sdpa, {}
+
+    def student_on_k4(q, k, v, causal, q_offset, kv_len=None):
+        if (causal and q_offset == 0 and kv_len is None and q.is_cuda
+                and not torch.is_grad_enabled()):
+            return attention_prefill(q, k, v, causal=True)
+        return sdpa(q, k, v, causal, q_offset, kv_len)
+
+    def both(student, teacher):
+        record["sdpa"] = degradation(student, teacher)
+        counts = _counts()
+        attn._sdpa = student_on_k4
+        try:
+            record["k4"] = degradation(student, teacher)
+        finally:
+            attn._sdpa = sdpa
+        _set_counts(counts)
+        return record["sdpa"]
+
+    adapter.degradation = both
+    return record
+
+
 def pipeline_path(cfg) -> dict:
     """python -m repro_torch quantize's path (run_pipeline) at full width,
-    depth cut to 4 layers, in a temporary workdir; then again on the same
-    workdir, which must skip the student stages and reproduce evaluate.
+    depth cut to PIPELINE_LAYERS, in a temporary workdir; then again on the
+    same workdir, which must skip the student stages and reproduce evaluate.
     Returns the first run's launch counts."""
     import tempfile
     from repro_torch.pipeline import STAGES, PipelineConfig
     from repro_torch.pipeline.adapters import TransformerAdapter
     from repro_torch.train.checkpoint import CheckpointManager
-    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    cfg_cut = dataclasses.replace(cfg, n_layers=PIPELINE_LAYERS)
     saves: list = []
     save = CheckpointManager.save
 
@@ -988,11 +1120,13 @@ def pipeline_path(cfg) -> dict:
     with tempfile.TemporaryDirectory(prefix="qft_pipeline_") as workdir:
         pcfg = PipelineConfig(arch=cfg.name, smoke=False, workdir=workdir,
                               device=DEVICE, log_every=1, **PIPELINE)
-        say(f"[pipeline] {cfg.name} full width, {TRAIN_LAYERS} of "
+        say(f"[pipeline] {cfg.name} full width, {PIPELINE_LAYERS} of "
             f"{cfg.n_layers} layers, mode {pcfg.mode}: {PIPELINE}")
-        runs = [_pipeline_run(pcfg, TransformerAdapter(
-            pcfg, cfg4, pcfg.quant_config()), tag) for tag in ("run 1",
-                                                                "run 2")]
+        adapters = [TransformerAdapter(pcfg, cfg_cut, pcfg.quant_config())
+                    for _ in range(2)]
+        routes = _record_student_routes(adapters[1])
+        runs = [_pipeline_run(pcfg, ad, tag)
+                for ad, tag in zip(adapters, ("run 1", "run 2"))]
         disk = sum(f.stat().st_size for f in Path(workdir).rglob("*")
                    if f.is_file())
     CheckpointManager.save = save
@@ -1013,6 +1147,13 @@ def pipeline_path(cfg) -> dict:
         f"distill_loss {ev2['distill_loss']:.6f} top1_agree "
         f"{ev2['top1_agree']:.6f} export_parity_max_err "
         f"{ev2['export_parity_max_err']:.3e}")
+    dl_sdpa, dl_k4 = (routes[r]["distill_loss"] for r in ("sdpa", "k4"))
+    say(f"[pipeline] run 2 evaluate, the student's attention on each route "
+        f"(the teacher on K4): distill_loss _sdpa (evaluate's) "
+        f"{dl_sdpa:.6f}, K4 {dl_k4:.6f} (rel "
+        f"{abs(dl_k4 - dl_sdpa) / dl_sdpa:.3e}); top1_agree "
+        f"{routes['sdpa']['top1_agree']:.6f} / "
+        f"{routes['k4']['top1_agree']:.6f}")
     if first["run"] != list(STAGES) or first["skipped"]:
         fail(f"pipeline run 1 ran {first['run']}, skipped {first['skipped']}")
     if len(losses) != PIPELINE["steps"] or not all(map(math.isfinite,
@@ -1021,6 +1162,15 @@ def pipeline_path(cfg) -> dict:
     for stage in ("calibrate", "finetune", "evaluate"):
         if first["per_stage"][stage]["flash_attention"] < 1:
             fail(f"flash_attention did not launch in {stage}")
+        _teacher_on_tensor_cores(first["per_stage"][stage],
+                                 f"pipeline {stage}")
+    # evaluate runs the teacher through K4 once a layer per eval batch; the
+    # student keeps _sdpa, the route it trained on
+    fa_eval = PIPELINE["eval_batches"] * PIPELINE_LAYERS
+    if first["per_stage"]["evaluate"]["flash_attention"] != fa_eval:
+        fail(f"evaluate launched flash_attention "
+             f"{first['per_stage']['evaluate']['flash_attention']} times, "
+             f"want {fa_eval} (the teacher only)")
     ev_counts = first["per_stage"]["evaluate"]
     if ev_counts["quant_matmul"] < 1 or ev_counts["decode_attention"] < 1:
         fail(f"evaluate's route check and serve smoke did not launch "
@@ -1086,7 +1236,9 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",
-         "launches": pipeline["flash_attention"], **fa},
+         "launches": pipeline["flash_attention"],
+         "launches_wgmma": pipeline["flash_attention_wgmma"],
+         "launches_fma": pipeline["flash_attention_fma"], **fa},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

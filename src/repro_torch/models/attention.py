@@ -41,12 +41,15 @@ def decode_route(cfg: ModelConfig, max_len: int, use_kernels: bool) -> bool:
 
 def prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   use_kernels: bool) -> bool:
-    """Whether the cache-free causal attention goes through
-    ``kernels.ops.attention_prefill`` (the ``flash_attention`` kernel).
+    """Whether the cache-free causal attention of a full-precision model
+    (the teacher) goes through ``kernels.ops.attention_prefill`` (the
+    ``flash_attention`` kernel).
 
     Only a forward that takes no gradient on the card: the kernel has no
-    backward (nor has the reference's), so the student's training forward
-    stays on ``_sdpa``, and CPU tensors keep ``_sdpa`` too."""
+    backward (nor has the reference's), and CPU tensors keep ``_sdpa``.
+    :func:`attention` never asks it for a quantized model: the student
+    trains on ``_sdpa`` (with a gradient), so its no-gradient forwards
+    (evaluate) stay on the route it was trained on."""
     return (bool(use_kernels) and q.is_cuda
             and not (q.requires_grad or k.requires_grad or v.requires_grad))
 
@@ -192,10 +195,11 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
 
     ``use_kernels`` routes the per-slot decode attention through
     ``kernels.decode_attention`` under :func:`decode_route`, the cache-free
-    causal attention of a no-gradient forward through
-    ``kernels.ops.attention_prefill`` under :func:`prefill_route` (``_sdpa``
-    / ``_paged_sdpa`` are the plain route) and the weights' fake-quant
-    through the ``fake_quant`` kernel.  ``taps`` records ``{prefix}.pre_o``."""
+    causal attention of a full-precision model's no-gradient forward
+    through ``kernels.ops.attention_prefill`` under :func:`prefill_route`
+    (``_sdpa`` / ``_paged_sdpa`` are the plain route) and the weights'
+    fake-quant through the ``fake_quant`` kernel.  ``taps`` records
+    ``{prefix}.pre_o``."""
     B, Sq, _ = x.shape
     hd = cfg.head_dim
     H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
@@ -213,7 +217,8 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if prefill_route(q, k, v, use_kernels):
+        # a quantized model (the student) keeps _sdpa, the route it trains on
+        if qcfg is None and prefill_route(q, k, v, use_kernels):
             out = attention_prefill(q, k, v, causal=True)
         else:
             out = _sdpa(q, k, v, causal=True, q_offset=0)

@@ -143,7 +143,8 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     ``pos``.  ``plan`` makes the fake-quant forward plan-aware (per-path
     bits); ``use_kernels`` routes the per-slot decode attention
     (``models.attention.decode_route``), the cache-free attention of a
-    no-gradient forward (``models.attention.prefill_route``) and the
+    full-precision model's no-gradient forward
+    (``models.attention.prefill_route``) and the
     weights' fake-quant (``core.dof.weight_fake_quant``) through the
     kernels.
     ``collect_taps`` records per-channel ``{min, max, mean}`` at every

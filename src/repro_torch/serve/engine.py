@@ -74,6 +74,11 @@ class ServeConfig:
     #: page-pool size; 0 → capacity-equivalent auto
     #: (max_slots * ceil(max_len / kv_page_size))
     kv_pages: int = 0
+    slots: dataclasses.InitVar[int | None] = None   # legacy alias
+
+    def __post_init__(self, slots):
+        if slots is not None:
+            self.max_slots = slots
 
 
 def _tree_bytes(tree) -> int:

@@ -25,6 +25,7 @@ from repro.core.plan import resolve_plan as j_resolve_plan  # noqa: E402
 from repro.core.policy import select_exempt_layers as j_select  # noqa: E402
 from repro.models import config as j_mc  # noqa: E402
 from repro.models import init_model as j_init_model  # noqa: E402
+from repro.serve import engine as j_engine  # noqa: E402
 from repro_torch.configs import qwen3_8b as t_qwen  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import dof as t_dof  # noqa: E402
@@ -38,6 +39,7 @@ from repro_torch.core.policy import select_exempt_layers  # noqa: E402
 from repro_torch.interop import from_numpy_tree  # noqa: E402
 from repro_torch.models import config as t_mc  # noqa: E402
 from repro_torch.models import init_model  # noqa: E402
+from repro_torch.serve import engine as t_engine  # noqa: E402
 
 
 def _t(a):
@@ -62,6 +64,17 @@ def test_qconfig_dataclasses_field_for_field(name):
     assert _fields(getattr(t_qc, name)) == _fields(getattr(j_qc, name))
     assert [g.value for g in t_qc.Granularity] == \
         [g.value for g in j_qc.Granularity]
+
+
+def test_serve_config_field_for_field_with_slots_alias():
+    """F11: ServeConfig field for field the JAX one, the legacy ``slots=``
+    InitVar alias included, and the alias sets ``max_slots`` in both."""
+    def decl(cls):        # dataclass fields and InitVars, in order
+        return [(f.name, f.default) for f in cls.__dataclass_fields__.values()]
+    assert decl(t_engine.ServeConfig) == decl(j_engine.ServeConfig)
+    for cls in (t_engine.ServeConfig, j_engine.ServeConfig):
+        assert cls(slots=3).max_slots == 3
+        assert cls(max_slots=5).max_slots == 5
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
@@ -214,6 +227,46 @@ def test_top_k_mask_parity(k):
                      for r in logits])
     got = t_samp.top_k_mask(_t(logits), k).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def np_top_k_support(logits: np.ndarray, k: int) -> np.ndarray:
+    """Boolean support of a tie-inclusive top-k: everything >= the k-th
+    largest VALUE survives (0 or >= vocab disables).  A copy of
+    ``tests/test_sampling.py``'s reference."""
+    v = logits.shape[-1]
+    if k <= 0 or k >= v:
+        return np.ones_like(logits, bool)
+    kth = np.sort(logits)[::-1][k - 1]
+    return logits >= kth
+
+
+#: (logits, k): the two subnormal cases of F8 first (6.3e-40 is a float32
+#: subnormal), then ties at the boundary, all-equal rows and the disabled k
+TOP_K_CASES = [([0.0, 6.3e-40], 1), ([6.3e-40, 0.0, -1.0], 1),
+               ([1e-45, -1e-45, 0.0, 2.0], 2), ([1.0, 2.0, 2.0, 0.5], 2),
+               ([3.0, 3.0, 3.0], 1), ([-1.0, -5.0, 4.0, 4.0, 0.0], 3),
+               ([0.5, 0.25], 0), ([0.5, 0.25], 2)]
+
+
+@pytest.mark.parametrize("case", range(len(TOP_K_CASES)))
+def test_top_k_mask_subnormal_exception(case):
+    """F8: XLA on the CPU compares float32 subnormals as zero, so JAX's
+    top_k_mask keeps both of [0.0, 6.3e-40] at k = 1; the port compares
+    them exactly and keeps only 6.3e-40, as the numpy reference does.  The
+    port holds the numpy reference on every case, and JAX once the
+    subnormals are flushed to zero."""
+    row, k = TOP_K_CASES[case]
+    logits = np.asarray(row, np.float32)
+    kept = np.isfinite(t_samp.top_k_mask(_t(logits), k).numpy())
+    np.testing.assert_array_equal(kept, np_top_k_support(logits, k))
+    flushed = np.where(np.abs(logits) < np.finfo(np.float32).tiny,
+                       np.float32(0), logits)
+    want = np.isfinite(np.asarray(j_samp.top_k_mask(jnp.asarray(flushed),
+                                                    k)))
+    got = np.isfinite(t_samp.top_k_mask(_t(flushed), k).numpy())
+    np.testing.assert_array_equal(got, want)
+    if case == 0:
+        assert kept.tolist() == [False, True]
 
 
 @pytest.mark.parametrize("p", [0.0, 0.1, 0.5, 0.9, 1.0])

@@ -151,6 +151,92 @@ def test_attention_prefill_gqa_kernel(cuda, dtype):
     torch.testing.assert_close(out.float(), ref.float(), **FA_TOL[dtype])
 
 
+def _fused_qkv(B, S, H, Hkv, hd, seed, device):
+    """bf16 q [B, S, H, hd] and k, v [B, S, Hkv, hd] as views of one fused
+    [B, S, (H + 2 Hkv) hd] projection: strided in S, as a fused qkv
+    matmul hands them over."""
+    qkv = _rand((B, S, (H + 2 * Hkv) * hd), seed, device).bfloat16()
+    q = qkv[..., :H * hd].view(B, S, H, hd)
+    k = qkv[..., H * hd:(H + Hkv) * hd].view(B, S, Hkv, hd)
+    v = qkv[..., (H + Hkv) * hd:].view(B, S, Hkv, hd)
+    return q, k, v
+
+
+def _fa_counts():
+    return (flash_attention.launches, flash_attention.launches_wgmma,
+            flash_attention.launches_fma)
+
+
+@pytest.mark.parametrize("heads", [(32, 8), (4, 1)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 17, 64, 300, 512])
+def test_attention_prefill_tensor_core_body(cuda, S, causal, hd, heads):
+    """The tensor-core body (bf16, hd 64/128) on strided views of a fused
+    qkv projection, against the plain version at the reference's bf16
+    tolerance; two runs bit-equal; both launches counted on that body."""
+    H, Hkv = heads
+    q, k, v = _fused_qkv(2, S, H, Hkv, hd, S + hd + H, cuda)
+    before = _fa_counts()
+    out = attention_prefill(q, k, v, causal=causal)
+    again = attention_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert out.shape == (2, S, H, hd) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    ref = attention_prefill_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **FA_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,Sk", [(100, 300), (300, 100), (64, 1)])
+def test_tensor_core_body_with_sk_other_than_s(cuda, S, Sk, causal):
+    """[B, S, H, hd] with Sk != S through the tensor-core body (causal mask
+    aligned at 0, as the reference's), and the [BH, S, hd] form through the
+    FMA body, each against its plain version."""
+    q = _rand((2, S, 8, 128), 11, cuda).bfloat16()
+    k, v = (_rand((2, Sk, 2, 128), i, cuda).bfloat16() for i in (12, 13))
+    before = _fa_counts()
+    out = attention_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(
+        out.float(), attention_prefill_ref(q, k, v, causal=causal).float(),
+        **FA_TOL["bfloat16"])
+    q3 = _rand((3, S, 128), 14, cuda).bfloat16()
+    k3, v3 = (_rand((3, Sk, 128), i, cuda).bfloat16() for i in (15, 16))
+    before = _fa_counts()
+    out3 = flash_attention(q3, k3, v3, causal=causal)
+    again = flash_attention(q3, k3, v3, causal=causal)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(out3, again)
+    torch.testing.assert_close(
+        out3.float(), flash_attention_ref(q3, k3, v3, causal=causal).float(),
+        **FA_TOL["bfloat16"])
+
+
+def test_tensor_core_body_takes_heads_major_views_and_refuses_misaligned(
+        cuda):
+    """A q transposed from [B, H, S, hd] goes through the tensor-core body;
+    a view whose base is not 16-byte aligned raises instead of launching."""
+    B, S, H, Hkv, hd = 2, 130, 8, 2, 64
+    q = _rand((B, H, S, hd), 17, cuda).bfloat16().transpose(1, 2)
+    k, v = (_rand((B, S, Hkv, hd), i, cuda).bfloat16() for i in (18, 19))
+    before = _fa_counts()
+    out = attention_prefill(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(
+        out.float(), attention_prefill_ref(q, k, v, causal=True).float(),
+        **FA_TOL["bfloat16"])
+    flat = _rand((B * S * H * hd + 1,), 20, cuda).bfloat16()
+    shifted = flat[1:].view(B, S, H, hd)               # base off by 2 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_prefill(shifted, k, v)
+    assert _fa_counts() == (before[0] + 1, before[1] + 1, before[2])
+
+
 def test_teacher_forward_goes_through_flash_attention(cuda):
     """A no-gradient forward with use_kernels runs the kernel once a layer
     and stays within f32 summation order of the plain route; a forward
@@ -194,6 +280,24 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     q16 = torch.zeros((1, 8, 64), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_attention(q16, q16, q16)
+
+
+#: (logits, k): F8's two subnormal cases (6.3e-40 is a float32 subnormal)
+#: and a boundary tie
+TOP_K_CASES = [([0.0, 6.3e-40], 1), ([6.3e-40, 0.0, -1.0], 1),
+               ([1e-45, -1e-45, 0.0, 2.0], 2), ([1.0, 2.0, 2.0, 0.5], 2)]
+
+
+@pytest.mark.parametrize("case", range(len(TOP_K_CASES)))
+def test_top_k_mask_on_the_card_keeps_subnormals(cuda, case):
+    """F8 on the card: top_k_mask compares subnormals exactly, as the numpy
+    reference (everything >= the k-th largest value) does."""
+    from repro_torch.core.sampling import top_k_mask
+    row, k = TOP_K_CASES[case]
+    logits = np.asarray(row, np.float32)
+    want = logits >= np.sort(logits)[::-1][k - 1]
+    got = torch.isfinite(top_k_mask(torch.from_numpy(logits).to(cuda), k))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 FQ_SCALES = {"full": lambda R, C: (R, C), "row": lambda R, C: (R, 1),

@@ -166,6 +166,89 @@ def test_teacher_hidden_gap_of_the_kernel_route(monkeypatch):
     assert 0 < rel < 3e-2, rel
 
 
+@pytest.mark.parametrize("dtype,hd,layout,want", [
+    ("bfloat16", 128, "bshd", "wgmma"), ("bfloat16", 64, "bshd", "wgmma"),
+    ("bfloat16", 128, "bsd", "fma"), ("bfloat16", 96, "bshd", "fma"),
+    ("bfloat16", 256, "bshd", "fma"), ("bfloat16", 16, "bshd", "fma"),
+    ("float32", 128, "bshd", "fma"), ("float32", 64, "bsd", "fma")])
+def test_flash_attention_body_dispatch(dtype, hd, layout, want):
+    """Which body runs a call: the tensor-core body for the [B, S, H, hd]
+    layout in bf16 at hd 64 or 128, the FMA body for everything else."""
+    from repro_torch.kernels.flash_attention import body_for
+    assert body_for(getattr(torch, dtype), hd, layout) == want
+
+
+def _views():
+    """(name, view, reason the tensor-core body's TMA loads refuse it)."""
+    fused = torch.zeros((2, 17, 48 * 128), dtype=torch.bfloat16)
+    padded = torch.zeros((2, 17, 4, 68), dtype=torch.bfloat16)
+    flat = torch.zeros((2 * 17 * 4 * 64 + 8,), dtype=torch.bfloat16)
+    heads = torch.zeros((2, 4, 17, 64), dtype=torch.bfloat16)
+    return [
+        ("contiguous", torch.zeros((2, 17, 4, 64), dtype=torch.bfloat16),
+         None),
+        ("fused qkv slice", fused[..., 32 * 128:40 * 128].view(2, 17, 8, 128),
+         None),
+        ("heads-major transpose", heads.transpose(1, 2), None),
+        ("one head of three", torch.zeros((2, 17, 3, 64),
+                                          dtype=torch.bfloat16)[:, :, 1:2],
+         None),
+        ("base 2 bytes off", flat[1:1 + 2 * 17 * 4 * 64].view(2, 17, 4, 64),
+         "16-byte"),
+        ("base 16 bytes off", flat[8:8 + 2 * 17 * 4 * 64].view(2, 17, 4, 64),
+         None),
+        ("head stride 136 bytes", padded[..., :64], "multiple of 16"),
+        ("head dim strided", padded[..., ::2][..., :32], "contiguous"),
+        ("f32 head stride 66 elements", torch.zeros(
+            (2, 17, 4, 66))[..., :64], "multiple of 16"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_tma_misalignment(case):
+    """The tensor-core body's TMA rule on the CPU: a 16-byte-aligned base,
+    the head dim contiguous, and every other dimension longer than 1 a
+    byte stride that is a multiple of 16; a dimension of size 1 is free."""
+    from repro_torch.kernels.flash_attention import tma_misalignment
+    name, t, want = _views()[case]
+    got = tma_misalignment(t.data_ptr(), t.shape, t.stride(),
+                           t.element_size())
+    if want is None:
+        assert got is None, (name, got)
+    else:
+        assert got is not None and want in got, (name, got)
+
+
+def test_evaluate_keeps_the_student_on_its_training_route(monkeypatch):
+    """F9: with the kernel route open to CPU tensors and the kernel's plain
+    version put on it (as the gap test above does), evaluate's
+    ``degradation`` sends the teacher's attention through
+    ``attention_prefill`` — once a layer per eval batch — and the
+    student's never: the student keeps ``_sdpa``, the route it trained
+    on."""
+    from repro_torch.kernels.ref import attention_prefill_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.pipeline import PipelineConfig
+    from repro_torch.pipeline.adapters import get_adapter
+    pcfg = PipelineConfig(device="cpu", calib_samples=16, calib_seq_len=16,
+                          calib_batch_size=4, calib_batches=2,
+                          eval_batches=2)
+    adapter = get_adapter(pcfg)
+    teacher = adapter.init_teacher()
+    student = adapter.build_student(teacher)
+    calls = []
+
+    def kernel_route(q, k, v, causal=True):
+        calls.append(q.shape)
+        return attention_prefill_ref(q, k, v, causal=causal)
+
+    monkeypatch.setattr(attn, "prefill_route", lambda q, k, v, use: use)
+    monkeypatch.setattr(attn, "attention_prefill", kernel_route)
+    metrics = adapter.degradation(student, teacher)
+    assert len(calls) == pcfg.eval_batches * adapter.cfg.n_layers
+    assert np.isfinite(metrics["distill_loss"])
+
+
 @pytest.mark.parametrize("M,K,N,bm,bn,bk", [(64, 128, 64, 64, 64, 64),
                                             (128, 256, 128, 64, 128, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
