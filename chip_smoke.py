@@ -10,9 +10,11 @@ Phases, each fatal on failure:
 2. build — every CUDA source in src/repro_torch/csrc, one nvcc each, all
    started together.
 3. kernels — each kernel against its plain PyTorch version at the shapes
-   the main paths give it (decode_attention at the engine's slot pool and
-   paged view, bf16 and int8; both bodies of quant_matmul — int8dot and
-   the dequant baseline — at qwen3-8b's seven linear shapes, decode and
+   the main paths give it (decode_attention at the engine's slot pool, bf16
+   and int8 on the slot view, one long bf16 slot, and its paged entry on
+   the engine's int8 page pools through a shuffled page table; both
+   bodies of quant_matmul — int8dot and the dequant baseline — at
+   qwen3-8b's seven linear shapes, decode and
    prefill M, channel and group:128, then the variant benchmark, the
    dequant body's only path; fake_quant forward and both backward rules at
    qwen3-8b's four layer-linear shapes with a full doubly-channelwise
@@ -29,11 +31,12 @@ Phases, each fatal on failure:
 5. main path — qwen3-8b at full width (36 layers, random W4 weights from a
    seed): init on the card, export, the evaluate stage's kernel-route check
    (quant_matmul), then 4 greedy requests through the continuous-batching
-   engine with paged int8 KV (decode_attention every layer of every decode
-   step), counting each kernel's launches; the same requests again through
-   the plain route, tokens compared: where a request's tokens differ, the
-   plain route's logits at the first differing step (the request served
-   alone again) must have a top-2 margin within a few bf16 ulps.
+   engine with paged int8 KV (decode_attention's paged entry every layer
+   of every decode step), counting each kernel's launches; the same
+   requests again through the plain route, tokens compared: where a
+   request's tokens differ, the plain route's logits at the first
+   differing step (the request served alone again) must have a top-2
+   margin within a few bf16 ulps.
 6. train path — QFT on qwen3-8b at full width, depth cut to 4 of 36
    layers (the f32 training state of 36 layers does not fit one card):
    f32 teacher from a seed → student → activation calibration → APQ/MMSE
@@ -170,67 +173,146 @@ def build() -> None:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_decode_attention(view_len: int) -> dict:
+def device_ms(fn, names: tuple, iters: int = 20) -> float:
+    """Device time per call of the kernels whose name holds one of
+    ``names``, summed over ``iters`` calls of ``fn`` under torch.profiler
+    (no host time in it); None if the profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(n in e.key
+                                                    for n in names):
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+    return us / iters / 1e3 if us else None
+
+
+def check_decode_attention(kv) -> dict:
+    """K2's rows: bf16 and int8 on the slot view at the engine's slot pool
+    (S 8 x T ``kv.view_len``), one long bf16 slot (S 1 x T 2048), and the
+    paged entry at the engine's geometry (``kv``: P 16, pt [8, 128]) with
+    shuffled page ids, a retired slot on the trash page and a trash page of
+    127s.  Returns the paged row's record, the main path's body."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_paged,
+                                                      split_rows, tile_rows)
+    from repro_torch.kernels.ref import (decode_attention_paged_ref,
+                                         decode_attention_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    S, Hkv, G, hd, T = 8, 8, 4, 128, view_len
+    S, Hkv, G, hd, T = 8, 8, 4, 128, kv.view_len
+    P, n_pg = kv.page_size, kv.max_pages_per_slot
     # the main path's four requests mid-decode, a fresh slot (length 1), a
-    # full slot (T) and two block edges
+    # full slot (T) and two split edges
     lengths = torch.tensor([1, 25, 138, 308, 1008, 33, T - 1, T],
                            dtype=torch.int32, device=dev)
-    live = int(torch.clamp(lengths, max=T).sum())
     q = torch.randn((S, Hkv, G, hd), generator=g, device=dev).bfloat16()
-    record = None
-    for kind in ("bf16", "int8"):
-        if kind == "bf16":
-            k = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
-            v = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
-            args = (q, k, v, lengths)
-        else:
-            k = torch.randint(-127, 128, (S, T, Hkv, hd), generator=g,
-                              device=dev, dtype=torch.int8)
-            v = torch.randint(-127, 128, (S, T, Hkv, hd), generator=g,
-                              device=dev, dtype=torch.int8)
-            ks = torch.rand((S, Hkv), generator=g, device=dev) * 0.02 + 0.005
-            vs = torch.rand((S, Hkv), generator=g, device=dev) * 0.02 + 0.005
-            args = (q, k, v, lengths, ks, vs)
-        out = decode_attention(*args)
-        ref = decode_attention_ref(*args)
+    names = ("fd_split", "fd_combine")
+
+    def int8(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(n):
+        return torch.rand((n, Hkv), generator=g, device=dev) * 0.02 + 0.005
+
+    def sdpa(q, k, v, lengths):
+        n, t = k.shape[0], k.shape[1]
+        qh = q.reshape(n, Hkv * G, 1, hd)
+        mask = (torch.arange(t, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            qh, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    def row(kind, fn, ref_fn, args, lens, t, elt, extra_bytes, lib=None):
+        out = fn(*args)
+        ref = ref_fn(*args)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        tol = 1e-2 * scale          # both round one f32 result to bf16
+        tol = 1e-2 * float(ref.float().abs().max())   # one bf16 rounding
         if not math.isfinite(err) or err > tol:
             fail(f"decode_attention {kind}: max_abs_err {err} > {tol}")
-        ms = time_ms(lambda: decode_attention(*args))
-        plain_ms = time_ms(lambda: decode_attention_ref(*args))
-        lib_ms = None
-        if kind == "bf16":
-            qh = q.reshape(S, Hkv * G, 1, hd)
-            mask = (torch.arange(T, device=dev)[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kt, vt, attn_mask=mask, enable_gqa=True))
-        elt = k.element_size()
-        nbytes = (2 * live * Hkv * hd * elt + 2 * q.numel() * 2
-                  + lengths.numel() * 4 + (2 * S * Hkv * 4 if kind == "int8"
-                                           else 0))
-        ops = 4 * live * Hkv * G * hd
-        b_ms, b_by = bound(nbytes, ops, kind)
-        say(f"[kernel] decode_attention {kind} S={S} Hkv={Hkv} G={G} hd={hd} "
-            f"T={T} max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms="
+        ms = time_ms(lambda: fn(*args))
+        dev_ms = device_ms(lambda: fn(*args), names)
+        plain_ms = time_ms(lambda: ref_fn(*args), iters=5)
+        lib_ms = None if lib is None else time_ms(lib)
+        live = int(torch.clamp(lens, max=t).sum())
+        n = lens.numel()
+        tile = tile_rows(args[1].dtype, hd, G)
+        nbytes = (2 * live * Hkv * hd * elt + 2 * q[:n].numel() * 2
+                  + n * 4 + extra_bytes)
+        b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd,
+                           "int8" if elt == 1 else "bf16")
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+        say(f"[kernel] decode_attention {kind} S={n} Hkv={Hkv} G={G} "
+            f"hd={hd} T={t} split={split_rows(t, n * Hkv, tile)} rows "
+            f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
+            f"device_ms={dev_txt} plain_ms={plain_ms:.4f} library_ms="
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"bound_ms={b_ms:.4f} ({b_by})")
-        if kind == "int8":          # the main path's paged int8 view
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    return record
+        return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms}
+
+    k = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
+    bf16 = row("bf16", decode_attention, decode_attention_ref,
+               (q, k, v, lengths), lengths, T, 2, 0, lib=sdpa(q, k, v,
+                                                             lengths))
+    ks, vs = scales(S), scales(S)
+    k8, v8 = int8((S, T, Hkv, hd)), int8((S, T, Hkv, hd))
+    row("int8", decode_attention, decode_attention_ref,
+        (q, k8, v8, lengths, ks, vs), lengths, T, 1, 2 * S * Hkv * 4)
+    del k, v, k8, v8
+    # one long slot: split across blocks
+    T1 = 2048
+    l1 = torch.tensor([T1], dtype=torch.int32, device=dev)
+    k1 = torch.randn((1, T1, Hkv, hd), generator=g, device=dev).bfloat16()
+    v1 = torch.randn((1, T1, Hkv, hd), generator=g, device=dev).bfloat16()
+    long = row("bf16 one slot", decode_attention, decode_attention_ref,
+               (q[:1].contiguous(), k1, v1, l1), l1, T1, 2, 0,
+               lib=sdpa(q[:1], k1, v1, l1))
+    del k1, v1
+    # the paged entry at the engine's geometry: every slot's pages shuffled
+    # over the whole pool, slot 0 retired (all its entries on the trash
+    # page, length 1, as the engine leaves it), a trash page of 127s
+    n_pages = S * n_pg
+    pool_k, pool_v = int8((n_pages + 1, P, Hkv, hd)), int8(
+        (n_pages + 1, P, Hkv, hd))
+    pool_k[n_pages] = 127
+    pool_v[n_pages] = 127
+    pt = torch.randperm(n_pages, generator=g, device=dev).to(
+        torch.int32).reshape(S, n_pg)
+    used = (lengths + P - 1) // P
+    pt[torch.arange(n_pg, device=dev)[None, :] >= used[:, None]] = n_pages
+    pt[0] = n_pages
+    args = (q, pool_k, pool_v, pt, lengths, ks, vs)
+    paged = row("paged int8", decode_attention_paged,
+                decode_attention_paged_ref, args, lengths, T, 1,
+                2 * S * Hkv * 4 + int(used.sum()) * 4)
+
+    def gather_route():
+        return decode_attention(q, pool_k[pt].reshape(S, T, Hkv, hd),
+                                pool_v[pt].reshape(S, T, Hkv, hd), lengths,
+                                ks, vs)
+    route_ms = time_ms(gather_route)
+    say(f"[kernel] decode_attention paged int8, the route before this "
+        f"entry (pool[pt] gather + the slot-view kernel): ms={route_ms:.4f} "
+        f"(for comparison; the yardstick is the plain version)")
+    return dict(paged, bf16_ms=bf16["ms"], bf16_library_ms=bf16["library_ms"],
+                one_slot_ms=long["ms"], gather_route_ms=route_ms)
 
 
 def check_quant_matmul(cfg) -> tuple[dict, dict]:
@@ -625,7 +707,11 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
     def run():
         for _ in range(steps):
             engine.step()
-    _profile(run, "decode steps, 8 live slots", steps)
+    # K2's two passes, and the index kernels: the paged write of each
+    # step's K/V (the pool[pt] gather of the route before the paged entry
+    # would show here too)
+    _profile(run, "decode steps, 8 live slots", steps,
+             watch=("fd_split", "fd_combine", "index", "gather"))
 
 
 def main_path(cfg) -> dict:
@@ -664,6 +750,7 @@ def main_path(cfg) -> dict:
 
     # --- the main path, with every kernel count at 0 just before it
     decode_attention.launches = 0
+    decode_attention.launches_paged = 0
     quant_matmul.launches = 0
     check = kernel_route_check(exported, plan)
     engine = Engine.from_artifact(cfg, plan, exported, scfg)
@@ -673,6 +760,7 @@ def main_path(cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"decode_attention": decode_attention.launches,
+                "decode_attention_paged": decode_attention.launches_paged,
                 "quant_matmul": quant_matmul.launches}
     # ---
     stats = engine.stats()
@@ -687,6 +775,10 @@ def main_path(cfg) -> dict:
     if launches["decode_attention"] != cfg.n_layers * steps or steps == 0:
         fail(f"decode_attention launched {launches['decode_attention']} "
              f"times over {steps} decode steps of {cfg.n_layers} layers")
+    if launches["decode_attention_paged"] != cfg.n_layers * steps:
+        fail(f"decode_attention's paged entry launched "
+             f"{launches['decode_attention_paged']} times over {steps} "
+             f"decode steps of {cfg.n_layers} layers")
     if launches["quant_matmul"] < 1:
         fail("quant_matmul never launched on the main path")
     for p, t in zip(prompts, toks):
@@ -701,7 +793,8 @@ def main_path(cfg) -> dict:
         f" {NEW_TOKENS} new each) in {wall:.2f} s: {steps} decode steps; "
         f"decode_attn_kernel_layers={stats['decode_attn_kernel_layers']}; "
         f"launches decode_attention={launches['decode_attention']} "
-        f"(= {cfg.n_layers} x {steps}) quant_matmul="
+        f"(= {cfg.n_layers} x {steps}; paged entry "
+        f"{launches['decode_attention_paged']}) quant_matmul="
         f"{launches['quant_matmul']}")
     say(f"[main] prefill {timing['prefill_s'] * 1e3 / n_prompt:.3f} ms/token "
         f"({n_prompt} prompt tokens, {timing['prefill_s']:.3f} s); decode "
@@ -795,6 +888,7 @@ def _counters() -> dict:
             "quant_matmul": (quant_matmul, "launches"),
             "quant_matmul_dequant": (quant_matmul, "launches_dequant"),
             "decode_attention": (decode_attention, "launches"),
+            "decode_attention_paged": (decode_attention, "launches_paged"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention_wgmma": (flash_attention, "launches_wgmma"),
             "flash_attention_fma": (flash_attention, "launches_fma")}
@@ -1210,7 +1304,7 @@ def main() -> int:
     probe()
     build()
     fd = check_decode_attention(
-        resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)).view_len)
+        resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)))
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
     fa = check_flash_attention(CONFIG)
@@ -1222,7 +1316,8 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:60",
-         "launches": launches["decode_attention"], **fd},
+         "launches": launches["decode_attention"],
+         "launches_paged": launches["decode_attention_paged"], **fd},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",

@@ -49,6 +49,24 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.to(q.dtype)
 
 
+def decode_attention_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,
+                               pool_v: torch.Tensor, pt: torch.Tensor,
+                               lengths: torch.Tensor,
+                               k_scale: torch.Tensor | None = None,
+                               v_scale: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """:func:`decode_attention_ref` over the paged pools: each slot's pages
+    gathered into the ``[S, max_pages * P, Hkv, hd]`` view, rows past the
+    slot's length (trash-page padding included) masked.
+
+    pool_k, pool_v: [n_pages + 1, P, Hkv, hd]; pt: [S, max_pages] page ids."""
+    S, n_pg = pt.shape
+    P, Hkv, hd = pool_k.shape[1:]
+    k = pool_k[pt].reshape(S, n_pg * P, Hkv, hd)
+    v = pool_v[pt].reshape(S, n_pg * P, Hkv, hd)
+    return decode_attention_ref(q, k, v, lengths, k_scale, v_scale)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Softmax attention in f32 over ``[BH, S, hd]``, in q's type; the

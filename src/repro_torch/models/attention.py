@@ -14,7 +14,8 @@ import torch
 from ..core import dof
 from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
-from ..kernels.decode_attention import decode_attention, kernel_takes
+from ..kernels.decode_attention import (decode_attention,
+                                        decode_attention_paged, kernel_takes)
 from ..kernels.ops import attention_prefill
 from ..serve.kv_cache import quantize_kv
 from .config import ModelConfig
@@ -27,13 +28,14 @@ _NEG = -1e30
 
 def decode_route(cfg: ModelConfig, max_len: int, use_kernels: bool) -> bool:
     """Whether the per-slot decode attention goes through
-    ``kernels.decode_attention`` for a serving cache of depth ``max_len``.
+    ``kernels.decode_attention`` (``decode_attention_paged`` for the paged
+    cache) for a serving cache of depth ``max_len``.
 
     The single routing predicate: :func:`attention` applies it and
     ``serve.engine.Engine.stats()`` reports it, so they cannot disagree.
-    The CUDA kernel masks a ragged last block itself, so unlike the Pallas
-    kernel's ``decode_tiles_ok`` it refuses no cache depth — only head
-    shapes it was not built for (``kernel_takes``)."""
+    The CUDA kernel masks a ragged last split itself, so unlike the Pallas
+    kernel's ``decode_tiles_ok`` it refuses no cache depth or page size —
+    only head shapes it was not built for (``kernel_takes``)."""
     G = cfg.n_heads_padded // cfg.n_kv_heads_padded
     return (bool(use_kernels) and cfg.mla is None and max_len >= 1
             and kernel_takes(G, cfg.head_dim))
@@ -171,15 +173,16 @@ def _paged_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row = pos % P
     pool_k[pg, row] = quantize_kv(k[:, 0], ks)
     pool_v[pg, row] = quantize_kv(v[:, 0], vs)
+    lengths = pos + 1
+    if decode_route(cfg, n_pg * P, use_kernels):
+        # the kernel reads the pools through the page table itself
+        qd = q[:, 0].reshape(S, Hkv, H // Hkv, hd).contiguous()
+        od = decode_attention_paged(qd, pool_k, pool_v, pt, lengths, ks, vs)
+        return od.reshape(S, 1, H, hd)
     # each slot's pages gathered into a transient [S, T, Hkv, hd] int8 view;
     # rows past the slot's length (trash-page garbage included) are masked
     k8 = pool_k[pt].reshape(S, n_pg * P, Hkv, hd)
     v8 = pool_v[pt].reshape(S, n_pg * P, Hkv, hd)
-    lengths = pos + 1
-    if decode_route(cfg, n_pg * P, use_kernels):
-        qd = q[:, 0].reshape(S, Hkv, H // Hkv, hd).contiguous()
-        od = decode_attention(qd, k8, v8, lengths, k_scale=ks, v_scale=vs)
-        return od.reshape(S, 1, H, hd)
     return _paged_sdpa(q, k8, v8, lengths, ks, vs)
 
 

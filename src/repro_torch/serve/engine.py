@@ -19,7 +19,8 @@ dequantized once to bf16 — through ordinary matmuls, as the JAX package's
 engine does; ``quant_matmul`` is reached through
 ``serve.deploy.kernel_route_check`` on the artifact, not from the decode
 loop.  The decode attention goes through the CUDA ``decode_attention``
-kernel unless the DeployPlan says ``use_kernels=False``.
+kernel (its paged entry, which reads the pools through the page table, for
+the paged cache) unless the DeployPlan says ``use_kernels=False``.
 
 Sampling: per-request temperature/top_k/top_p/seed drawn on the device
 (core/sampling.py); ``temperature=0`` (the default) is exact greedy.

@@ -10,12 +10,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.fakequant import pack_int4  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels import decode_attention as fd  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_paged)
 from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_prefill, flash_attention)
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ref import (attention_prefill_ref,  # noqa: E402
+                                     decode_attention_paged_ref,
                                      decode_attention_ref,
                                      fake_quant_grad_ref, fake_quant_ref,
                                      flash_attention_ref, quant_matmul_ref)
@@ -46,15 +49,7 @@ def test_decode_attention_kernel(cuda, kv, hd):
     v = _rand((S, T, Hkv, hd), 2, cuda)
     lengths = torch.tensor([1, 31, 32, 33, 200, 260], dtype=torch.int32,
                            device=cuda)
-    if kv == "int8":
-        k8 = (k * 40).clamp(-127, 127).round().to(torch.int8)
-        v8 = (v * 40).clamp(-127, 127).round().to(torch.int8)
-        sc = torch.full((S, Hkv), 0.025, device=cuda)
-        args = (q.bfloat16(), k8, v8, lengths, sc, sc)
-    elif kv == "bfloat16":
-        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), lengths)
-    else:
-        args = (q, k, v, lengths)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
     before = decode_attention.launches
     out = decode_attention(*args)
     torch.cuda.synchronize()
@@ -62,6 +57,149 @@ def test_decode_attention_kernel(cuda, kv, hd):
     ref = decode_attention_ref(*args)
     tol = 2e-5 if kv == "float32" else 2e-2    # bf16: one output rounding
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _fd_args(kv, q, k, v, lengths, S, Hkv):
+    if kv == "int8":
+        k8 = (k * 40).clamp(-127, 127).round().to(torch.int8)
+        v8 = (v * 40).clamp(-127, 127).round().to(torch.int8)
+        ks = torch.rand((S, Hkv), device=q.device) * 0.02 + 0.005
+        vs = torch.rand((S, Hkv), device=q.device) * 0.02 + 0.005
+        return (q.bfloat16(), k8, v8, lengths, ks, vs)
+    if kv == "bfloat16":
+        return (q.bfloat16(), k.bfloat16(), v.bfloat16(), lengths)
+    return (q, k, v, lengths)
+
+
+def _fd_close(out, ref):
+    """f32 to 2e-5; a bf16 output to one rounding of an f32 result of
+    magnitude up to max|ref| (2e-2 of it)."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    else:
+        tol = 2e-2 * max(1.0, float(ref.float().abs().max()))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("part", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_split_body_against_plain(cuda, monkeypatch, part, G, kv, hd):
+    """The split body at splits of the whole tile, a half and a quarter:
+    lengths 1, rows - 1, rows, rows + 1 and T (T = 300, a ragged last
+    split); two launches bit-identical (a fixed merge order, no atomics)."""
+    rows = max(fd.tile_rows(getattr(torch, kv), hd, G) // part, 2)
+    monkeypatch.setattr(fd, "split_rows", lambda T, slot_heads, tile: rows)
+    S, T, Hkv = 5, 300, 2
+    q = _rand((S, Hkv, G, hd), 3, cuda)
+    k = _rand((S, T, Hkv, hd), 4, cuda)
+    v = _rand((S, T, Hkv, hd), 5, cuda)
+    lengths = torch.tensor([1, rows - 1, rows, rows + 1, T],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    out = decode_attention(*args)
+    again = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_ref(*args))
+
+
+def test_split_larger_than_the_tile_is_refused(cuda, monkeypatch):
+    """The C entry refuses a split the kernel's tile cannot hold."""
+    monkeypatch.setattr(fd, "split_rows", lambda T, slot_heads, tile: 128)
+    q = _rand((2, 2, 4, 128), 0, cuda).bfloat16()
+    k = _rand((2, 256, 2, 128), 1, cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        decode_attention(q, k, k, torch.full((2,), 256, dtype=torch.int32,
+                                             device=cuda))
+
+
+@pytest.mark.parametrize("T", [2048, 4096])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_split_body_one_long_slot(cuda, T, kv):
+    """S 1: the long slot is split across blocks (32 or 64 rows each)."""
+    S, Hkv, G, hd = 1, 8, 4, 128
+    q = _rand((S, Hkv, G, hd), 6, cuda)
+    k = _rand((S, T, Hkv, hd), 7, cuda)
+    v = _rand((S, T, Hkv, hd), 8, cuda)
+    lengths = torch.tensor([T], dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    _fd_close(decode_attention(*args), decode_attention_ref(*args))
+
+
+def _paged(cuda, P, n_pg, G, seed, S=4, Hkv=2, hd=128):
+    """Int8 pools with a trash page of 127s, shuffled non-monotonic page
+    ids, entries past each slot's pages on the trash page, a retired last
+    slot (every entry on the trash page, length 1)."""
+    g = torch.Generator().manual_seed(seed)
+    n_pages = S * n_pg
+    pool_k, pool_v = (torch.randint(-127, 128, (n_pages + 1, P, Hkv, hd),
+                                    generator=g, dtype=torch.int8)
+                      for _ in range(2))
+    pool_k[n_pages] = 127
+    pool_v[n_pages] = 127
+    T = n_pg * P
+    lengths = torch.tensor([T, T // 2 + 1, 1, 1][:S], dtype=torch.int32)
+    pt = torch.randperm(n_pages, generator=g).to(torch.int32).reshape(S, n_pg)
+    for s in range(S):
+        pt[s, -(-int(lengths[s]) // P):] = n_pages
+    pt[S - 1] = n_pages
+    q = torch.randn((S, Hkv, G, hd), generator=g)
+    ks, vs = (torch.rand((S, Hkv), generator=g) * 0.02 + 0.005
+              for _ in range(2))
+    return [t.to(cuda) for t in (q, pool_k, pool_v, pt, lengths, ks, vs)]
+
+
+@pytest.mark.parametrize("P,n_pg", [(16, 20), (48, 7), (5, 61), (1, 300)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_paged_entry_against_plain(cuda, P, n_pg, dtype, G):
+    """The paged entry at the engine's page size (16), at sizes that do not
+    divide the split (48, 5) and at 1, against the gather + plain version;
+    both counts move, two launches are bit-identical."""
+    args = _paged(cuda, P, n_pg, G, P + n_pg + G)
+    args[0] = args[0].to(getattr(torch, dtype))
+    before = (decode_attention.launches, decode_attention.launches_paged)
+    out = decode_attention_paged(*args)
+    again = decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches - before[0],
+            decode_attention.launches_paged - before[1]) == (2, 2)
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_paged_ref(*args))
+
+
+def test_paged_entry_refuses_what_it_cannot_take(cuda):
+    q, pool_k, pool_v, pt, lengths, ks, vs = _paged(cuda, 16, 4, 4, 0)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention_paged(q, pool_k, pool_v, pt.long(), lengths, ks, vs)
+    strided = pool_k.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_paged(q, strided, pool_v, pt, lengths, ks, vs)
+    flat = torch.zeros(pool_k.numel() + 16, dtype=torch.int8, device=cuda)
+    shifted = flat[8:8 + pool_k.numel()].view(pool_k.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention_paged(q, shifted, pool_v, pt, lengths, ks, vs)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        decode_attention_paged(q[..., :48].contiguous(),
+                               pool_k[..., :48].contiguous(),
+                               pool_v[..., :48].contiguous(), pt, lengths,
+                               ks, vs)
+    with pytest.raises(RuntimeError, match="CUDA device or on"):
+        decode_attention_paged(q, pool_k.cpu(), pool_v, pt, lengths, ks, vs)
+
+
+def test_slot_entry_refuses_misaligned_kv(cuda):
+    S, T, Hkv, G, hd = 2, 64, 2, 4, 16
+    q = _rand((S, Hkv, G, hd), 0, cuda).bfloat16()
+    n = S * T * Hkv * hd
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    k = flat[4:4 + n].view(S, T, Hkv, hd)
+    v = torch.zeros((S, T, Hkv, hd), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q, k, v, torch.ones(S, dtype=torch.int32,
+                                             device=cuda))
 
 
 @pytest.mark.parametrize("layout", ["channel", "group:128", "group:32"])

@@ -30,7 +30,8 @@ from repro.models import init_model as j_init_model  # noqa: E402
 from repro_torch.core.fakequant import pack_int4  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig as TQ  # noqa: E402
 from repro_torch.interop import from_numpy_tree  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_paged, split_rows, tile_rows)
 from repro_torch.kernels.ops import kernel_tiles_ok, qlinear_deployed  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.serve.deploy import DeployPlan, kernel_route_check  # noqa: E402
@@ -114,6 +115,89 @@ def test_decode_attention_int8_matches_jax():
     ot = decode_attention(_t(q), _t(k8), _t(v8), _t(lengths), _t(ks), _t(vs))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=2e-5,
                                atol=2e-5)
+
+
+def _paged_case(S, P, n_pg, Hkv, G, hd, seed):
+    """Int8 pools with a trash page of 127s, lengths 1 and T among them, a
+    page table of shuffled, non-monotonic page ids padded with the trash
+    page past each slot's length, and a retired last slot whose entries
+    all point at the trash page (length 1, as the engine leaves it)."""
+    rng = np.random.default_rng(seed)
+    T, n_pages = n_pg * P, S * n_pg
+    pools = [rng.integers(-127, 128, size=(n_pages + 1, P, Hkv, hd)
+                          ).astype(np.int8) for _ in range(2)]
+    for pool in pools:
+        pool[n_pages] = 127
+    lengths = np.asarray([1, T, T // 2 + 3, 1], np.int32)[:S]
+    pt = rng.permutation(n_pages).astype(np.int32).reshape(S, n_pg)
+    for s in range(S):
+        pt[s, -(-int(lengths[s]) // P):] = n_pages
+    pt[S - 1] = n_pages
+    q = rng.normal(size=(S, Hkv, G, hd)).astype(np.float32)
+    ks, vs = (rng.uniform(0.005, 0.03, size=(S, Hkv)).astype(np.float32)
+              for _ in range(2))
+    return q, pools[0], pools[1], pt, lengths, ks, vs
+
+
+@pytest.mark.parametrize("P,n_pg,G", [(16, 6, 4), (3, 32, 2), (8, 12, 8)])
+def test_decode_attention_paged_matches_jax(P, n_pg, G):
+    """The paged entry (on the CPU: the gather, then the plain version) vs
+    the JAX kernel in interpret mode on the view gathered in numpy; the
+    view (96 rows) tiles by bk=32.  f32, 2e-5, the tolerance of
+    test_decode_attention_int8_matches_jax."""
+    S, Hkv, hd = 4, 2, 16
+    q, pool_k, pool_v, pt, lengths, ks, vs = _paged_case(S, P, n_pg, Hkv, G,
+                                                         hd, P * n_pg + G)
+    k8 = pool_k[pt].reshape(S, n_pg * P, Hkv, hd)
+    v8 = pool_v[pt].reshape(S, n_pg * P, Hkv, hd)
+    oj = j_decode_attention(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+                            jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+                            v_scale=jnp.asarray(vs), bk=32, interpret=True)  # qft: noqa[QFT004] parity oracle
+    before = (decode_attention.launches, decode_attention.launches_paged)
+    ot = decode_attention_paged(_t(q), _t(pool_k), _t(pool_v), _t(pt),
+                                _t(lengths), _t(ks), _t(vs))
+    assert (decode_attention.launches,
+            decode_attention.launches_paged) == before   # no launch on CPU
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_paged_wrapper_rejects_inputs_it_cannot_take():
+    q, pool_k, pool_v, pt, lengths, ks, vs = (
+        _t(a) for a in _paged_case(4, 16, 2, 2, 2, 16, 0))
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention_paged(q, pool_k, pool_v, pt.long(), lengths, ks, vs)
+    with pytest.raises(ValueError, match="int8"):
+        decode_attention_paged(q, pool_k.float(), pool_v.float(), pt,
+                               lengths, ks, vs)
+    with pytest.raises(ValueError, match="Hkv, hd"):
+        decode_attention_paged(q, pool_k[..., :8], pool_v[..., :8], pt,
+                               lengths, ks, vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention_paged(q, pool_k, pool_v, pt, lengths, None, None)
+    meta = [t.to("meta") for t in (q, pool_k, pool_v, pt, lengths, ks, vs)]
+    with pytest.raises(RuntimeError, match="CUDA device or on"):
+        decode_attention_paged(*meta)
+
+
+def test_split_rows_fills_two_waves():
+    """A split is the kernel's whole tile (128 rows for the int8 cache at
+    qwen3-8b's hd 128 and G 4, 64 for bf16) unless a full cache would give
+    fewer than two waves of 132 SMs: phase 3's paged shape (S 8 x Hkv 8,
+    T 2048) keeps 128 (48 live splits x 8 heads at its lengths); one bf16
+    slot of 2048 rows takes a quarter tile, 512 blocks."""
+    assert tile_rows(torch.int8, 128, 4) == 128
+    assert tile_rows(torch.bfloat16, 128, 4) == 64
+    assert tile_rows(torch.int8, 128, 8) == 64
+    assert tile_rows(torch.float32, 128, 1) == 32
+    assert all(tile_rows(dt, 16, 8) == 128 for dt in
+               (torch.int8, torch.bfloat16, torch.float32))
+    assert split_rows(2048, 8 * 8, 128) == 128
+    lengths = [1, 25, 138, 308, 1008, 33, 2047, 2048]
+    assert sum(-(-n // 128) for n in lengths) * 8 == 384 >= 2 * 132
+    assert split_rows(2048, 1 * 8, 64) == 32 and 2048 // 32 * 8 >= 264
+    assert split_rows(4096, 1 * 8, 64) == 64
+    assert split_rows(1, 1, 32) == 8
 
 
 def test_wrappers_reject_inputs_they_cannot_take():

@@ -262,3 +262,64 @@ def test_page_allocator_and_kv_geometry():
     assert resolve_kv_spec(T_SMOKE, _scfg(ServeConfig, "monolithic")) is None
     assert prefill_buckets(12) == (1, 2, 4, 8, 12)
     assert [bucket_for(n, 8) for n in (1, 3, 5, 8)] == [1, 4, 8, 8]
+
+
+@pytest.mark.parametrize("page_size", [16, 5])
+def test_paged_decode_kernel_route_reads_the_pools(monkeypatch, page_size):
+    """With ``use_kernels`` the paged decode step hands the int8 pools, the
+    page table and the scales themselves to ``decode_attention_paged``: no
+    gathered ``[S, T, Hkv, hd]`` view reaches the kernel route, and the
+    unpaged entry is not called.  Its output (the plain version on the
+    CPU) equals the plain route ``_paged_sdpa`` on the gathered view to
+    1e-6 relative, and both routes write the step's K/V alike."""
+    from repro_torch.models import attention as attn
+    cfg = T_SMOKE
+    H, Hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.head_dim
+    S, n_pg = 3, 4
+    T, n_pages = n_pg * page_size, S * n_pg
+    rng = np.random.default_rng(page_size)
+    pools = [torch.from_numpy(rng.integers(
+        -127, 128, (n_pages + 1, page_size, Hkv, hd)).astype(np.int8))
+        for _ in range(2)]
+    for pool in pools:
+        pool[n_pages] = 127                           # the trash page
+    pos = torch.tensor([0, 2 * page_size + 3, T - 1], dtype=torch.int32)
+    pt = torch.from_numpy(
+        rng.permutation(n_pages).astype(np.int32).reshape(S, n_pg))
+    for s in range(S):
+        pt[s, int(pos[s]) // page_size + 1:] = n_pages
+    scales = [torch.from_numpy(rng.uniform(0.005, 0.03, (S, Hkv)).astype(
+        np.float32)) for _ in range(2)]
+    cache = {"k": pools[0], "v": pools[1], "k_scale": scales[0],
+             "v_scale": scales[1], "pt": pt, "pos": pos}
+    q = torch.from_numpy(rng.normal(size=(S, 1, H, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(S, 1, Hkv, hd)).astype(
+        np.float32)) for _ in range(2))
+    seen = []
+    real = attn.decode_attention_paged
+
+    def recording(*a):
+        seen.append(a)
+        return real(*a)
+
+    def unpaged(*a, **kw):
+        raise AssertionError("the paged step called the unpaged entry")
+
+    monkeypatch.setattr(attn, "decode_attention_paged", recording)
+    monkeypatch.setattr(attn, "decode_attention", unpaged)
+    kc = {key: t.clone() for key, t in cache.items()}
+    pc = {key: t.clone() for key, t in cache.items()}
+    with torch.no_grad():
+        out = attn._paged_decode(q, k, v, kc, cfg, use_kernels=True)
+        plain = attn._paged_decode(q, k, v, pc, cfg, use_kernels=False)
+    assert len(seen) == 1
+    args = seen[0]
+    assert args[1] is kc["k"] and args[2] is kc["v"] and args[3] is kc["pt"]
+    assert args[5] is kc["k_scale"] and args[6] is kc["v_scale"]
+    assert tuple(args[1].shape) == (n_pages + 1, page_size, Hkv, hd)
+    assert all(tuple(a.shape) != (S, T, Hkv, hd) for a in args)
+    assert out.shape == plain.shape == (S, 1, H, hd)
+    err = float((out - plain).abs().max())
+    assert err <= 1e-6 * float(plain.abs().max())
+    for key in cache:
+        assert torch.equal(kc[key], pc[key])
