@@ -182,17 +182,20 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and any(n in e.key
-                                                    for n in names):
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
+    for _ in range(2):          # a window the profiler dropped is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and any(n in e.key
+                                                        for n in names):
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+        if us:
+            break
     return us / iters / 1e3 if us else None
 
 
@@ -315,13 +318,81 @@ def check_decode_attention(kv) -> dict:
                 one_slot_ms=long["ms"], gather_route_ms=route_ms)
 
 
-def check_quant_matmul(cfg) -> tuple[dict, dict]:
-    """Both bodies of quant_matmul against the plain version at qwen3-8b's
-    seven linear shapes, then the variant benchmark — the dequant body's
-    only caller (the JAX package's benchmarks/run.py:70-76), its launches
-    counted from 0 over that run.  Returns (int8dot, dequant) records."""
+def _int4pack_route(x, qw, s_wl, s_wr):
+    """torch._weight_int4pack_mm set up to compute quant_matmul's function
+    (the yardstick, never called by the port): q + 8 in [0, 15] packed
+    for the op, zero 0, s_wr repeated over groups of 128 for the channel
+    layout, x * s_wl formed before the call.  Returns (fn, None) or (None,
+    the reason the op cannot serve)."""
     import torch
-    from repro_torch.core.fakequant import pack_int4
+    from repro_torch.core.fakequant import unpack_int4
+    op = getattr(torch.ops.aten, "_weight_int4pack_mm", None)
+    conv = getattr(torch.ops.aten, "_convert_weight_to_int4pack", None)
+    if op is None or conv is None:
+        return None, "torch has no _weight_int4pack_mm"
+    K, N = 2 * qw.shape[0], qw.shape[1]
+    gs = 128
+    qu = (unpack_int4(qw, axis=0).to(torch.int32) + 8).t().contiguous()
+    w8 = ((qu[:, ::2] << 4) | qu[:, 1::2]).to(torch.uint8)    # [N, K/2]
+    sc = (s_wr[None, :].expand(K // gs, N) if s_wr.ndim == 1
+          else s_wr).float()
+    sz = torch.stack([sc, torch.zeros_like(sc)], dim=-1).to(
+        torch.bfloat16).contiguous()                          # [K/g, N, 2]
+    xs = (x.float() * s_wl).to(x.dtype)
+    try:
+        packed = conv(w8, 8)
+        fn = lambda: op(xs, packed, gs, sz)                   # noqa: E731
+        fn()
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0][:120]}"
+    return fn, None
+
+
+def _cold(make, n_bytes: int, names: tuple, reps: int = 3) -> tuple:
+    """(event ms, profiler device ms) per call over enough copies of the
+    inputs (``make(i)`` returns the i-th call) to pass twice the 50 MB L2,
+    so that each call reads its weights from device memory as the real
+    caller, 36 layers of weights, does."""
+    import itertools
+    import torch
+    n = max(2, math.ceil(2 * 50e6 / n_bytes) + 1)
+    calls = [make(i) for i in range(n)]
+    for fn in calls:
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for fn in calls:
+            fn()
+    end.record()
+    torch.cuda.synchronize()
+    it = itertools.cycle(calls)
+    return (start.elapsed_time(end) / (reps * n),
+            device_ms(lambda: next(it)(), names, iters=reps * n))
+
+
+def _qmm_bodies() -> tuple:
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return tuple(getattr(quant_matmul, f"launches_{b}")
+                 for b in ("mma", "mma_wide", "fma"))
+
+
+def check_quant_matmul(cfg) -> tuple[dict, dict]:
+    """Both entries of quant_matmul (K1 int8dot, K5 dequant) against the
+    plain version at qwen3-8b's seven linear shapes, decode and prefill M,
+    channel and group:128, plus the route check's f32 shape: the error,
+    two launches' bits, the body each launch took (split-K mma at M <= 16,
+    the wide mma body at prefill M, fma for f32); then the variant
+    benchmark — the dequant entry's only caller (the JAX package's
+    benchmarks/run.py:70-76), its launches counted from 0 over that run:
+    the event time warm and, at M 8, L2-cold (weights rotated past the
+    L2), the profiler's device time, the plain version, the int4
+    yardstick torch._weight_int4pack_mm, the deploy view's torch.matmul on
+    the dequantized weight, and the bound.  Returns (int8dot, dequant)
+    records of the route-check shape."""
+    import torch
+    from repro_torch.core.fakequant import pack_int4, unpack_int4
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.ref import quant_matmul_ref
     dev = torch.device("cuda")
@@ -336,8 +407,8 @@ def check_quant_matmul(cfg) -> tuple[dict, dict]:
              for name in shapes for M in (8, 128)
              for layout in ("channel", "group:128")]
     cases.append(("wk", 4, torch.float32, "channel"))
-    inputs = []
-    for name, M, dt, layout in cases:
+
+    def make(name, M, dt, layout):
         K, N = shapes[name]
         x = torch.randn((M, K), generator=g, device=dev).to(dt)
         q4 = torch.randint(-8, 8, (K, N), generator=g, device=dev,
@@ -346,14 +417,28 @@ def check_quant_matmul(cfg) -> tuple[dict, dict]:
         s_wl = torch.rand((K,), generator=g, device=dev) + 0.5
         swr_shape = (N,) if layout == "channel" else (K // 128, N)
         s_wr = (torch.rand(swr_shape, generator=g, device=dev) + 0.5) * 0.01
-        inputs.append((x, qw, s_wl, s_wr))
-    errs = {}
+        return x, qw, s_wl, s_wr
+
+    want_body = {True: "mma", False: "mma_wide"}
+    inputs = [make(*c) for c in cases]
+    errs, bodies = {}, {}
     for (name, M, dt, layout), args in zip(cases, inputs):
         ref = quant_matmul_ref(*args)
         scale = float(ref.float().abs().max())
+        want = "fma" if dt == torch.float32 else want_body[M <= 16]
         for variant in ("int8dot", "dequant"):
+            before = _qmm_bodies()
             y = quant_matmul(*args, variant=variant)
+            again = quant_matmul(*args, variant=variant)
             torch.cuda.synchronize()
+            ran = [b for b, x0, x1 in zip(("mma", "mma_wide", "fma"), before,
+                                          _qmm_bodies()) if x1 == x0 + 2]
+            if ran != [want]:
+                fail(f"quant_matmul {variant} {name} M={M} {layout}: ran "
+                     f"{ran}, want the {want} body")
+            if not torch.equal(y, again):
+                fail(f"quant_matmul {variant} {name} M={M} {layout}: two "
+                     f"launches differ")
             err = float((y.float() - ref.float()).abs().max())
             # f32: summation order only; bf16: one rounding of the f32
             # result (the reference sweep's 2e-5 / 2e-2, of the output's
@@ -363,34 +448,104 @@ def check_quant_matmul(cfg) -> tuple[dict, dict]:
                 fail(f"quant_matmul {variant} {name} M={M} {layout}: "
                      f"max_abs_err {err} > {tol}")
             errs[(name, M, dt, layout, variant)] = (err, tol)
+            bodies[(name, M, dt, layout)] = want
 
-    # --- the variant benchmark, with the dequant body's count at 0
+    # --- the variant benchmark, with the dequant entry's count at 0
     quant_matmul.launches_dequant = 0
+    per_body = {"int8dot": [0, 0, 0], "dequant": [0, 0, 0]}
     records = {}
+    names = ("qmm_",)
     for (name, M, dt, layout), args in zip(cases, inputs):
         x, qw, s_wl, s_wr = args
         K, N = shapes[name]
-        ms = {v: time_ms(lambda v=v: quant_matmul(*args, variant=v))
-              for v in ("int8dot", "dequant")}
-        plain_ms = time_ms(lambda: quant_matmul_ref(*args))
+        kind = str(dt).split(".")[-1]
+        w = (unpack_int4(qw, axis=0).float() * s_wl[:, None]
+             * (s_wr[None, :] if s_wr.ndim == 1
+                else s_wr.repeat_interleave(K // s_wr.shape[0], 0))).to(dt)
+        cold = M == 8
+        copies = {}
+
+        def copy(i):
+            if i not in copies:
+                copies[i] = [t.clone() for t in args]
+            return copies[i]
+
         nbytes = (x.numel() * x.element_size() + qw.numel() + 4 * K
                   + 4 * s_wr.numel() + M * N * x.element_size())
+        stats = {}
+        for v in ("int8dot", "dequant"):
+            run = lambda v=v: quant_matmul(*args, variant=v)   # noqa: E731
+            b0 = _qmm_bodies()
+            stats[v] = {"ms": time_ms(run), "device_ms": device_ms(run, names),
+                        "cold": _cold(
+                            lambda i, v=v: (lambda a=copy(i): quant_matmul(
+                                *a, variant=v)), qw.numel(), names)
+                        if cold else (None, None)}
+            per_body[v] = [c + b - a for c, a, b in zip(
+                per_body[v], b0, _qmm_bodies())]
+        plain_ms = time_ms(lambda: quant_matmul_ref(*args), iters=10)
+        lib, why = _int4pack_route(*args)
+        lib_stats = (None, None, None)
+        if lib is not None:
+            ref = quant_matmul_ref(*args).float()
+            lib_err = float((lib().float() - ref).abs().max())
+            lib_tol = 2e-2 * float(ref.abs().max())
+            if not lib_err <= lib_tol:
+                why, lib = (f"disagrees with quant_matmul_ref: max_abs_err "
+                            f"{lib_err:.3e} > {lib_tol:.3e}"), None
+        if lib is not None:
+            lib_stats = (time_ms(lib), device_ms(lib, ("",)),
+                         _cold(lambda i: _int4pack_route(*copy(i))[0],
+                               qw.numel(), ("",))[1] if cold else None)
+        gemm = lambda: torch.matmul(x, w)                      # noqa: E731
+        gemm_stats = (time_ms(gemm), device_ms(gemm, ("",)),
+                      _cold(lambda i: (lambda xx=x, ww=w.clone():
+                                       torch.matmul(xx, ww)),
+                            w.numel() * w.element_size(), ("",))[1]
+                      if cold else None)
+        del copies
         b_ms, b_by = bound(nbytes, 2.0 * M * K * N,
                            "f32" if dt == torch.float32 else "bf16")
+
+        def num(t):
+            return "null" if t is None else f"{t:.4f}"
         for v in ("int8dot", "dequant"):
             err, tol = errs[(name, M, dt, layout, v)]
+            st = stats[v]
+            dev_ms = st["device_ms"]
             say(f"[kernel] quant_matmul {v} {name} M={M} K={K} N={N} "
-                f"{layout} {str(dt).split('.')[-1]} max_abs_err={err:.3e} "
-                f"(tol {tol:.3e}) ms={ms[v]:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms=null bound_ms={b_ms:.4f} ({b_by})")
+                f"{layout} {kind} body={bodies[(name, M, dt, layout)]} "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}) bits=identical "
+                f"ms={st['ms']:.4f} device_ms={num(dev_ms)} "
+                f"cold_ms={num(st['cold'][0])} cold_device_ms="
+                f"{num(st['cold'][1])} plain_ms={plain_ms:.4f} "
+                f"library_ms={num(lib_stats[0])} library_device_ms="
+                f"{num(lib_stats[1])} library_cold_device_ms="
+                f"{num(lib_stats[2])}"
+                f"{'' if lib is not None else f' ({why})'} "
+                f"deploy_gemm_ms={gemm_stats[0]:.4f} deploy_gemm_device_ms="
+                f"{num(gemm_stats[1])} deploy_gemm_cold_device_ms="
+                f"{num(gemm_stats[2])} bound_ms={b_ms:.4f} ({b_by})"
+                + ("" if dev_ms is None else
+                   f" device/bound={dev_ms / b_ms:.1f}x"))
             if dt == torch.float32:   # what the main path's route check runs
-                records[v] = {"max_abs_err": err, "ms": ms[v],
-                              "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "library_ms": None}
+                records[v] = {"max_abs_err": err, "ms": st["ms"],
+                              "device_ms": dev_ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": lib_stats[0],
+                              "deploy_gemm_ms": gemm_stats[0],
+                              "body": bodies[(name, M, dt, layout)]}
+        del w
     records["dequant"]["launches"] = quant_matmul.launches_dequant
+    records["dequant"].update(zip(
+        ("launches_mma", "launches_mma_wide", "launches_fma"),
+        per_body["dequant"]))
     # ---
     say(f"[kernel] quant_matmul variant benchmark: dequant launched "
-        f"{quant_matmul.launches_dequant} times")
+        f"{quant_matmul.launches_dequant} times; per body (mma, mma_wide, "
+        f"fma): int8dot {per_body['int8dot']}, dequant "
+        f"{per_body['dequant']}")
+    torch.cuda.empty_cache()
     return records["int8dot"], records["dequant"]
 
 
@@ -752,6 +907,8 @@ def main_path(cfg) -> dict:
     decode_attention.launches = 0
     decode_attention.launches_paged = 0
     quant_matmul.launches = 0
+    for body in ("mma", "mma_wide", "fma"):
+        setattr(quant_matmul, f"launches_{body}", 0)
     check = kernel_route_check(exported, plan)
     engine = Engine.from_artifact(cfg, plan, exported, scfg)
     timing: dict = {}
@@ -761,7 +918,10 @@ def main_path(cfg) -> dict:
     wall = time.perf_counter() - t0
     launches = {"decode_attention": decode_attention.launches,
                 "decode_attention_paged": decode_attention.launches_paged,
-                "quant_matmul": quant_matmul.launches}
+                "quant_matmul": quant_matmul.launches,
+                "quant_matmul_bodies": {
+                    f"launches_{b}": getattr(quant_matmul, f"launches_{b}")
+                    for b in ("mma", "mma_wide", "fma")}}
     # ---
     stats = engine.stats()
     steps = engine.decode_steps
@@ -795,7 +955,7 @@ def main_path(cfg) -> dict:
         f"launches decode_attention={launches['decode_attention']} "
         f"(= {cfg.n_layers} x {steps}; paged entry "
         f"{launches['decode_attention_paged']}) quant_matmul="
-        f"{launches['quant_matmul']}")
+        f"{launches['quant_matmul']} {launches['quant_matmul_bodies']}")
     say(f"[main] prefill {timing['prefill_s'] * 1e3 / n_prompt:.3f} ms/token "
         f"({n_prompt} prompt tokens, {timing['prefill_s']:.3f} s); decode "
         f"{timing['decode_s'] * 1e3 / steps:.3f} ms/step, "
@@ -887,6 +1047,9 @@ def _counters() -> dict:
             "fake_quant_bwd": (fake_quant_kernel, "launches_bwd"),
             "quant_matmul": (quant_matmul, "launches"),
             "quant_matmul_dequant": (quant_matmul, "launches_dequant"),
+            "quant_matmul_mma": (quant_matmul, "launches_mma"),
+            "quant_matmul_mma_wide": (quant_matmul, "launches_mma_wide"),
+            "quant_matmul_fma": (quant_matmul, "launches_fma"),
             "decode_attention": (decode_attention, "launches"),
             "decode_attention_paged": (decode_attention, "launches_paged"),
             "flash_attention": (flash_attention, "launches"),
@@ -1321,7 +1484,8 @@ def main() -> int:
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
-         "launches": launches["quant_matmul"], **qmm},
+         "launches": launches["quant_matmul"],
+         **launches["quant_matmul_bodies"], **qmm},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",

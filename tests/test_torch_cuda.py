@@ -9,13 +9,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.fakequant import pack_int4  # noqa: E402
+from repro_torch.core.fakequant import pack_int4, unpack_int4  # noqa: E402
 from repro_torch.kernels import decode_attention as fd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_paged)
 from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_prefill, flash_attention)
+from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ref import (attention_prefill_ref,  # noqa: E402
                                      decode_attention_paged_ref,
@@ -249,6 +250,88 @@ def test_quant_matmul_dequant_kernel(cuda, layout, M):
             before[0], before[1] + 1)
         torch.testing.assert_close(y.float(), quant_matmul_ref(*args).float(),
                                    rtol=tol, atol=tol)
+
+
+def _qmm_args(M, K, N, group, seed, dt, device):
+    """x, qw, s_wl, s_wr for one quant_matmul call; group None = channel."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    q4 = torch.from_numpy(rng.integers(-8, 8, size=(K, N)).astype(np.int8))
+    s_wl = np.exp(rng.normal(size=K) * 0.2).astype(np.float32) * 0.05
+    shape = (N,) if group is None else (K // group, N)
+    s_wr = np.exp(rng.normal(size=shape) * 0.2).astype(np.float32)
+    return (x.to(dt).to(device), pack_int4(q4, axis=0).to(device),
+            torch.from_numpy(s_wl).to(device),
+            torch.from_numpy(s_wr).to(device))
+
+
+_QMM_BODY_COUNTS = ("launches_mma", "launches_mma_wide", "launches_fma")
+
+
+def _qmm_counts():
+    return tuple(getattr(quant_matmul, c) for c in _QMM_BODY_COUNTS)
+
+
+@pytest.mark.parametrize("variant", ["int8dot", "dequant"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [None, 16, 32, 64, 128])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 64, 130])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1024, 64), (640, 320)])
+def test_quant_matmul_split_k_edges(cuda, variant, dtype, group, M, K, N):
+    """Each body at its edges: M from 1 to past one wide tile, K-splits
+    that do not divide K evenly (4096 in 192-row splits), one 64-column
+    tile, a last 256-column tile with dead warps (N 320), groups 16 … K;
+    within f32 2e-5 / bf16 2e-2 of max|ref|, two launches bit-identical,
+    and the body the plan names is the one counted."""
+    dt = getattr(torch, dtype)
+    args = _qmm_args(M, K, N, group, M * 7 + K + N, dt, cuda)
+    p = qmm.plan(M, N, K, K if group is None else group, dt)
+    assert qmm.nests(p.ksplit, K if group is None else group, K)
+    before = (_qmm_counts(), quant_matmul.launches,
+              quant_matmul.launches_dequant)
+    y = quant_matmul(*args, variant=variant)
+    again = quant_matmul(*args, variant=variant)
+    torch.cuda.synchronize()
+    body = _QMM_BODY_COUNTS.index(f"launches_{p.body}")
+    want = [c + (2 if i == body else 0) for i, c in enumerate(before[0])]
+    assert list(_qmm_counts()) == want
+    dint8, ddeq = (quant_matmul.launches - before[1],
+                   quant_matmul.launches_dequant - before[2])
+    assert (dint8, ddeq) == ((2, 0) if variant == "int8dot" else (0, 2))
+    assert torch.equal(y, again)
+    ref = quant_matmul_ref(*args).float()
+    tol = (2e-5 if dtype == "float32" else 2e-2) * float(ref.abs().max())
+    assert float((y.float() - ref).abs().max()) <= tol
+
+
+def test_quant_matmul_route_check_shape(cuda):
+    """kernel_route_check's probe (M 4 rows of f32 on a 4096 x 1024 channel
+    linear) against x @ the f32 dequantized weight: within 1e-4 absolute,
+    the bound chip_smoke and the pipeline hold it to, on the fma body."""
+    x, qw, s_wl, s_wr = _qmm_args(4, 4096, 1024, None, 11, torch.float32,
+                                  cuda)
+    s_wr = s_wr * 0.01
+    w = unpack_int4(qw, axis=0).float() * s_wl[:, None] * s_wr[None, :]
+    before = quant_matmul.launches_fma
+    y = quant_matmul(x, qw, s_wl, s_wr)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches_fma == before + 1
+    assert float((y - x @ w).abs().max()) <= 1e-4
+
+
+def test_quant_matmul_refuses_what_the_gate_refuses(cuda):
+    """N or K off the 64 grid, a group of 96 or 8, f16 x: ValueError, and
+    no launch is counted."""
+    before = (quant_matmul.launches, _qmm_counts())
+    for M, K, N, group, dt in ((4, 64, 96, None, torch.bfloat16),
+                               (4, 96, 64, None, torch.bfloat16),
+                               (4, 192, 64, 96, torch.float32),
+                               (4, 128, 64, 8, torch.bfloat16),
+                               (4, 64, 64, None, torch.float16)):
+        args = _qmm_args(M, K, N, group, 0, dt, cuda)
+        with pytest.raises(ValueError):
+            quant_matmul(*args)
+    assert (quant_matmul.launches, _qmm_counts()) == before
 
 
 FA_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),

@@ -33,6 +33,7 @@ from repro_torch.interop import from_numpy_tree  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_paged, split_rows, tile_rows)
 from repro_torch.kernels.ops import kernel_tiles_ok, qlinear_deployed  # noqa: E402
+from repro_torch.kernels import quant_matmul as t_qmm  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.serve.deploy import DeployPlan, kernel_route_check  # noqa: E402
 
@@ -235,6 +236,69 @@ def test_kernel_tiles_ok_gate():
     assert not kernel_tiles_ok(4, 64, 192, n_groups=2)      # g = 96
     assert not kernel_tiles_ok(4, 64, 128, n_groups=16)     # g = 8
     assert not kernel_tiles_ok(0, 64, 64)
+
+
+#: qwen3-8b's linears (K, N), as chip_smoke.py's phase 3 drives them
+_QWEN3_LINEARS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+                  "wo": (4096, 4096), "gate": (4096, 12288),
+                  "up": (4096, 12288), "down": (12288, 4096)}
+
+
+@pytest.mark.parametrize("case", [
+    (name, M, "bfloat16", layout) for name in _QWEN3_LINEARS
+    for M in (8, 128) for layout in ("channel", "group:128")]
+    + [("wk", 4, "float32", "channel")])
+def test_quant_matmul_plan_fills_the_card(case):
+    """Every phase-3 shape and the route check's: at least 2 x 132 blocks
+    at decode M; for the wide body at most one wave of 3 x 132 and at
+    least one block an SM where MAX_WIDE_SPLITS splits allow it; splits
+    that nest with the groups and cover K once, the body the type and M
+    call for, the scratch it needs, the same plan for the same inputs."""
+    name, M, dtype, layout = case
+    K, N = _QWEN3_LINEARS[name]
+    group = K if layout == "channel" else 128
+    dt = getattr(torch, dtype)
+    p = t_qmm.plan(M, N, K, group, dt)
+    assert p == t_qmm.plan(M, N, K, group, dt)
+    assert p.body == ("fma" if dtype == "float32"
+                      else "mma" if M <= 16 else "mma_wide")
+    if p.body == "mma_wide":
+        assert p.splits == 1 or p.blocks <= 3 * t_qmm.SMS
+        assert p.splits <= t_qmm.MAX_WIDE_SPLITS
+        assert p.blocks >= min(t_qmm.SMS, p.tiles * t_qmm.MAX_WIDE_SPLITS)
+    else:
+        assert p.blocks >= 2 * t_qmm.SMS
+    assert p.ksplit % 64 == 0 and t_qmm.nests(p.ksplit, group, K)
+    assert (p.splits - 1) * p.ksplit < K <= p.splits * p.ksplit
+    assert p.splits <= t_qmm.MAX_SPLITS
+    assert p.tiles == -(-M // p.block_m) * -(-N // p.block_n)
+    assert p.workspace == ((p.splits, M, N) if p.splits > 1 else None)
+    assert p.staged_x == (p.body == "mma_wide")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 64, 130])
+@pytest.mark.parametrize("K,N,group", [
+    (64, 64, 64), (64, 64, 16), (640, 320, 32), (640, 320, 128),
+    (4096, 1024, 4096), (4096, 1024, 16), (12288, 4096, 192),
+    (12288, 64, 12288), (65536, 64, 65536)])
+def test_quant_matmul_plan_nests_for_every_gated_shape(dtype, M, K, N,
+                                                       group):
+    """Any shape the gate takes gets a plan the C entry takes: a split of
+    whole 64-row chunks that nests with the group (one group per split, or
+    whole groups), within the body's shared-memory cap, at most
+    MAX_SPLITS splits where the cap allows; the mma body holds 8 or 16
+    rows."""
+    assert kernel_tiles_ok(M, N, K, K // group)
+    dt = getattr(torch, dtype)
+    p = t_qmm.plan(M, N, K, group, dt)
+    assert p.ksplit % 64 == 0 and t_qmm.nests(p.ksplit, group, K)
+    cap = {"fma": 1024, "mma": 1024 if M <= 8 else 512,
+           "mma_wide": K}[p.body]
+    assert p.ksplit <= cap
+    assert p.splits <= max(t_qmm.MAX_SPLITS, -(-K // cap))
+    if p.body == "mma":
+        assert p.block_m == (8 if M <= 8 else 16)
 
 
 @pytest.mark.parametrize("bits,layout", [(4, "channel"), (4, "group:32"),
