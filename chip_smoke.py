@@ -12,13 +12,16 @@ Phases, each fatal on failure:
 3. kernels — each kernel against its plain PyTorch version at the shapes
    the main paths give it (decode_attention at the engine's slot pool, bf16
    and int8 on the slot view, one long bf16 slot, and its paged entry on
-   the engine's int8 page pools through a shuffled page table; both
+   the engine's int8 page pools through a shuffled page table, at
+   qwen3-8b's GQA group of 4 and again at phi4-mini's 3; both
    bodies of quant_matmul — int8dot and the dequant baseline — at
    qwen3-8b's seven linear shapes, decode and
    prefill M, channel and group:128, then the variant benchmark, the
    dequant body's only path; fake_quant forward and both backward rules at
    qwen3-8b's four layer-linear shapes with a full doubly-channelwise
-   scale, the embedding with a per-row scale and the lm_head;
+   scale, the embedding with a per-row scale and the lm_head, and at the
+   paper CNN's four weight views (each conv's HWIO kernel as [kh·kw,
+   cin·cout] with one scale row, the fc [64, 10]);
    flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
    B 1 x S 300, 32/8 heads, f32 through its FMA body and bf16 through its
    tensor-core body, causal and not), with the error,
@@ -59,6 +62,20 @@ Phases, each fatal on failure:
    skips calibrate, init and finetune and must give the same evaluate
    metrics, and also reports them with the student's attention on
    flash_attention, for the record.
+8. paper CNN — run_pipeline on paper-cnn at its full width with the paper
+   example's knobs (w4a8, 600 QFT steps, a 300-step teacher, 4096
+   calibration images, CLE, lr 1e-3) in a temporary workdir, fake_quant's
+   launches counted per stage (a forward and a backward per conv and
+   finetune step; the loss reads the pre-pool features, so the fc is not
+   run); again on the same workdir (calibrate, init and
+   finetune skipped, the same evaluate metrics); w4chw and w4a8 with no
+   finetune (the pre-QFT accuracy); one step's loss and gradients through
+   fake_quant and through the plain route on one batch, compared.
+9. phi4-mini — phase 5's main path on phi4-mini-3.8b at full width and
+   depth (32 layers, d 3072, vocab 200064, the head tied to the
+   embedding): decode_attention's paged entry at a GQA group of 3 in every
+   layer of every decode step, quant_matmul through the route check,
+   tokens against the plain route under the same margin rule.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -101,6 +118,10 @@ TEACHER_HIDDEN_BOUND = 3e-2
 PIPELINE_LAYERS = 3
 PIPELINE = dict(calib_seq_len=512, calib_batch_size=16, calib_batches=2,
                 eval_batches=2, steps=4, serve_smoke=True)
+
+#: phase 8: examples/cnn_paper_repro.py's pipeline knobs for paper-cnn
+CNN_PIPELINE = dict(mode="w4a8", steps=600, teacher_steps=300,
+                    calib_samples=4096, cle=True, base_lr=1e-3)
 
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
@@ -199,12 +220,14 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
     return us / iters / 1e3 if us else None
 
 
-def check_decode_attention(kv) -> dict:
-    """K2's rows: bf16 and int8 on the slot view at the engine's slot pool
-    (S 8 x T ``kv.view_len``), one long bf16 slot (S 1 x T 2048), and the
-    paged entry at the engine's geometry (``kv``: P 16, pt [8, 128]) with
-    shuffled page ids, a retired slot on the trash page and a trash page of
-    127s.  Returns the paged row's record, the main path's body."""
+def check_decode_attention(kv, G: int = 4, tag: str = "") -> dict:
+    """K2's rows at a GQA group of ``G`` query heads per kv head (qwen3-8b
+    4, phi4-mini 3): bf16 and int8 on the slot view at the engine's slot
+    pool (S 8 x T ``kv.view_len``), one long bf16 slot (S 1 x T 2048), and
+    the paged entry at the engine's geometry (``kv``: P 16, pt [8, 128])
+    with shuffled page ids, a retired slot on the trash page and a trash
+    page of 127s.  Returns the paged row's record, the main path's body,
+    with the bf16 row's numbers beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -214,7 +237,7 @@ def check_decode_attention(kv) -> dict:
                                          decode_attention_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    S, Hkv, G, hd, T = 8, 8, 4, 128, kv.view_len
+    S, Hkv, hd, T = 8, 8, 128, kv.view_len
     P, n_pg = kv.page_size, kv.max_pages_per_slot
     # the main path's four requests mid-decode, a fresh slot (length 1), a
     # full slot (T) and two split edges
@@ -259,7 +282,7 @@ def check_decode_attention(kv) -> dict:
         b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd,
                            "int8" if elt == 1 else "bf16")
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
-        say(f"[kernel] decode_attention {kind} S={n} Hkv={Hkv} G={G} "
+        say(f"[kernel] decode_attention{tag} {kind} S={n} Hkv={Hkv} G={G} "
             f"hd={hd} T={t} split={split_rows(t, n * Hkv, tile)} rows "
             f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
             f"device_ms={dev_txt} plain_ms={plain_ms:.4f} library_ms="
@@ -311,10 +334,13 @@ def check_decode_attention(kv) -> dict:
                                 pool_v[pt].reshape(S, T, Hkv, hd), lengths,
                                 ks, vs)
     route_ms = time_ms(gather_route)
-    say(f"[kernel] decode_attention paged int8, the route before this "
+    say(f"[kernel] decode_attention{tag} paged int8, the route before this "
         f"entry (pool[pt] gather + the slot-view kernel): ms={route_ms:.4f} "
         f"(for comparison; the yardstick is the plain version)")
-    return dict(paged, bf16_ms=bf16["ms"], bf16_library_ms=bf16["library_ms"],
+    return dict(paged, G=G, bf16_max_abs_err=bf16["max_abs_err"],
+                bf16_ms=bf16["ms"], bf16_device_ms=bf16["device_ms"],
+                bf16_bound_ms=bf16["bound_ms"],
+                bf16_library_ms=bf16["library_ms"],
                 one_slot_ms=long["ms"], gather_route_ms=route_ms)
 
 
@@ -725,6 +751,66 @@ def check_fake_quant(cfg) -> dict:
         del x, s, gy, y
         torch.cuda.empty_cache()
     return record
+
+
+def check_fake_quant_cnn(ccfg) -> dict:
+    """fake_quant at the paper CNN's weight views, as models/cnn.py hands
+    them over: each conv's HWIO kernel as ``[kh·kw, cin·cout]`` with one
+    scale row ``[1, cin·cout]`` (S_wL ⊗ S_wR broadcast), and the fc
+    ``[64, 10]`` with its row scale; forward bit-equal, both backward
+    rules: gx bit-equal, the column-summed gs within 1e-5 x max|ref|.
+    Returns {view: record} with the time of forward + backward (ste)."""
+    import torch
+    from repro_torch.kernels.fake_quant import (fake_quant_bwd,
+                                                fake_quant_fwd)
+    from repro_torch.kernels.ref import fake_quant_grad_ref, fake_quant_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    k, views, cin = ccfg.kernel, {}, ccfg.in_ch
+    for i, cout in enumerate(ccfg.channels):
+        views[f"conv{i}"] = (k * k, cin * cout, "col", 4)
+        cin = cout
+    views["fc"] = (cin, ccfg.n_classes, "row", 8)
+    out = {}
+    for name, (R, C, kind, bits) in views.items():
+        qmax = 2 ** (bits - 1) - 1
+        x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+        shape = (1, C) if kind == "col" else (R, 1)
+        s = (torch.rand(shape, generator=g, device=dev) + 0.5) * (
+            3 * R ** -0.5 / qmax)
+        gy = torch.randn((R, C), generator=g, device=dev)
+        y = fake_quant_fwd(x, s, bits)
+        torch.cuda.synchronize()
+        if not torch.equal(y, fake_quant_ref(x, s, bits)):
+            fail(f"fake_quant cnn {name}: forward differs from the plain "
+                 f"version")
+        err = 0.0
+        for rule in ("kernel", "ste"):
+            gx, gs = fake_quant_bwd(gy, x, s, bits, rule)
+            rx, rs = fake_quant_grad_ref(gy, x, s, bits, rule)
+            torch.cuda.synchronize()
+            if not torch.equal(gx, rx):
+                fail(f"fake_quant cnn {name} {rule}: gx differs from the "
+                     f"plain version")
+            e = float((gs - rs).abs().max())
+            tol = 1e-5 * float(rs.abs().max())
+            if not math.isfinite(e) or e > tol:
+                fail(f"fake_quant cnn {name} {rule}: gs max_abs_err {e} > "
+                     f"{tol}")
+            err = max(err, e)
+        ms = time_ms(lambda: fake_quant_fwd(x, s, bits)) + time_ms(
+            lambda: fake_quant_bwd(gy, x, s, bits, "ste"))
+        plain_ms = time_ms(lambda: fake_quant_ref(x, s, bits)) + time_ms(
+            lambda: fake_quant_grad_ref(gy, x, s, bits, "ste"))
+        n, ns = R * C, s.numel()
+        f_ms, _ = bound(8 * n + 4 * ns, 4 * n, "f32")
+        b_ms, _ = bound(12 * n + 8 * ns, 8 * n, "f32")
+        say(f"[kernel] fake_quant cnn {name} R={R} C={C} {kind} scale "
+            f"{bits}b max_abs_err={err:.3e} fwd+bwd(ste) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={f_ms + b_ms:.6f} (bytes)")
+        out[name] = {"R": R, "C": C, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": f_ms + b_ms}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1170,7 +1256,7 @@ def train_path(cfg) -> dict:
     # --- export the trained student and serve it
     plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
                             params=student, model_cfg=cfg)
-    exempt = sorted(plan._plan().exempt_names)
+    exempt = sorted(plan.quant_plan.exempt_names)
     if exempt:                    # trained on the role ladder's grid
         fail(f"the export plan exempts {exempt}: not the trained grid")
     with torch.no_grad():
@@ -1288,9 +1374,10 @@ def train_path(cfg) -> dict:
 # phase 7: the pipeline at full width, run twice on one workdir
 # ---------------------------------------------------------------------------
 
-def _pipeline_run(pcfg, adapter, tag: str) -> dict:
+def _pipeline_run(pcfg, adapter, tag: str, keep: bool = False) -> dict:
     """run_pipeline with every kernel count at 0 just before it; the
-    launches of each stage are read off the counts at its log line."""
+    launches and the seconds of each stage are read at its log line.
+    ``keep`` returns the PipelineResult too."""
     import torch
     from repro_torch.pipeline import run_pipeline
     per_stage: dict = {}
@@ -1302,6 +1389,7 @@ def _pipeline_run(pcfg, adapter, tag: str) -> dict:
         if msg.startswith("stage "):
             now = _counts()
             per_stage[msg.split()[1]] = {k: now[k] - mark[0][k] for k in now}
+            per_stage[msg.split()[1]]["s"] = float(msg.split()[-1][:-1])
             mark[0] = now
 
     torch.cuda.empty_cache()
@@ -1316,9 +1404,11 @@ def _pipeline_run(pcfg, adapter, tag: str) -> dict:
            "counts": _counts(), "run": result.stages_run,
            "skipped": result.stages_skipped, "history": result.history,
            "metrics": result.metrics}
+    if keep:
+        out["result"] = result
     for stage, c in per_stage.items():
         say(f"[pipeline] {tag}: {stage} launches " + ", ".join(
-            f"{k}={v}" for k, v in c.items() if v))
+            f"{k}={v}" for k, v in c.items() if v and k != "s"))
     return out
 
 
@@ -1452,6 +1542,157 @@ def pipeline_path(cfg) -> dict:
     return first["counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper CNN's pipeline at full width
+# ---------------------------------------------------------------------------
+
+def _fq_counts(counts: dict) -> tuple[int, int]:
+    return counts["fake_quant_fwd"], counts["fake_quant_bwd"]
+
+
+def cnn_path(ccfg) -> dict:
+    """python -m repro_torch quantize --config paper_cnn with the paper
+    example's knobs (CNN_PIPELINE) at the config's full width, in a
+    temporary workdir; again on the same workdir (calibrate, init and
+    finetune skipped, the same evaluate metrics); then w4chw and w4a8 with
+    no finetune (the pre-QFT accuracy).  fake_quant launches counted per
+    stage: one forward and one backward per conv and finetune step (the
+    loss reads the pre-pool features, so the fc is not run, as XLA drops it
+    from the JAX step).  One step's loss and gradients through fake_quant
+    and through the plain route, on one batch.  Returns the first run's
+    launch counts."""
+    import tempfile
+    import torch
+    from repro_torch.pipeline import STAGES, PipelineConfig
+    from repro_torch.tree import tree_items
+    n_w = len(ccfg.channels)          # K3 calls a finetune pass: the convs
+    steps = CNN_PIPELINE["steps"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the rerun's teacher
+    try:
+        with tempfile.TemporaryDirectory(prefix="qft_cnn_") as workdir:
+            pcfg = PipelineConfig(arch=ccfg.name, workdir=workdir,
+                                  device=DEVICE, log_every=steps // 6,
+                                  **CNN_PIPELINE)
+            say(f"[cnn] {ccfg.name} full width (channels {ccfg.channels}, "
+                f"{ccfg.img_hw}x{ccfg.img_hw}x{ccfg.in_ch} images, "
+                f"{ccfg.n_classes} classes): {CNN_PIPELINE}")
+            first = _pipeline_run(pcfg, None, "cnn run 1", keep=True)
+            second = _pipeline_run(pcfg, None, "cnn run 2 (resume)")
+        chw = _pipeline_run(dataclasses.replace(
+            pcfg, mode="w4chw", steps=0, cle=False, workdir=None), None,
+            "cnn w4chw, no finetune")
+        pre = _pipeline_run(dataclasses.replace(pcfg, steps=0, workdir=None),
+                            None, "cnn w4a8, no finetune (pre-QFT)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ev1, ev2 = first["metrics"]["evaluate"], second["metrics"]["evaluate"]
+    if first["run"] != list(STAGES) or first["skipped"]:
+        fail(f"cnn run 1 ran {first['run']}, skipped {first['skipped']}")
+    ft = first["per_stage"]["finetune"]
+    if _fq_counts(ft) != (n_w * steps, n_w * steps):
+        fail(f"cnn finetune launched fake_quant {_fq_counts(ft)} (forward, "
+             f"backward) over {steps} steps, want {n_w} each per step (the "
+             f"convs)")
+    for stage in ("calibrate", "init", "export"):
+        if any(_fq_counts(first["per_stage"][stage])):
+            fail(f"cnn {stage} launched fake_quant "
+                 f"{_fq_counts(first['per_stage'][stage])}")
+    if not ev1["export_parity_max_err"] < 1e-4:
+        fail(f"cnn export parity {ev1['export_parity_max_err']} >= 1e-4")
+    kr = ev1.get("kernel_route") or {}
+    if kr.get("path") != "fc" or kr.get("kernel") is not False \
+            or not kr.get("max_err", 1.0) <= 1e-4:
+        fail(f"cnn kernel_route {kr}: want the int8 fc on the reference "
+             f"branch within 1e-4")
+    if second["skipped"] != ["calibrate", "init", "finetune"]:
+        fail(f"cnn run 2 skipped {second['skipped']}")
+    if ev2 != ev1:
+        fail(f"cnn resumed evaluate {ev2} != first run's {ev1}")
+    losses = [h["loss"] for h in first["history"]]
+    if not all(map(math.isfinite, losses)):
+        fail(f"cnn finetune losses {losses}")
+    for run in (chw, pre):
+        if not run["metrics"]["evaluate"]["export_parity_max_err"] < 1e-4:
+            fail(f"cnn export parity {run['metrics']['evaluate']}")
+
+    # --- one step, fake_quant vs the plain route, on one batch
+    from repro_torch.pipeline.adapters import get_adapter
+    result = first.pop("result")
+    ad = get_adapter(pcfg)
+    x = ad.x_calib[:64]
+    grads = {}
+    for use in (True, False):
+        before = _counts()
+        ad.pcfg = dataclasses.replace(pcfg, use_kernels=use)
+        grads[use] = ad.loss_and_grads(dict(result.student), result.teacher,
+                                       x)
+        torch.cuda.synchronize()
+        delta = [a - b for a, b in zip(_fq_counts(_counts()),
+                                       _fq_counts(before))]
+        if delta != ([n_w, n_w] if use else [0, 0]):
+            fail(f"cnn step (use_kernels={use}) launched fake_quant {delta}")
+    (lk, gk), (lp, gp) = grads[True], grads[False]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    plain = dict(tree_items(gp))
+    worst, worst_at = 0.0, None
+    for path, gr in tree_items(gk):
+        ref = plain[path]
+        if gr is None or ref is None:   # the fc: not in the loss
+            if (gr is None) != (ref is None):
+                fail(f"cnn gradient of {path}: one route has none")
+            continue
+        rel = float((gr - ref).norm()) / max(float(ref.norm()), 1e-30)
+        if rel > worst:
+            worst, worst_at = rel, ".".join(map(str, path))
+    n_params = sum(t.numel() for _, t in tree_items(result.student))
+
+    # --- a trace of 10 finetune steps as the stage runs them (batch 64,
+    # the paper's Adam recipe), on a copy of the trained student
+    from repro_torch.optim.adam import paper_recipe
+    from repro_torch.tree import tree_map
+    ad.pcfg = pcfg
+    copy = tree_map(lambda t: t.detach().clone(), result.student)
+    opt = paper_recipe(steps_per_epoch=max(steps // 3, 1),
+                       base_lr=pcfg.base_lr)
+    state = [opt.init(copy)]
+
+    def finetune_steps():
+        for _ in range(10):
+            _, g = ad.loss_and_grads(copy, result.teacher, x)
+            state[0] = opt.update(g, state[0], copy)[1]
+    _profile(finetune_steps, "paper-cnn finetune steps (batch 64, Adam)", 10,
+             watch=("fq_", "conv", "elementwise"))
+
+    def secs(run):
+        per = {k: v["s"] for k, v in run["per_stage"].items()}
+        return (f"{run['wall']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in per.items())}; "
+                f"teacher + student init {run['wall'] - sum(per.values()):.1f})")
+    say(f"[cnn] run 1: {secs(first)}; peak {first['peak']:.3f} GiB; "
+        f"{n_params} student parameters; finetune loss "
+        f"{', '.join(f'{h['step']}:{h['loss']:.6f}' for h in first['history'])}")
+    say(f"[cnn] run 1 fake_quant launches (forward, backward): finetune "
+        f"{_fq_counts(ft)} = {n_w} x {steps} steps each; evaluate "
+        f"{_fq_counts(first['per_stage']['evaluate'])}")
+    for tag, run in (("run 1 (QFT)", first), ("run 2 (resume)", second),
+                     ("w4chw, no finetune", chw),
+                     ("w4a8, no finetune (pre-QFT)", pre)):
+        ev = run["metrics"]["evaluate"]
+        say(f"[cnn] {tag}: acc teacher {ev['acc_teacher']:.4f} student "
+            f"{ev['acc_student']:.4f} deployed {ev['acc_deployed']:.4f}; "
+            f"export_parity_max_err {ev['export_parity_max_err']:.3e}; "
+            f"artifact_bytes {ev['artifact_bytes']}; skipped "
+            f"{run['skipped']}; {secs(run)}")
+    say(f"[cnn] one step on 64 images, fake_quant vs the plain route: loss "
+        f"{float(lk):.8f} vs {float(lp):.8f} (rel {loss_rel:.2e}); worst "
+        f"gradient leaf {worst_at} rel L2 {worst:.2e}")
+    if loss_rel > 1e-6:
+        fail(f"cnn step loss fake_quant {float(lk)} vs plain {float(lp)}")
+    if worst > 1e-4:
+        fail(f"cnn gradient of {worst_at}: rel L2 {worst} > 1e-4")
+    return first["counts"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1460,6 +1701,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.paper_cnn import CONFIG as CNN
+    from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
     from repro_torch.configs.qwen3_8b import CONFIG
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.kv_cache import resolve_kv_spec
@@ -1468,30 +1711,45 @@ def main() -> int:
     build()
     fd = check_decode_attention(
         resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)))
+    fd_phi4 = check_decode_attention(
+        resolve_kv_spec(PHI4, ServeConfig(**MAIN_SERVE)),
+        G=PHI4.n_heads // PHI4.n_kv_heads, tag=" phi4-mini")
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
+    fq_cnn = check_fake_quant_cnn(CNN)
     fa = check_flash_attention(CONFIG)
     check_reference()
     launches = main_path(CONFIG)
     train = train_path(CONFIG)
     pipeline = pipeline_path(CONFIG)
+    cnn = cnn_path(CNN)
+    t9 = time.perf_counter()
+    phi4 = main_path(PHI4)
+    say(f"[main] phase 9 ({PHI4.name}) {time.perf_counter() - t9:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:60",
          "launches": launches["decode_attention"],
-         "launches_paged": launches["decode_attention_paged"], **fd},
+         "launches_paged": launches["decode_attention_paged"], **fd,
+         "phi4_mini": dict(fd_phi4,
+                           launches=phi4["decode_attention"],
+                           launches_paged=phi4["decode_attention_paged"])},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
          "launches": launches["quant_matmul"],
-         **launches["quant_matmul_bodies"], **qmm},
+         **launches["quant_matmul_bodies"], **qmm,
+         "launches_phi4_mini": phi4["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
          "launches": train["fake_quant_fwd"] + train["fake_quant_bwd"],
          "launches_fwd": train["fake_quant_fwd"],
-         "launches_bwd": train["fake_quant_bwd"], **fq},
+         "launches_bwd": train["fake_quant_bwd"], **fq,
+         "paper_cnn": {"launches_fwd": cnn["fake_quant_fwd"],
+                       "launches_bwd": cnn["fake_quant_bwd"],
+                       "views": fq_cnn}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",

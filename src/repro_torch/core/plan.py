@@ -464,6 +464,25 @@ def apply_overrides(specs: dict[str, TensorSpec],
     return out
 
 
+def make_sensitivity_producer(scores: dict[str, float], sensitive_bits: int,
+                              top_frac: float = 0.1) -> Producer:
+    """Example pluggable producer: keep the ``top_frac`` most sensitive
+    backbone tensors (by caller-supplied score, e.g. Hessian trace) at
+    ``sensitive_bits`` — the drop-in shape Sensitivity-Aware PTQ / EPTQ
+    orderings plug into."""
+
+    def produce(specs: dict[str, TensorSpec], ctx: PlanContext):
+        ranked = sorted((p for p in specs if p in scores),
+                        key=lambda p: -scores[p])
+        keep = set(ranked[: max(int(len(ranked) * top_frac), 1)])
+        return {p: (_norm_packed(dataclasses.replace(
+                        s, w_bits=sensitive_bits, origin="sensitivity"))
+                    if p in keep else s)
+                for p, s in specs.items()}
+
+    return produce
+
+
 # ---------------------------------------------------------------------------
 # Resolution entry point
 # ---------------------------------------------------------------------------
@@ -476,17 +495,23 @@ def apply_overrides(specs: dict[str, TensorSpec],
 KV_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
 
-def resolve_plan(qcfg: QuantConfig, params, model_cfg=None) -> QuantPlan:
+def resolve_plan(qcfg: QuantConfig, params, model_cfg=None,
+                 producers: tuple = ()) -> QuantPlan:
     """(QuantConfig, student params tree) → QuantPlan, via the producer chain.
 
     Only shapes are read.  ``model_cfg`` supplies family knobs some
-    producers read (MoE router bits).  Resolve **once** per run and hand the
-    same object to the forward, export and serving; resolving twice from
-    different skeletons is how grids silently diverge.
+    producers read (MoE router bits).  Extra ``producers`` run after the
+    built-in chain (default ladder → §4 1%-rule → path-glob overrides) and
+    may re-assign bits/layouts freely — the sensitivity-guided
+    mixed-precision hook (:func:`make_sensitivity_producer`).  Resolve
+    **once** per run and hand the same object to the forward, export and
+    serving; resolving twice from different skeletons is how grids silently
+    diverge.
     """
     ctx = PlanContext(qcfg=qcfg, model_cfg=model_cfg)
     specs: dict[str, TensorSpec] = {}
-    for produce in (default_ladder(params), exemption_rule, apply_overrides):
+    for produce in (default_ladder(params), exemption_rule, apply_overrides,
+                    *producers):
         specs = produce(specs, ctx)
     # report only fallbacks still live in the FINAL specs (an override that
     # replaced a fallen-back default layout retires its record); last record
@@ -545,6 +570,9 @@ def apply_plan(tree: Params, plan: QuantPlan) -> Params:
                     device=old.device)}
             return {k: v if k in STREAM_KEYS else walk(v, prefix + (k,))
                     for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, prefix + (str(i),))
+                              for i, v in enumerate(node))
         return node
 
     return walk(tree, ())

@@ -25,11 +25,11 @@ Params = dict[str, Any]
 
 
 def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.mlp != "swiglu" or cfg.tie_embeddings
+    if (cfg.family != "dense" or cfg.mlp != "swiglu"
             or cfg.mrope_sections or cfg.moe or cfg.mla or cfg.ssm):
         raise NotImplementedError(
-            f"repro_torch ports the dense GQA family (SwiGLU, untied head, "
-            f"RoPE); {cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense GQA family (SwiGLU, RoPE); "
+            f"{cfg.name!r} is family {cfg.family!r}")
 
 
 def _sorted(tree):
@@ -72,10 +72,11 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
         raise ValueError(f"generator on {gen.device} but device {dev}")
     V, d = cfg.vocab_padded, cfg.d_model
     params: Params = {"final_norm": init_rmsnorm(d, device=dev),
-                      "embed": init_embed(gen, V, d, qcfg),
-                      "lm_head": dof.init_qlinear(
-                          gen, d, V, qcfg, name="lm_head",
-                          w_bits=None if qcfg is None else qcfg.embed_bits)}
+                      "embed": init_embed(gen, V, d, qcfg)}
+    if not cfg.tie_embeddings:       # a tied head reads the embedding table
+        params["lm_head"] = dof.init_qlinear(
+            gen, d, V, qcfg, name="lm_head",
+            w_bits=None if qcfg is None else qcfg.embed_bits)
     if qcfg is not None:
         params["head_stream"] = dof.init_stream(d, device=dev)
     params["layers"] = _init_attn_layers(gen, cfg, qcfg, cfg.n_layers)
@@ -179,7 +180,11 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
         cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
     out = None
-    if logits:
+    if logits and cfg.tie_embeddings:
+        # the stored table (the student's FP master, the deploy view's
+        # dequantized rows), unquantized, as the JAX package's tied head
+        out = h @ params["embed"]["w"].to(h.dtype).T
+    elif logits:
         out = dof.qlinear(h, params["lm_head"], qcfg,
                           stream=params.get("head_stream"),
                           bits=None if qcfg is None

@@ -1,6 +1,6 @@
 """Command-line entry point:
 
-    python -m repro_torch quantize --config qwen3_8b --w-bits 4 --steps 60
+    python -m repro_torch quantize --config paper_cnn --steps 60
     python -m repro_torch quantize --config qwen3_8b --device cpu --steps 2
     python -m repro_torch plan --config qwen3_8b --w-layout group:128
     python -m repro_torch list-configs
@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     q = sub.add_parser("quantize", help="run the end-to-end PTQ pipeline")
     q.add_argument("--config", required=True,
-                   help="registry entry (qwen3-8b / qwen3_8b)")
+                   help="registry entry (paper-cnn / qwen3_8b / ...)")
     q.add_argument("--mode", choices=MODES, default="w4a8",
                    help="paper setup: w4a8 (deployment) | w4chw (permissive)")
     q.add_argument("--w-bits", type=int, default=None,
@@ -51,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--base-lr", type=float, default=1e-4)
     q.add_argument("--seed", type=int, default=0)
     q.add_argument("--teacher-steps", type=int, default=0,
-                   help="paper-cnn (not ported yet): pre-train the FP "
-                        "teacher this many steps")
+                   help="paper-cnn: pre-train the FP teacher this many "
+                        "steps")
     q.add_argument("--calib-samples", type=int, default=512)
     q.add_argument("--calib-seq-len", type=int, default=32)
     q.add_argument("--calib-batch-size", type=int, default=16)
@@ -225,6 +225,16 @@ def cmd_check() -> int:
           "repro_torch's analysis/); run `python -m repro check` on the "
           "JAX package", file=sys.stderr)
     return 2
+
+
+def _canon_arch(name: str) -> str:
+    """Accept both registry ('qwen3-8b') and module ('qwen3_8b') spellings."""
+    if name in registry._MODULES:
+        return name
+    for arch, module in registry._MODULES.items():
+        if module == name:
+            return arch
+    raise KeyError(name)
 
 
 def main(argv=None) -> int:

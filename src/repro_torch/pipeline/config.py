@@ -4,9 +4,9 @@ One ``PipelineConfig`` fully determines a run: which registry entry, which
 paper setup (w4a8 deployment-oriented / w4chw permissive), calibration
 budget, QFT step count, and where per-stage checkpoints land.  Every knob has
 a CLI flag in pipeline/cli.py.  Field for field the JAX package's, except:
-``use_pallas`` is ``use_kernels`` (default on, as ``DeployPlan``'s),
+``use_pallas`` is ``use_kernels`` (default on, as ``DeployPlan``'s), and
 ``device`` picks the card (``"cuda"``) or the CPU, where every kernel's
-plain version runs, and the default ``arch`` is the port's ``qwen3-8b``.
+plain version runs.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def canonical_arch(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    arch: str = "qwen3-8b"
+    arch: str = "paper-cnn"
     mode: str = "w4a8"                # w4a8 (deployment-oriented) | w4chw
     w_bits: int | None = None         # override the mode's weight bits
     w_layout: str | None = None       # weight-scale layout override:

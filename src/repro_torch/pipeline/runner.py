@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..train.checkpoint import CheckpointManager
-from .adapters import TransformerAdapter, get_adapter
+from .adapters import CNNAdapter, TransformerAdapter, get_adapter
 from .config import STAGES, PipelineConfig
 
 Params = dict[str, Any]
@@ -53,7 +53,8 @@ def _synchronize(device: torch.device) -> None:
 
 def run_pipeline(pcfg: PipelineConfig,
                  log: Callable[[str], None] = lambda s: None,
-                 adapter: TransformerAdapter | None = None) -> PipelineResult:
+                 adapter: TransformerAdapter | CNNAdapter | None = None
+                 ) -> PipelineResult:
     """Run ``pcfg.stages()``.  ``adapter`` replaces the one ``pcfg``
     resolves — e.g. one built on a depth-cut model configuration."""
     if adapter is None:

@@ -1,8 +1,8 @@
 """Deployment export: freeze the offline subgraph into serving constants.
 
-``export_for_layers`` walks the student tree, runs each linear's offline
-subgraph once (quantize → int4-pack) and drops the FP masters, streams and
-DoF.  ``deploy_view`` turns the artifact back into a forward()-compatible
+``export_for_layers`` walks the student tree (one stacked layer at a time;
+``export_model`` in one walk), runs each linear's offline subgraph once
+(quantize → int4-pack) and drops the FP masters, streams and DoF.  ``deploy_view`` turns the artifact back into a forward()-compatible
 tree of dequantized weights — what the JAX package's ``Engine`` serves, and
 so what this one serves; ``effective_view`` is the student's fake-quant
 weights in the same structure, the oracle the export is held against.
@@ -16,6 +16,7 @@ a full-width model never holds more than one layer's f32 temporaries.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -38,36 +39,54 @@ Params = dict[str, Any]
 _STACKED = ("layers",)
 
 
+# Deprecation shim only: the bare-name exemption set artifacts exported
+# before QuantPlan were frozen under.  New code never reads this — the
+# resolved plan is the single source of per-tensor bits.
+_LEGACY_EXEMPT_8B = frozenset({"router", "lm_head", "fc"})
+
+
+def _warn_legacy(what: str) -> None:
+    warnings.warn(
+        f"DeployPlan has no resolved QuantPlan; falling back to the legacy "
+        f"bare-name heuristic for {what}. Re-export the artifact (new "
+        f"exports embed the plan) or pass params= to make_deploy_plan.",
+        DeprecationWarning, stacklevel=3)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeployPlan:
     """Static deployment decisions, fixed at export time.
 
-    Per-tensor truth lives in ``quant_plan``.  ``use_kernels`` routes the
-    decode attention and ``qlinear_deployed`` through the CUDA kernels; it
-    is on by default, and ``False`` is the plain route on the card.
+    Per-tensor truth lives in ``quant_plan``.  Without one (an artifact
+    exported before plans were embedded) ``bits_for``/``is_packed`` fall
+    back, with a ``DeprecationWarning``, to the legacy bare-name heuristic
+    and the global ``packed`` default.  ``use_kernels`` routes the decode
+    attention and ``qlinear_deployed`` through the CUDA kernels; it is on
+    by default, and ``False`` is the plain route on the card.
     """
     qcfg: QuantConfig
     arch: str = ""
     family: str = "dense"
+    packed: bool = True               # legacy global default (shim path only)
     use_kernels: bool = True
     layout: QLayout | None = None
     quant_plan: QuantPlan | None = None
-
-    def _plan(self) -> QuantPlan:
-        if self.quant_plan is None:
-            raise ValueError("DeployPlan has no resolved QuantPlan; build it "
-                             "with make_deploy_plan(params=...) or from an "
-                             "artifact that embeds one")
-        return self.quant_plan
 
     def spec_for(self, path: str):
         return None if self.quant_plan is None else self.quant_plan.get(path)
 
     def bits_for(self, path: str) -> int:
-        return self._plan().bits_for(path)
+        if self.quant_plan is not None:
+            return self.quant_plan.bits_for(path)
+        _warn_legacy(f"bits_for({path!r})")
+        name = path.rsplit(".", 1)[-1]
+        return (self.qcfg.exempt_bits if name in _LEGACY_EXEMPT_8B
+                else self.qcfg.w_bits)
 
     def is_packed(self, path: str) -> bool:
-        return self._plan().is_packed(path)
+        if self.quant_plan is not None:
+            return self.quant_plan.is_packed(path)
+        return self.packed and self.bits_for(path) == 4
 
 
 def make_deploy_plan(qcfg: QuantConfig, arch: str = "", family: str = "dense",
@@ -79,8 +98,8 @@ def make_deploy_plan(qcfg: QuantConfig, arch: str = "", family: str = "dense",
     if quant_plan is None and params is not None:
         quant_plan = resolve_plan(qcfg, params, model_cfg=model_cfg)
     return DeployPlan(qcfg=qcfg, arch=arch, family=family,
-                      use_kernels=use_kernels, layout=qcfg.layout,
-                      quant_plan=quant_plan)
+                      packed=qcfg.w_bits == 4, use_kernels=use_kernels,
+                      layout=qcfg.layout, quant_plan=quant_plan)
 
 
 def plan_from_artifact(exported: Params) -> QuantPlan | None:
@@ -185,6 +204,9 @@ def _walk(tree, plan: DeployPlan, prefix: tuple = ()):
             else:
                 out[k] = _walk(v, plan, prefix + (k,))
         return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, plan, prefix + (str(i),))
+                          for i, v in enumerate(tree))
     return tree
 
 
@@ -198,7 +220,22 @@ def to_device(tree, dev) -> Any:
     """A tree of tensors on ``dev`` (leaves already there are not copied)."""
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def export_model(params: Params, plan_or_qcfg, device=None) -> Params:
+    """Student params → deployment artifact on ``device`` (``None`` → the
+    card), one walk over the whole tree with no layer stacking: the JAX
+    package's unstacked export.  The serialized QuantPlan rides along under
+    ``PLAN_KEY`` when the plan has one."""
+    dev = resolve_device(device)
+    plan = _as_plan(plan_or_qcfg, params=params)
+    out = _walk(to_device(params, dev), plan)
+    if plan.quant_plan is not None:
+        out[PLAN_KEY] = plan_to_array(plan.quant_plan, device=dev)
+    return out
 
 
 def export_for_layers(params: Params, plan_or_qcfg, device=None) -> Params:
@@ -220,7 +257,8 @@ def export_for_layers(params: Params, plan_or_qcfg, device=None) -> Params:
             out[k] = _export_node((k,), to_device(v, dev), streams, plan)
         else:
             out[k] = _walk(to_device(v, dev), plan, (k,))
-    out[PLAN_KEY] = plan_to_array(plan._plan(), device=dev)
+    if plan.quant_plan is not None:
+        out[PLAN_KEY] = plan_to_array(plan.quant_plan, device=dev)
     return out
 
 
@@ -249,6 +287,8 @@ def deploy_view(exported: Params, plan_or_qcfg,
                     out["b"] = tree["b"]
                 return out
             return {k: walk(v) for k, v in tree.items() if k != PLAN_KEY}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
         return tree
 
     return walk(exported)
@@ -292,6 +332,9 @@ def effective_view(params: Params, plan_or_qcfg,
                 else:
                     out[k] = walk(v, prefix + (k,))
             return out
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, prefix + (str(i),))
+                              for i, v in enumerate(tree))
         return tree
 
     out = {}
@@ -320,6 +363,9 @@ def find_exported_linears(tree, prefix: tuple = ()) -> list[tuple]:
             if k == PLAN_KEY:
                 continue
             out.extend(find_exported_linears(v, prefix + (k,)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.extend(find_exported_linears(v, prefix + (i,)))
     return out
 
 

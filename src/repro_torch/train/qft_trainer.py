@@ -263,6 +263,8 @@ def step_ckpt_due(completed: int, every: int, steps: int) -> bool:
 
 @dataclasses.dataclass
 class QFTConfig:
+    epochs: int = 12                  # paper (read by no stage, as in the
+                                      # JAX package)
     ce_proportion: float = 0.0        # Fig. 6 ablation knob
     cle_init: bool = False            # Fig. 8: CLE+QFT two-step
     base_lr: float = 1e-4             # Fig. 7 robust region

@@ -4,6 +4,8 @@ No jax here: this file runs on the GPU machine, which has none
 (``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``).
 Elsewhere every test skips, deciding inside the ``cuda`` fixture.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -83,7 +85,7 @@ def _fd_close(out, ref):
 
 
 @pytest.mark.parametrize("part", [1, 2, 4])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
 @pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
 @pytest.mark.parametrize("hd", [16, 128])
 def test_split_body_against_plain(cuda, monkeypatch, part, G, kv, hd):
@@ -154,7 +156,7 @@ def _paged(cuda, P, n_pg, G, seed, S=4, Hkv=2, hd=128):
 
 @pytest.mark.parametrize("P,n_pg", [(16, 20), (48, 7), (5, 61), (1, 300)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
 def test_paged_entry_against_plain(cuda, P, n_pg, dtype, G):
     """The paged entry at the engine's page size (16), at sizes that do not
     divide the split (48, 5) and at 1, against the gather + plain version;
@@ -588,6 +590,72 @@ def test_fake_quant_kernel_backward(cuda, rule, scale, dtype):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+#: paper-cnn's conv weights as the fake_quant kernel sees them, [kh·kw,
+#: cin·cout], and the fc [64, 10]: (R, C, scale shape)
+CNN_VIEWS = {"conv0": (9, 3 * 16, (1, 48)), "conv1": (9, 16 * 32, (1, 512)),
+             "conv2": (9, 32 * 64, (1, 2048)), "fc": (64, 10, (64, 1))}
+
+
+@pytest.mark.parametrize("rule", ["kernel", "ste"])
+@pytest.mark.parametrize("view", list(CNN_VIEWS))
+def test_fake_quant_kernel_at_the_cnn_views(cuda, view, rule):
+    """K3 at the four paper-cnn weight views: forward bit for bit, gx bit
+    for bit, the summed gs within 1e-5 x max|ref|."""
+    R, C, shape = CNN_VIEWS[view]
+    x, s, g = _fq_case(R, C, shape, 4, cuda, seed=R + C)
+    xt, st = x.clone().requires_grad_(), s.clone().requires_grad_()
+    y = fake_quant_kernel(xt, st, 4, rule=rule)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach(), fake_quant_ref(x, s, 4))
+    gx_ref, gs_ref = fake_quant_grad_ref(g, x, s, 4, rule)
+    assert torch.equal(xt.grad, gx_ref)
+    err = float((st.grad - gs_ref).abs().max())
+    assert err <= 1e-5 * float(gs_ref.abs().max()), err
+
+
+def test_cnn_finetune_launches_fake_quant_per_weight(cuda, tmp_path):
+    """The paper-cnn pipeline on the card: each finetune step launches the
+    fake_quant kernel once forward and once backward for each of the 3
+    convs (the loss reads the pre-pool features: the fc is not run); the
+    plain route agrees with it on one step's loss (1e-6) and gradients
+    (1e-4 relative L2 per leaf)."""
+    from repro_torch.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.pipeline.adapters import get_adapter
+    from repro_torch.tree import tree_items
+    pcfg = PipelineConfig(arch="paper-cnn", steps=3, calib_samples=256,
+                          workdir=str(tmp_path))
+    seen = {}
+
+    def log(msg):
+        if msg.startswith("stage "):
+            seen[msg.split()[1]] = (fake_quant_kernel.launches_fwd,
+                                    fake_quant_kernel.launches_bwd)
+    before = (fake_quant_kernel.launches_fwd, fake_quant_kernel.launches_bwd)
+    result = run_pipeline(pcfg, log=log)
+    assert seen["init"] == before
+    ft = (seen["finetune"][0] - before[0], seen["finetune"][1] - before[1])
+    assert ft == (3 * pcfg.steps, 3 * pcfg.steps), ft
+    assert result.metrics["evaluate"]["export_parity_max_err"] < 1e-4
+    ad = get_adapter(pcfg)
+    x = ad.x_calib[:64]
+    out = {}
+    for use in (True, False):
+        ad.pcfg = dataclasses.replace(pcfg, use_kernels=use)
+        student = {k: v for k, v in result.student.items()}
+        out[use] = ad.loss_and_grads(student, result.teacher, x)
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert abs(float(lk) - float(lp)) <= 1e-6 * abs(float(lp))
+    plain = dict(tree_items(gp))
+    for path, g in tree_items(gk):
+        ref = plain[path]
+        if g is None or ref is None:            # the fc: not in the loss
+            assert g is None and ref is None and path[0].startswith("fc")
+            continue
+        assert float((g - ref).norm()) <= 1e-4 * max(float(ref.norm()),
+                                                     1e-30), path
+
+
 def _route_step_gap(qcfg, device):
     """One SMOKE student step's loss and gradients through the kernels and
     through the plain route, both on the same teacher targets (computed
@@ -718,7 +786,7 @@ def test_pipeline_plain_route_launches_no_kernel(cuda):
                       quant_matmul.launches_dequant, decode_attention.launches)
     before = counts()
     result = run_pipeline(PipelineConfig(
-        steps=1, calib_samples=32, calib_seq_len=64, calib_batch_size=4,
+        arch="qwen3-8b", steps=1, calib_samples=32, calib_seq_len=64, calib_batch_size=4,
         serve_smoke=True, use_kernels=False))
     torch.cuda.synchronize()
     assert counts() == before

@@ -230,7 +230,8 @@ def test_evaluate_keeps_the_student_on_its_training_route(monkeypatch):
     from repro_torch.models import attention as attn
     from repro_torch.pipeline import PipelineConfig
     from repro_torch.pipeline.adapters import get_adapter
-    pcfg = PipelineConfig(device="cpu", calib_samples=16, calib_seq_len=16,
+    pcfg = PipelineConfig(arch="qwen3-8b", device="cpu", calib_samples=16,
+                          calib_seq_len=16,
                           calib_batch_size=4, calib_batches=2,
                           eval_batches=2)
     adapter = get_adapter(pcfg)

@@ -41,7 +41,7 @@ from repro_torch.tree import tree_items  # noqa: E402
 TINY_LM = dict(arch="qwen3_8b", smoke=True, steps=2, calib_samples=64,
                calib_seq_len=16, calib_batch_size=8, calib_batches=2,
                eval_batches=1, log_every=1)
-SCALE_LEAVES = ("log_swr", "log_sa", "log_s")
+SCALE_LEAVES = ("log_swr", "log_sa", "log_s", "log_f")
 
 
 def _torch_tree(tree):
@@ -90,14 +90,13 @@ def port_adapter():
 
 def test_pipeline_config_fields_match_jax():
     """Field for field the JAX PipelineConfig, except: ``use_pallas`` is
-    ``use_kernels`` (default on), ``device`` is added, and the default arch
-    is the port registry's qwen3-8b (paper-cnn is not ported)."""
+    ``use_kernels`` (default on) and ``device`` is added.  The default arch
+    is the reference's, paper-cnn, and resolves to the same config."""
     jf = [(f.name, f.default) for f in dataclasses.fields(JPipelineConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(PipelineConfig)]
     renamed = {"use_pallas": "use_kernels"}
     want = [(renamed.get(n, n), d) for n, d in jf]
-    want = [(n, True if n == "use_kernels" else
-             "qwen3-8b" if n == "arch" else d) for n, d in want]
+    want = [(n, True if n == "use_kernels" else d) for n, d in want]
     i = [n for n, _ in want].index("use_kernels") + 1
     want.insert(i, ("device", "cuda"))
     assert tf == want
@@ -111,8 +110,11 @@ def test_pipeline_config_fields_match_jax():
     assert str(pcfg.quant_config().layout) == str(jpcfg.quant_config().layout)
     assert pcfg.quant_config().bits_overrides == \
         jpcfg.quant_config().bits_overrides
-    with pytest.raises(KeyError, match="qwen3-8b"):
-        PipelineConfig(arch="paper_cnn")
+    cnn, jcnn = PipelineConfig(arch="paper_cnn"), JPipelineConfig(
+        arch="paper_cnn")
+    assert cnn.arch == jcnn.arch == PipelineConfig().arch == "paper-cnn"
+    assert dataclasses.asdict(cnn.model_config()) == \
+        dataclasses.asdict(jcnn.model_config())
 
 
 def test_build_student_applies_path_glob_layouts_like_jax():
@@ -366,4 +368,260 @@ def test_python_m_repro_torch_lists_configs():
                           "list-configs"], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["qwen3-8b", "repro_torch.configs.qwen3_8b"]
+    assert out.stdout.split()[::2] == ["command-r-plus-104b", "paper-cnn",
+                                       "phi4-mini-3.8b", "qwen3-32b",
+                                       "qwen3-8b"]
+    assert out.stdout.split()[1::2] == [
+        f"repro_torch.configs.{m}" for m in (
+            "command_r_plus_104b", "paper_cnn", "phi4_mini_3_8b",
+            "qwen3_32b", "qwen3_8b")]
+
+
+# ---------------------------------------------------------------------------
+# The paper CNN: tests/test_pipeline.py's CNN cases, each stage held against
+# the JAX stage on the JAX stage's own input.  The CNN runs in f32, so the
+# tolerances are f32's: scale leaves 1e-6, weights and integer leaves bit
+# for bit before finetune; the finetune losses 1e-5 relative and the trained
+# leaves within two Adam steps' reach of JAX's (an update of ±lr where a
+# gradient is noise); accuracies to one eval image in 512.
+# ---------------------------------------------------------------------------
+
+CNN_RUN = dict(arch="paper_cnn", mode="w4a8", steps=2, calib_samples=256,
+               log_every=1)
+
+
+def _cnn_data(jad):
+    """The JAX adapter's synthetic task (drawn with jax.random), as
+    tensors."""
+    return {k: torch.from_numpy(np.array(getattr(jad, k)))
+            for k in ("x_calib", "y_calib", "x_eval", "y_eval")}
+
+
+@pytest.fixture(scope="module")
+def jax_cnn_run(tmp_path_factory):
+    """The JAX pipeline on paper-cnn with a workdir; its stage checkpoints
+    restored through the port, its teacher and data converted."""
+    workdir = tmp_path_factory.mktemp("jax_cnn_pipeline")
+    jpcfg = JPipelineConfig(workdir=str(workdir), **CNN_RUN)
+    result = j_run_pipeline(jpcfg)
+    jad = j_get_adapter(jpcfg)
+    student0 = _torch_tree(jad.build_student(result.teacher))
+    like = _like(student0)
+    ckpt = CheckpointManager(str(workdir / "stages"))
+    stages = {s: ckpt.restore(s, like)["student"] for s in (1, 2, 3)}
+    return dict(workdir=workdir, result=result, student0=student0,
+                teacher=_torch_tree(result.teacher), stages=stages,
+                data=_cnn_data(jad))
+
+
+def _cnn_adapter(run, **kw):
+    """A port CNN adapter on the CPU that takes the JAX run's data and
+    teacher (the student's constant init is the same in both)."""
+    ad = get_adapter(PipelineConfig(device="cpu", **{**CNN_RUN, **kw}))
+    for k, v in run["data"].items():
+        setattr(ad, k, v)
+    ad.init_teacher = lambda: _clone_tree(run["teacher"])
+    return ad
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _assert_trained_close(got, want, lr):
+    """Trained leaves: within two Adam steps (2·lr) of JAX's, the rest
+    bit for bit where untouched by training is not asked."""
+    want = dict(tree_items(want))
+    assert sorted(map(str, (p for p, _ in tree_items(got)))) == \
+        sorted(map(str, want))
+    for path, leaf in tree_items(got):
+        err = float((leaf - want[path]).abs().max())
+        assert err <= 2 * lr * 1.01, (path, err)
+
+
+def test_cnn_build_student_matches_jax(jax_cnn_run):
+    ad = _cnn_adapter(jax_cnn_run)
+    got = ad.build_student(ad.init_teacher())
+    _assert_students_match(got, jax_cnn_run["student0"])
+    assert ad.qplan.describe() == j_get_adapter(
+        JPipelineConfig(**CNN_RUN)).qplan.describe()
+
+
+def test_cnn_calibrate_stage_matches_jax(jax_cnn_run):
+    """Max-min ranges of the f32 teacher's taps: log_sa 1e-6, zero-points
+    equal."""
+    ad = _cnn_adapter(jax_cnn_run)
+    got = ad.calibrate(_clone_tree(jax_cnn_run["student0"]),
+                       jax_cnn_run["teacher"])
+    _assert_students_match(got, jax_cnn_run["stages"][1])
+
+
+@pytest.mark.parametrize("cle", [False, True])
+def test_cnn_init_stage_matches_jax(jax_cnn_run, cle):
+    """The MMSE init of every conv's F̂ and the fc (with the CLE chain and
+    its refit when asked), from the JAX calibrated student."""
+    ad = _cnn_adapter(jax_cnn_run, cle=cle)
+    got = ad.init_scales(_clone_tree(jax_cnn_run["stages"][1]))
+    if not cle:
+        _assert_students_match(got, jax_cnn_run["stages"][2])
+        return
+    jad = j_get_adapter(JPipelineConfig(**{**CNN_RUN, "cle": True}))
+    want = _torch_tree(jad.init_scales(jax.tree.map(
+        np.asarray, _numpy_cnn(jax_cnn_run["stages"][1]))))
+    _assert_students_match(got, want)
+
+
+def _numpy_cnn(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_cnn(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_cnn(v) for v in tree]
+    return tree.numpy()
+
+
+def test_cnn_finetune_stage_matches_jax(jax_cnn_run):
+    """Two steps of the paper recipe from the JAX-initialised student: the
+    first loss (same inputs) 1e-6 relative, the second 1e-4 (Adam's first
+    update moves a leaf by ±lr whatever its gradient's size, so a gradient
+    at rounding noise can leave the packages 2·lr apart), every trained
+    leaf within 2·lr."""
+    ad = _cnn_adapter(jax_cnn_run)
+    student, history = ad.finetune(_clone_tree(jax_cnn_run["stages"][2]),
+                                   jax_cnn_run["teacher"])
+    want = jax_cnn_run["result"].history
+    assert [h["step"] for h in history] == [h["step"] for h in want] == [0, 1]
+    for h, w, rtol in zip(history, want, (1e-6, 1e-4)):
+        assert abs(h["loss"] - w["loss"]) <= rtol * abs(w["loss"]), (h, w)
+    _assert_trained_close(student, jax_cnn_run["stages"][3],
+                          PipelineConfig().base_lr)
+
+
+def test_cnn_pipeline_e2e_matches_jax(jax_cnn_run, tmp_path):
+    """tests/test_pipeline.py::test_pipeline_e2e_paper_cnn on the port, on
+    the JAX run's data and teacher: every stage runs, the evaluate metrics
+    agree with JAX's, the export round-trips on the packed conv1."""
+    from repro_torch.core import dof
+    from repro_torch.models import cnn
+    ad = _cnn_adapter(jax_cnn_run)
+    pcfg = ad.pcfg
+    result = run_pipeline(dataclasses.replace(pcfg, workdir=str(tmp_path)),
+                          adapter=ad)
+    assert result.stages_run == list(STAGES)
+    ev, want = (result.metrics["evaluate"],
+                jax_cnn_run["result"].metrics["evaluate"])
+    assert ev["export_parity_max_err"] < 1e-4, ev
+    for key in ("w_layout", "exempt", "artifact_bytes"):
+        assert ev[key] == want[key], key
+    for key in ("acc_teacher", "acc_student", "acc_deployed"):
+        assert abs(ev[key] - want[key]) <= 1 / 512, (key, ev, want)
+    assert ev["kernel_route"]["kernel"] is False          # int8 fc
+    assert ev["kernel_route"]["path"] == "fc"
+    _assert_trained_close(result.student, jax_cnn_run["stages"][3],
+                          pcfg.base_lr)
+    student, art = result.student, result.artifact
+    log_in, log_out = cnn._conv_stream_scales(student, 1)
+    assert art["convs"][1]["q"].dtype == torch.uint8     # int4-packed
+    deq = dof.dequantize_export(art["convs"][1], torch.float32, packed=True)
+    w_eff = cnn.conv_effective_weight(student["convs"][1], result.qcfg,
+                                      log_in, log_out)
+    np.testing.assert_allclose(deq.numpy(), w_eff.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_cnn_stage_resume_on_the_jax_workdir(jax_cnn_run):
+    """tests/test_pipeline.py::test_pipeline_stage_resume: the port on the
+    JAX run's workdir (steps 0) skips every student stage and carries on
+    with the JAX-trained student, bit for bit."""
+    ad = _cnn_adapter(jax_cnn_run, steps=0,
+                      workdir=str(jax_cnn_run["workdir"]))
+    second = run_pipeline(ad.pcfg, adapter=ad)
+    assert second.stages_skipped == ["calibrate", "init", "finetune"]
+    assert second.stages_run == ["export", "evaluate"]
+    _assert_students_match(second.student, jax_cnn_run["stages"][3])
+    assert second.metrics["evaluate"]["export_parity_max_err"] < 1e-4
+
+
+def test_cnn_steps_change_reenters_finetune(jax_cnn_run, tmp_path):
+    """tests/test_pipeline.py::test_pipeline_steps_change_reenters_finetune:
+    steps 3 on a copy of the finished steps-2 workdir, in both packages,
+    continues from the within-finetune checkpoint: only step 2 is trained
+    and logged, its loss 1e-5 relative to JAX's."""
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    for d in (jdir, tdir):
+        shutil.copytree(jax_cnn_run["workdir"], d)
+    jthird = j_run_pipeline(JPipelineConfig(**{**CNN_RUN, "steps": 3,
+                                               "workdir": str(jdir)}))
+    ad = _cnn_adapter(jax_cnn_run, steps=3, workdir=str(tdir))
+    third = run_pipeline(ad.pcfg, adapter=ad)
+    assert third.stages_skipped == jthird.stages_skipped == ["calibrate",
+                                                             "init"]
+    assert "finetune" in third.stages_run
+    assert third.metrics["finetune"]["steps"] == 3
+    assert [h["step"] for h in third.history] == \
+        [h["step"] for h in jthird.history] == [2]
+    got, want = third.history[0]["loss"], jthird.history[0]["loss"]
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+def test_cnn_w4chw_mode_matches_jax(jax_cnn_run):
+    """tests/test_pipeline.py::test_pipeline_w4chw_mode_cnn: the permissive
+    (doubly-channelwise, APQ) setup through export and evaluate with no
+    training; the initialised student against JAX's."""
+    kw = {**CNN_RUN, "mode": "w4chw", "steps": 0}
+    want = j_run_pipeline(JPipelineConfig(**kw))
+    ad = _cnn_adapter(jax_cnn_run, mode="w4chw", steps=0)
+    got = run_pipeline(ad.pcfg, adapter=ad)
+    assert "finetune" not in got.metrics
+    _assert_students_match(got.student, _torch_tree(want.student))
+    ev, jev = got.metrics["evaluate"], want.metrics["evaluate"]
+    assert ev["export_parity_max_err"] < 1e-4, ev
+    for key in ("acc_student", "acc_deployed"):
+        assert abs(ev[key] - jev[key]) <= 1 / 512, (key, ev, jev)
+
+
+def test_cnn_cli_quantize_and_resume(capsys, tmp_path):
+    """``python -m repro_torch quantize --config paper_cnn --device cpu``:
+    the JAX CLI smoke (steps 0, stop after export), then two runs of 2
+    steps on one workdir: the second skips calibrate, init and finetune and
+    prints the same evaluate metrics."""
+    rc = cli_main(["quantize", "--config", "paper_cnn", "--device", "cpu",
+                   "--steps", "0", "--stop-after", "export"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "stage export" in out and "pipeline complete" in out
+    argv = ["quantize", "--config", "paper_cnn", "--device", "cpu",
+            "--steps", "2", "--workdir", str(tmp_path)]
+    outs = []
+    for _ in range(2):
+        assert cli_main(argv) == 0
+        outs.append(capsys.readouterr().out)
+    assert "skipped (resume): calibrate, init, finetune" in outs[1]
+
+    def metrics(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith("  ") and ":" in ln
+                and not ln.startswith(("  stage", "  plan", "  resumed",
+                                       "  skipped", "  finetune loss"))]
+    assert metrics(outs[0]) == metrics(outs[1])
+    assert float(next(ln for ln in metrics(outs[0]) if "export_parity"
+                      in ln).split(":")[1]) < 1e-4
+
+
+def test_canonical_arch_spellings_match_jax():
+    from repro.pipeline import canonical_arch as j_canonical_arch
+    from repro.pipeline.cli import _canon_arch as j_canon
+    from repro_torch.pipeline import canonical_arch
+    from repro_torch.pipeline.cli import _canon_arch
+    for name in ("qwen3_8b", "qwen3-8b", "paper_cnn", "paper-cnn",
+                 "phi4_mini_3_8b", "phi4-mini-3.8b", "qwen3_32b",
+                 "command_r_plus_104b"):
+        assert canonical_arch(name) == j_canonical_arch(name), name
+        assert _canon_arch(name) == j_canon(name), name
+    assert canonical_arch("paper_cnn") == "paper-cnn"
+    for bad in ("qwen2-moe-a2.7b", "nonexistent"):
+        with pytest.raises(KeyError):
+            _canon_arch(bad)

@@ -323,3 +323,53 @@ def test_paged_decode_kernel_route_reads_the_pools(monkeypatch, page_size):
     assert err <= 1e-6 * float(plain.abs().max())
     for key in cache:
         assert torch.equal(kc[key], pc[key])
+
+
+def test_deploy_plan_field_for_field():
+    """F13: DeployPlan field for field the JAX one, the legacy ``packed``
+    default included; ``use_pallas``/``interpret`` map to ``use_kernels``
+    (on by default), as F11's test maps them for ServeConfig."""
+    import dataclasses
+
+    from repro.serve.deploy import DeployPlan as JDeployPlan
+    jf = [(f.name, f.default) for f in dataclasses.fields(JDeployPlan)]
+    want = [("use_kernels", True) if n == "use_pallas" else (n, d)
+            for n, d in jf if n != "interpret"]
+    assert [(f.name, f.default) for f in dataclasses.fields(DeployPlan)] \
+        == want
+    from repro.serve.deploy import make_deploy_plan as jmp
+    from repro_torch.serve.deploy import make_deploy_plan
+    for bits in (4, 8):
+        assert make_deploy_plan(TQ(w_bits=bits)).packed == \
+            jmp(JQ(w_bits=bits)).packed == (bits == 4)
+
+
+def test_plan_less_artifact_takes_the_legacy_shim_like_jax():
+    """F13: an artifact exported before plans were embedded (the JAX
+    artifact with its plan leaf removed) goes through the port's
+    deploy_view to the JAX package's dequantized leaves, bit for bit; and a
+    DeployPlan with no QuantPlan gives every tensor the JAX package's
+    legacy bits and packing, with the same DeprecationWarning."""
+    from repro.core.plan import PLAN_KEY
+    from repro.serve.deploy import DeployPlan as JDeployPlan
+    from repro_torch.serve.deploy import deploy_view
+    from repro_torch.tree import tree_items
+    jplan, ex = _jax_artifact()
+    legacy = {k: v for k, v in ex.items() if k != PLAN_KEY}
+    want = dict(tree_items(from_numpy_tree(jax.device_get(j_deploy_view(
+        legacy, JDeployPlan(qcfg=JQ()), dtype=jnp.float32)), "cpu")))
+    got = deploy_view(from_numpy_tree(jax.device_get(legacy), "cpu"),
+                      DeployPlan(qcfg=TQ()), dtype=torch.float32)
+    assert sorted(want) == sorted(p for p, _ in tree_items(got))
+    for path, leaf in tree_items(got):
+        assert torch.equal(leaf, want[path]), path
+    for bits in (4, 8):
+        jp, tp = JDeployPlan(qcfg=JQ(w_bits=bits)), DeployPlan(
+            qcfg=TQ(w_bits=bits))
+        for path in [p for p, _ in jplan.quant_plan] + ["fc", "x.router"]:
+            with pytest.warns(DeprecationWarning, match="legacy bare-name"):
+                got_bits = tp.bits_for(path)
+            with pytest.warns(DeprecationWarning, match="legacy bare-name"):
+                assert got_bits == jp.bits_for(path), path
+            with pytest.warns(DeprecationWarning):
+                assert tp.is_packed(path) == jp.is_packed(path), path

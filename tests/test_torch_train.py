@@ -553,3 +553,11 @@ def test_qft_trainer_run_reduces_distillation_loss(freeze):
             assert torch.equal(leaf, before[path]) or not freeze, path
         elif path[-1] in ("log_swr", "log_sa", "log_s"):
             assert torch.equal(leaf, before[path]) == freeze, path
+
+
+def test_qft_config_field_for_field():
+    """F14: QFTConfig field for field the JAX one (``epochs`` included,
+    default 12, read by no stage in either package)."""
+    jf = [(f.name, f.default) for f in dataclasses.fields(JQFTConfig)]
+    assert [(f.name, f.default) for f in dataclasses.fields(QFTConfig)] == jf
+    assert QFTConfig(epochs=4).epochs == JQFTConfig(epochs=4).epochs == 4
