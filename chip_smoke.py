@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    the main paths give it (decode_attention at the engine's slot pool, bf16
    and int8 on the slot view, one long bf16 slot, and its paged entry on
    the engine's int8 page pools through a shuffled page table, at
-   qwen3-8b's GQA group of 4 and again at phi4-mini's 3; both
+   qwen3-8b's 8 kv heads x a GQA group of 4, phi4-mini's 8 x 3 and
+   qwen2-moe-a2.7b's 16 x 1; both
    bodies of quant_matmul — int8dot and the dequant baseline — at
    qwen3-8b's seven linear shapes, decode and
    prefill M, channel and group:128, then the variant benchmark, the
@@ -21,7 +22,9 @@ Phases, each fatal on failure:
    qwen3-8b's four layer-linear shapes with a full doubly-channelwise
    scale, the embedding with a per-row scale and the lm_head, and at the
    paper CNN's four weight views (each conv's HWIO kernel as [kh·kw,
-   cin·cout] with one scale row, the fc [64, 10]);
+   cin·cout] with one scale row, the fc [64, 10]) and at qwen2-moe's
+   (each expert stack [E, in, out] as one [E·in, out] view with its full
+   scale, the 8-bit router, the shared experts);
    flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
    B 1 x S 300, 32/8 heads, f32 through its FMA body and bf16 through its
    tensor-core body, causal and not), with the error,
@@ -37,9 +40,9 @@ Phases, each fatal on failure:
    engine with paged int8 KV (decode_attention's paged entry every layer
    of every decode step), counting each kernel's launches; the same
    requests again through the plain route, tokens compared: where a
-   request's tokens differ, the plain route's logits at the first
-   differing step (the request served alone again) must have a top-2
-   margin within a few bf16 ulps.
+   request's tokens differ, the request is served alone through both
+   routes, and at the first step whose token differs the plain route's
+   logits must have a top-2 margin within a few bf16 ulps.
 6. train path — QFT on qwen3-8b at full width, depth cut to 4 of 36
    layers (the f32 training state of 36 layers does not fit one card):
    f32 teacher from a seed → student → activation calibration → APQ/MMSE
@@ -76,6 +79,21 @@ Phases, each fatal on failure:
    embedding): decode_attention's paged entry at a GQA group of 3 in every
    layer of every decode step, quant_matmul through the route check,
    tokens against the plain route under the same margin rule.
+10. qwen2-moe — phase 5's main path on qwen2-moe-a2.7b at full width and
+   depth (24 layers, 60 routed experts top-4 + 4 shared, 14.3 B
+   parameters) at capacity factor 15 (dropless; the config's 1.25 is
+   refused by the engine at 8 slots): the sort-based dispatch in every
+   layer of every prefill chunk and decode step, decode_attention's paged
+   entry at a GQA group of 1.  Where a request's tokens differ from the
+   plain route's, both routes serve it alone, recording every routing
+   decision: the first decision that differs, an expert choice or a
+   token, must be at a plain-route margin within a few bf16 ulps.
+11. qwen2-moe QFT — phase 6's train path on qwen2-moe-a2.7b at full
+   width, depth cut to 2 of 24 layers, 3 steps: each expert stack's
+   fake-quant one fake_quant launch a pass, the stacked APQ init with
+   the experts' geometric-mean S_wL, the teacher's 16/16-head attention
+   on flash_attention's tensor-core body; export (the expert stacks'
+   parity too) and 2 greedy requests from the trained artifact.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -83,6 +101,7 @@ CUDA device or without the repository beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -123,6 +142,15 @@ PIPELINE = dict(calib_seq_len=512, calib_batch_size=16, calib_batches=2,
 CNN_PIPELINE = dict(mode="w4a8", steps=600, teacher_steps=300,
                     calib_samples=4096, cle=True, base_lr=1e-3)
 
+#: phases 10-11: qwen2-moe-a2.7b at capacity_factor n_experts/top_k =
+#: 15, the remedy the engine's capacity refusal names (the config's 1.25
+#: gives a capacity of 1 < 8 slots) and the published model's dropless
+#: routing: int(T·4/60·15) = T, so no token drops in a decode step or a
+#: prefill chunk.  Phase 11 trains 2 of 24 layers (the f32 training state
+#: of 24 is ~286 GB) for 3 steps.
+MOE_CAPACITY_FACTOR = 15.0
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -220,9 +248,11 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
     return us / iters / 1e3 if us else None
 
 
-def check_decode_attention(kv, G: int = 4, tag: str = "") -> dict:
-    """K2's rows at a GQA group of ``G`` query heads per kv head (qwen3-8b
-    4, phi4-mini 3): bf16 and int8 on the slot view at the engine's slot
+def check_decode_attention(kv, G: int = 4, tag: str = "",
+                           Hkv: int = 8) -> dict:
+    """K2's rows at ``Hkv`` kv heads and a GQA group of ``G`` query heads
+    per kv head (qwen3-8b 8 x 4, phi4-mini 8 x 3, qwen2-moe 16 x 1): bf16
+    and int8 on the slot view at the engine's slot
     pool (S 8 x T ``kv.view_len``), one long bf16 slot (S 1 x T 2048), and
     the paged entry at the engine's geometry (``kv``: P 16, pt [8, 128])
     with shuffled page ids, a retired slot on the trash page and a trash
@@ -237,7 +267,7 @@ def check_decode_attention(kv, G: int = 4, tag: str = "") -> dict:
                                          decode_attention_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    S, Hkv, hd, T = 8, 8, 128, kv.view_len
+    S, hd, T = 8, 128, kv.view_len
     P, n_pg = kv.page_size, kv.max_pages_per_slot
     # the main path's four requests mid-decode, a fresh slot (length 1), a
     # full slot (T) and two split edges
@@ -260,7 +290,7 @@ def check_decode_attention(kv, G: int = 4, tag: str = "") -> dict:
                 < lengths[:, None])[:, None, None, :]
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
         return lambda: F.scaled_dot_product_attention(
-            qh, kt, vt, attn_mask=mask, enable_gqa=True)
+            qh, kt, vt, attn_mask=mask, enable_gqa=G > 1)
 
     def row(kind, fn, ref_fn, args, lens, t, elt, extra_bytes, lib=None):
         out = fn(*args)
@@ -669,14 +699,81 @@ def check_flash_attention(cfg) -> dict:
     return record
 
 
-def check_fake_quant(cfg) -> dict:
-    """fake_quant forward (bit-equal) and both backward rules (gx bit-equal,
-    gs bit-equal when elementwise, else within 1e-5 x max|ref|) against the
-    plain versions, at the shapes the train path gives it."""
+def _fq_row(name: str, x, s, bits: int, exact_gs: bool,
+            lib_axis: int | None = None) -> dict:
+    """One fake_quant row: forward bit-equal, both backward rules (gx
+    bit-equal, gs bit-equal when ``exact_gs`` — an elementwise scale —
+    else within 1e-5 x max|ref|) against the plain versions; times of
+    forward and backward (ste), plain and, with ``lib_axis``, the library's
+    per-channel learnable fake-quant along that axis (forward +
+    backward); bounds."""
     import torch
     from repro_torch.kernels.fake_quant import (fake_quant_bwd,
                                                 fake_quant_fwd)
     from repro_torch.kernels.ref import fake_quant_grad_ref, fake_quant_ref
+    R, C = x.shape
+    qmax = 2 ** (bits - 1) - 1
+    gy = torch.randn((R, C), generator=torch.Generator(
+        device=x.device).manual_seed(R + C), device=x.device)
+    y = fake_quant_fwd(x, s, bits)
+    torch.cuda.synchronize()
+    if not torch.equal(y, fake_quant_ref(x, s, bits)):
+        fail(f"fake_quant {name}: forward differs from the plain version")
+    del y
+    err = 0.0
+    for rule in ("kernel", "ste"):
+        gx, gs = fake_quant_bwd(gy, x, s, bits, rule)
+        rx, rs = fake_quant_grad_ref(gy, x, s, bits, rule)
+        torch.cuda.synchronize()
+        if not torch.equal(gx, rx):
+            fail(f"fake_quant {name} {rule}: gx differs from the plain "
+                 f"version")
+        e = float((gs - rs).abs().max())
+        tol = 0.0 if exact_gs else 1e-5 * float(rs.abs().max())
+        if not math.isfinite(e) or e > tol:
+            fail(f"fake_quant {name} {rule}: gs max_abs_err {e} > {tol}")
+        err = max(err, e)
+        del gx, gs, rx, rs
+    fwd_ms = time_ms(lambda: fake_quant_fwd(x, s, bits))
+    bwd_ms = time_ms(lambda: fake_quant_bwd(gy, x, s, bits, "ste"))
+    pfwd_ms = time_ms(lambda: fake_quant_ref(x, s, bits), iters=5)
+    pbwd_ms = time_ms(lambda: fake_quant_grad_ref(gy, x, s, bits, "ste"),
+                      iters=5)
+    n, ns = R * C, s.numel()
+    # forward: x read, y written, the scale read; backward: g and x read,
+    # gx written, the scale read and gs written
+    f_ms, f_by = bound(8 * n + 4 * ns, 4 * n, "f32")
+    b_ms, b_by = bound(12 * n + 8 * ns, 8 * n, "f32")
+    lib_ms = None
+    if lib_axis is not None:          # one PyTorch call: the per-channel
+        xl = x.clone().requires_grad_()           # learnable fake-quant
+        sl = (s[:, 0] if lib_axis == 0 else s[0]).clone().requires_grad_()
+        zl = torch.zeros_like(sl)
+
+        def lib():
+            out = torch._fake_quantize_learnable_per_channel_affine(
+                xl, sl, zl, lib_axis, -qmax, qmax, 1.0)
+            torch.autograd.grad(out, (xl, sl), gy)
+        lib_ms = time_ms(lib, iters=10)
+        del xl, sl, zl
+    say(f"[kernel] fake_quant {name} R={R} C={C} scale {tuple(s.shape)} "
+        f"{bits}b max_abs_err={err:.3e} fwd ms={fwd_ms:.4f} plain_ms="
+        f"{pfwd_ms:.4f} bound_ms={f_ms:.4f} ({f_by}); bwd(ste) ms="
+        f"{bwd_ms:.4f} plain_ms={pbwd_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}); library_ms(fwd+bwd)="
+        f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}")
+    return {"R": R, "C": C, "max_abs_err": err, "ms": fwd_ms + bwd_ms,
+            "plain_ms": pfwd_ms + pbwd_ms, "bound_ms": f_ms + b_ms,
+            "bound_by": "bytes" if "bytes" in (f_by, b_by)
+            else "operations", "library_ms": lib_ms}
+
+
+def check_fake_quant(cfg) -> dict:
+    """fake_quant at the shapes the train path gives it (qwen3-8b's four
+    layer-linear shapes with a full doubly-channelwise scale, the
+    embedding with a per-row scale, the lm_head).  Returns the
+    embedding's record, the largest K3 call of the train path."""
+    import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     d, hq, hkv, ff, V = (cfg.d_model, cfg.n_heads * cfg.head_dim,
@@ -696,74 +793,51 @@ def check_fake_quant(cfg) -> dict:
         else:
             s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * (
                 3 * R ** -0.5 / qmax)
-        gy = torch.randn((R, C), generator=g, device=dev)
-        y = fake_quant_fwd(x, s, bits)
-        torch.cuda.synchronize()
-        if not torch.equal(y, fake_quant_ref(x, s, bits)):
-            fail(f"fake_quant {name}: forward differs from the plain version")
-        err = 0.0
-        for rule in ("kernel", "ste"):
-            gx, gs = fake_quant_bwd(gy, x, s, bits, rule)
-            rx, rs = fake_quant_grad_ref(gy, x, s, bits, rule)
-            torch.cuda.synchronize()
-            if not torch.equal(gx, rx):
-                fail(f"fake_quant {name} {rule}: gx differs from the plain "
-                     f"version")
-            e = float((gs - rs).abs().max())
-            tol = 0.0 if kind == "full" else 1e-5 * float(rs.abs().max())
-            if not math.isfinite(e) or e > tol:
-                fail(f"fake_quant {name} {rule}: gs max_abs_err {e} > {tol}")
-            err = max(err, e)
-            del gx, gs, rx, rs
-        fwd_ms = time_ms(lambda: fake_quant_fwd(x, s, bits))
-        bwd_ms = time_ms(lambda: fake_quant_bwd(gy, x, s, bits, "ste"))
-        pfwd_ms = time_ms(lambda: fake_quant_ref(x, s, bits), iters=5)
-        pbwd_ms = time_ms(lambda: fake_quant_grad_ref(gy, x, s, bits, "ste"),
-                          iters=5)
-        n, ns = R * C, s.numel()
-        # forward: x read, y written, the scale read; backward: g and x
-        # read, gx written, the scale read and gs written
-        f_ms, f_by = bound(8 * n + 4 * ns, 4 * n, "f32")
-        b_ms, b_by = bound(12 * n + 8 * ns, 8 * n, "f32")
-        lib_ms = None
-        if kind == "row":             # one PyTorch call: the per-channel
-            xl = x.clone().requires_grad_()       # learnable fake-quant
-            sl = s[:, 0].clone().requires_grad_()
-            zl = torch.zeros_like(sl)
-
-            def lib():
-                out = torch._fake_quantize_learnable_per_channel_affine(
-                    xl, sl, zl, 0, -qmax, qmax, 1.0)
-                torch.autograd.grad(out, (xl, sl), gy)
-            lib_ms = time_ms(lib, iters=10)
-            del xl, sl, zl
-        say(f"[kernel] fake_quant {name} R={R} C={C} {kind} scale {bits}b "
-            f"max_abs_err={err:.3e} fwd ms={fwd_ms:.4f} plain_ms="
-            f"{pfwd_ms:.4f} bound_ms={f_ms:.4f} ({f_by}); bwd(ste) ms="
-            f"{bwd_ms:.4f} plain_ms={pbwd_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}); library_ms(fwd+bwd)="
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}")
-        if kind == "row":             # the largest K3 call of the train path
-            record = {"max_abs_err": err, "ms": fwd_ms + bwd_ms,
-                      "plain_ms": pfwd_ms + pbwd_ms, "bound_ms": f_ms + b_ms,
-                      "bound_by": "bytes" if "bytes" in (f_by, b_by)
-                      else "operations", "library_ms": lib_ms}
-        del x, s, gy, y
+        rec = _fq_row(name, x, s, bits, exact_gs=kind == "full",
+                      lib_axis=0 if kind == "row" else None)
+        if kind == "row":
+            record = rec
+        del x, s
         torch.cuda.empty_cache()
     return record
+
+
+def check_fake_quant_moe(cfg) -> dict:
+    """fake_quant at qwen2-moe-a2.7b's weights as the train path hands
+    them over: each expert stack ``[E, in, out]`` as one ``[E·in, out]``
+    view with its full scale (``S_wL[in]``, shared by the experts, times
+    ``S_wR[E, out]``), the 8-bit router and the shared experts with a full
+    scale.  Returns {view: record}."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    e = cfg.moe
+    d, E, ff, fs = cfg.d_model, e.n_experts_padded, e.d_ff_expert, \
+        e.d_ff_expert * e.n_shared
+    cases = [("gate/up stack", E, d, ff, 4), ("down stack", E, ff, d, 4),
+             ("router", 1, d, E, e.router_bits),
+             ("shared gate/up", 1, d, fs, 4), ("shared down", 1, fs, d, 4)]
+    out = {}
+    for name, n, R, C, bits in cases:
+        qmax = 2 ** (bits - 1) - 1
+        x = torch.randn((n * R, C), generator=g, device=dev) * R ** -0.5
+        s = ((torch.rand((1, R, 1), generator=g, device=dev) + 0.5)
+             * (torch.rand((n, 1, C), generator=g, device=dev) + 0.5)
+             * (3 * R ** -0.5 / qmax)).reshape(n * R, C)
+        out[name] = _fq_row(f"qwen2-moe {name}", x, s, bits, exact_gs=True)
+        del x, s
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_fake_quant_cnn(ccfg) -> dict:
     """fake_quant at the paper CNN's weight views, as models/cnn.py hands
     them over: each conv's HWIO kernel as ``[kh·kw, cin·cout]`` with one
     scale row ``[1, cin·cout]`` (S_wL ⊗ S_wR broadcast), and the fc
-    ``[64, 10]`` with its row scale; forward bit-equal, both backward
-    rules: gx bit-equal, the column-summed gs within 1e-5 x max|ref|.
+    ``[64, 10]`` with its row scale; the library's per-channel learnable
+    fake-quant on the same scale (axis 1 for a conv, 0 for the fc).
     Returns {view: record} with the time of forward + backward (ste)."""
     import torch
-    from repro_torch.kernels.fake_quant import (fake_quant_bwd,
-                                                fake_quant_fwd)
-    from repro_torch.kernels.ref import fake_quant_grad_ref, fake_quant_ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     k, views, cin = ccfg.kernel, {}, ccfg.in_ch
@@ -778,38 +852,8 @@ def check_fake_quant_cnn(ccfg) -> dict:
         shape = (1, C) if kind == "col" else (R, 1)
         s = (torch.rand(shape, generator=g, device=dev) + 0.5) * (
             3 * R ** -0.5 / qmax)
-        gy = torch.randn((R, C), generator=g, device=dev)
-        y = fake_quant_fwd(x, s, bits)
-        torch.cuda.synchronize()
-        if not torch.equal(y, fake_quant_ref(x, s, bits)):
-            fail(f"fake_quant cnn {name}: forward differs from the plain "
-                 f"version")
-        err = 0.0
-        for rule in ("kernel", "ste"):
-            gx, gs = fake_quant_bwd(gy, x, s, bits, rule)
-            rx, rs = fake_quant_grad_ref(gy, x, s, bits, rule)
-            torch.cuda.synchronize()
-            if not torch.equal(gx, rx):
-                fail(f"fake_quant cnn {name} {rule}: gx differs from the "
-                     f"plain version")
-            e = float((gs - rs).abs().max())
-            tol = 1e-5 * float(rs.abs().max())
-            if not math.isfinite(e) or e > tol:
-                fail(f"fake_quant cnn {name} {rule}: gs max_abs_err {e} > "
-                     f"{tol}")
-            err = max(err, e)
-        ms = time_ms(lambda: fake_quant_fwd(x, s, bits)) + time_ms(
-            lambda: fake_quant_bwd(gy, x, s, bits, "ste"))
-        plain_ms = time_ms(lambda: fake_quant_ref(x, s, bits)) + time_ms(
-            lambda: fake_quant_grad_ref(gy, x, s, bits, "ste"))
-        n, ns = R * C, s.numel()
-        f_ms, _ = bound(8 * n + 4 * ns, 4 * n, "f32")
-        b_ms, _ = bound(12 * n + 8 * ns, 8 * n, "f32")
-        say(f"[kernel] fake_quant cnn {name} R={R} C={C} {kind} scale "
-            f"{bits}b max_abs_err={err:.3e} fwd+bwd(ste) ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={f_ms + b_ms:.6f} (bytes)")
-        out[name] = {"R": R, "C": C, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": f_ms + b_ms}
+        out[name] = _fq_row(f"cnn {name}", x, s, bits, exact_gs=False,
+                            lib_axis=1 if kind == "col" else 0)
     return out
 
 
@@ -890,10 +934,13 @@ def _serve(engine, reqs, timing: dict) -> list[list[int]]:
     return engine.generate(reqs)
 
 
-def _profile(run, what: str, steps: int, watch: tuple = ()) -> None:
+def _profile(run, what: str, steps: int, watch: tuple = (),
+             ranges: tuple = ()) -> None:
     """Run ``run()`` (``steps`` steps of work) under torch.profiler: the
-    device's busy share of the window, the kernels by device time, and the
-    share of each ``watch`` name (kernels whose name holds it)."""
+    device's busy share of the window, the kernels by device time, the
+    share of each ``watch`` name (kernels whose name holds it) and the
+    device span of each ``ranges`` name (a ``record_function`` range: from
+    its first kernel's start to its last's end, gaps included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -904,9 +951,13 @@ def _profile(run, what: str, steps: int, watch: tuple = ()) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []                             # device-side events only
+    rows, spans = [], {}                  # device-side events only
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key in ranges:               # a range's span on the device
+            spans[e.key] = (getattr(e, "device_time_total", None)
+                            or getattr(e, "cuda_time_total", 0), e.count)
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -930,6 +981,12 @@ def _profile(run, what: str, steps: int, watch: tuple = ()) -> None:
         n = sum(r[1] for r in rows if name in r[2])
         say(f"[profile]   {name}: {100 * us / busy:.2f}% of device time, "
             f"{us / steps:.1f} us/step over {n // steps} launches/step")
+    for name in ranges:
+        us, n = spans.get(name, (0, 0))
+        say(f"[profile]   range {name}: " + (
+            f"its device span {us / steps:.1f} us/step over {n // steps} "
+            f"calls/step, {100 * us / busy:.2f}% of the kernels' device "
+            f"time" if us else "device time not measured"))
 
 
 def profile_decode(engine, cfg, steps: int = 4) -> None:
@@ -950,9 +1007,21 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
             engine.step()
     # K2's two passes, and the index kernels: the paged write of each
     # step's K/V (the pool[pt] gather of the route before the paged entry
-    # would show here too)
-    _profile(run, "decode steps, 8 live slots", steps,
-             watch=("fd_split", "fd_combine", "index", "gather"))
+    # would show here too); a MoE's expert FFN (its three batched
+    # products, silu and product) as one range
+    from repro_torch.models import moe
+    ffn = moe._expert_ffn
+
+    def ranged_ffn(*a, **k):
+        with torch.profiler.record_function("expert_ffn"):
+            return ffn(*a, **k)
+    moe._expert_ffn = ranged_ffn
+    try:
+        _profile(run, "decode steps, 8 live slots", steps,
+                 watch=("fd_split", "fd_combine", "index", "gather"),
+                 ranges=("expert_ffn",) if cfg.moe is not None else ())
+    finally:
+        moe._expert_ffn = ffn
 
 
 def main_path(cfg) -> dict:
@@ -977,8 +1046,12 @@ def main_path(cfg) -> dict:
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    ff = (f"experts {cfg.moe.n_experts} top-{cfg.moe.top_k} + "
+          f"{cfg.moe.n_shared} shared, ff {cfg.moe.d_ff_expert}, capacity "
+          f"factor {cfg.moe.capacity_factor:g}" if cfg.moe is not None
+          else f"ff={cfg.d_ff}")
     say(f"[main] {cfg.name} full width: {cfg.n_layers} layers d={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} ff={cfg.d_ff} vocab={cfg.vocab};"
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} {ff} vocab={cfg.vocab};"
         f" init+export {time.perf_counter() - t0:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; f32 masters "
         f"freed")
@@ -1067,56 +1140,125 @@ def main_path(cfg) -> dict:
         f"{ptiming['decode_s'] * 1e3 / plain.decode_steps:.3f} ms/step")
     for p, a, b in zip(prompts, toks, ptoks):
         if a != b:
-            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            margin, ulp = _plain_margin(plain, p, i, b[i])
-            say(f"[main]   first difference at token {i}: {a} vs {b}; the "
-                f"plain route's top-2 margin there {margin:.6g} = "
-                f"{margin / ulp:.2f} bf16 ulps (limit {MARGIN_ULPS})")
-            if margin > MARGIN_ULPS * ulp:
-                fail(f"main path: kernel tokens {a} != plain tokens {b} at "
-                     f"step {i}, top-2 margin {margin} > {MARGIN_ULPS} ulps")
+            where = _first_split(plain, cfg, p, a, b)
+            say(f"[main]   {a} vs {b}: the routes first split at {where} "
+                f"(limit {MARGIN_ULPS})")
     return launches
 
 
-def _plain_margin(engine, prompt: list[int], i: int, token: int
-                  ) -> tuple[float, float]:
-    """The plain route's logits for token ``i`` of ``prompt``'s greedy
-    continuation — the request served alone again through ``engine`` (a
-    request's tokens do not depend on what shares its batch), the logits
-    read where the engine draws: the prefill's for token 0, decode step
-    ``i``'s for token ``i``.  Returns (top-2 margin, one bf16 ulp of the
-    top logit)."""
-    import torch
+def _serve_recorded(engine, prompt: list[int], n: int, use_kernels: bool
+                    ) -> tuple[list[int], list]:
+    """Serve ``prompt`` alone (slot 0) through ``engine`` with the decode
+    step of the kernel or the plain route, recording in call order each
+    router call's f32 logits (``("r", ·)``; MoE only), each prefill
+    chunk's logits (``("p", ·)``) and each decode step's (``("z", ·)``)."""
+    from repro_torch.models import moe
     from repro_torch.serve.engine import Request
     from repro_torch.train import steps
-    seen = {"decode": [], "prefill": None}
-    forward, prefill = steps.forward, engine._prefill
+    events: list = []
+    router, prefill, decode = moe._router_logits, engine._prefill, \
+        engine._decode
+    forward = steps.forward
 
-    def decode_forward(*a, **k):
-        out = forward(*a, **k)
-        if "pt" in (k.get("cache") or {}):        # the paged decode step
-            seen["decode"].append(out["logits"][0, -1].float().cpu())
-        return out
+    def rec_router(*a, **k):
+        z = router(*a, **k)
+        events.append(("r", z.float().cpu()))
+        return z
 
-    def recording_prefill(*a, **k):
+    def rec_prefill(*a, **k):
         logits, cache = prefill(*a, **k)
-        seen["prefill"] = logits[0].float().cpu()
+        events.append(("p", logits.float().cpu()))
         return logits, cache
 
-    steps.forward, engine._prefill = decode_forward, recording_prefill
+    def rec_forward(*a, **k):
+        out = forward(*a, **k)
+        if "pt" in (k.get("cache") or {}):        # the paged decode step
+            events.append(("z", out["logits"][:, -1].float().cpu()))
+        return out
+
+    moe._router_logits, engine._prefill, steps.forward = \
+        rec_router, rec_prefill, rec_forward
+    engine._decode = steps.make_slot_decode_step(engine.cfg, None,
+                                                 use_kernels=use_kernels)
     try:
         engine.reset()
-        got = engine.generate([Request(prompt=prompt, max_new_tokens=i + 1)])
+        toks = engine.generate([Request(prompt=prompt, max_new_tokens=n)])[0]
     finally:
-        steps.forward, engine._prefill = forward, prefill
-    z = seen["prefill"] if i == 0 else seen["decode"][i - 1]
-    if got[0][i] != token or int(torch.argmax(z)) != token:
-        fail(f"main path: the plain route served alone gave token "
-             f"{got[0][i]} (argmax {int(torch.argmax(z))}) at step {i}, "
-             f"not {token}")
-    top = torch.topk(z, 2).values
-    ulp = 2.0 ** (math.floor(math.log2(abs(float(top[0])))) - 7)
-    return float(top[0] - top[1]), ulp
+        moe._router_logits, engine._prefill, steps.forward = \
+            router, prefill, forward
+        engine._decode = decode
+    return toks, events
+
+
+def _ulp(z: float) -> float:
+    """One bf16 ulp at ``z``."""
+    return 2.0 ** (math.floor(math.log2(max(abs(z), 1e-30))) - 7)
+
+
+def _first_split(engine, cfg, prompt: list[int], kernel_toks: list[int],
+                 plain_toks: list[int]) -> str:
+    """Where a request's kernel-route and plain-route tokens differ: serve
+    it alone through both decode routes (recording every router call and
+    every emitted token's logits), walk the two runs' decisions in call
+    order — each real token's top-k experts in every layer (MoE), then
+    each emitted token — and fail unless, at the first decision that
+    differs, the plain route's own margin is within MARGIN_ULPS bf16 ulps
+    of the row's largest logit in magnitude (the top logit, for a token):
+    the k-th minus the (k+1)-th router logit, or the top-2 logit margin.
+    Returns a description of that decision."""
+    import torch
+    n = len(kernel_toks)
+    got = {}
+    for use in (True, False):
+        got[use] = _serve_recorded(engine, prompt, n, use)
+        want = kernel_toks if use else plain_toks
+        if got[use][0] != want:
+            fail(f"{cfg.name}: the {'kernel' if use else 'plain'} route "
+                 f"served alone gave {got[use][0]}, in the batch {want}")
+    if [k for k, _ in got[False][1]] != [k for k, _ in got[True][1]]:
+        fail(f"{cfg.name}: the two routes made different calls")
+    K = cfg.moe.top_k if cfg.moe is not None else 0
+    chunk = engine.scfg.prefill_chunk
+    lens = [min(chunk, len(prompt) - o)
+            for o in range(0, len(prompt), chunk)]
+    f, tok = 0, 0                   # forward calls ended, tokens emitted
+    for (kind, a), (_, b) in zip(got[False][1], got[True][1]):
+        prefill = f < len(lens)
+        if kind == "r":
+            for r in range(lens[f] if prefill else 1):
+                pa = torch.argsort(-a[r], stable=True)[:K].tolist()
+                pb = torch.argsort(-b[r], stable=True)[:K].tolist()
+                if set(pa) == set(pb):
+                    continue
+                za = torch.sort(a[r], descending=True).values
+                gap = float(za[K - 1] - za[K])
+                ulp = _ulp(float(a[r].abs().max()))
+                at = (f"prefill chunk {f}" if prefill
+                      else f"decode step {f - len(lens)}")
+                where = (f"routing, {at} row {r}: plain experts "
+                         f"{sorted(pa)}, kernel {sorted(pb)}; the plain "
+                         f"k-th/(k+1)-th logit gap {gap:.6g} = "
+                         f"{gap / ulp:.2f} bf16 ulps")
+                if gap > MARGIN_ULPS * ulp:
+                    fail(f"{cfg.name}: the routes split at {where} (limit "
+                         f"{MARGIN_ULPS})")
+                return where
+            continue
+        f += 1
+        if kind == "p" and f < len(lens):
+            continue                  # an inner chunk: nothing emitted
+        if int(torch.argmax(a[0])) != int(torch.argmax(b[0])):
+            top = torch.topk(a[0], 2).values
+            margin, ulp = float(top[0] - top[1]), _ulp(float(top[0]))
+            where = (f"token {tok}: the plain top-2 margin {margin:.6g} = "
+                     f"{margin / ulp:.2f} bf16 ulps")
+            if margin > MARGIN_ULPS * ulp:
+                fail(f"{cfg.name}: the routes split at {where} (limit "
+                     f"{MARGIN_ULPS})")
+            return where
+        tok += 1
+    fail(f"{cfg.name}: kernel tokens {kernel_toks} != plain tokens "
+         f"{plain_toks}, but the requests served alone split nowhere")
 
 
 # ---------------------------------------------------------------------------
@@ -1170,15 +1312,53 @@ def _gib() -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def train_path(cfg) -> dict:
-    """QFT at full width, 4 layers: prepare, 6 steps, the plain-route
-    comparison, export and serve.  Returns the kernels' launch counts."""
+@contextlib.contextmanager
+def _routing(record: list | None = None, replay: list | None = None):
+    """Within the block, every MoE routing call (``models.moe.top_k``)
+    appends its expert indices to ``record``, or, with ``replay``, takes
+    the next recorded indices instead of choosing (the gates then come
+    from this run's probabilities at those experts)."""
+    from repro_torch.models import moe
+    top_k = moe.top_k
+    pinned = None if replay is None else iter(replay)
+
+    def routed(probs, k):
+        if pinned is not None:
+            i = next(pinned)
+            v = probs.gather(-1, i)
+        else:
+            v, i = top_k(probs, k)
+        if record is not None:
+            record.append(i)
+        return v, i
+    moe.top_k = routed
+    try:
+        yield
+    finally:
+        moe.top_k = top_k
+
+
+def _linears_per_layer(cfg) -> int:
+    """Quantized weights a layer's forward fake-quantizes: wq, wk, wv, wo
+    and the MLP's three (dense), or the router, the three expert stacks
+    (one K3 launch each) and the three shared experts' (MoE)."""
+    if cfg.moe is None:
+        return 7
+    return 4 + 1 + 3 + (3 if cfg.moe.n_shared else 0)
+
+
+def train_path(cfg, layers: int = TRAIN_LAYERS,
+               steps: int = TRAIN_STEPS) -> dict:
+    """QFT at full width, ``layers`` deep: prepare, ``steps`` steps, export
+    and serve, the plain-route comparison.  Returns the kernels' launch
+    counts."""
     import torch
     from repro_torch.core import dof
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.calib import CalibConfig, CalibDataset
     from repro_torch.models import forward, init_model
     from repro_torch.models.transformer import layer_slice
+    from repro_torch.pipeline.adapters import resolve_quant_plan
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
                                           make_deploy_plan)
@@ -1186,7 +1366,8 @@ def train_path(cfg) -> dict:
     from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
     from repro_torch.train.steps import make_value_and_grad
     from repro_torch.tree import tree_items
-    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    full_depth = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
     L = cfg.n_layers
     qcfg = QuantConfig()
     torch.cuda.empty_cache()
@@ -1197,9 +1378,13 @@ def train_path(cfg) -> dict:
     n_params = sum(t.numel() for _, t in tree_items(teacher))
     data = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
     calib = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
+    # the plan resolved once from the student's shapes: the trainer's grid
+    # and the export's (at 2 layers qwen2-moe's 1 % rule keeps attn.wk at
+    # 8 bits)
+    qplan = resolve_quant_plan(cfg, qcfg)
     trainer = QFTTrainer(cfg, qcfg, teacher, QFTConfig(),
                          steps_per_epoch=data.steps_per_epoch,
-                         microbatches=TRAIN_MICROBATCHES)
+                         microbatches=TRAIN_MICROBATCHES, plan=qplan)
 
     # --- the path, with every kernel count at 0 just before it
     _zero_counts()
@@ -1207,7 +1392,8 @@ def train_path(cfg) -> dict:
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
     peak_prep = _gib()
-    say(f"[train] {cfg.name} full width, {L} of 36 layers ({n_params / 1e9:.3f}"
+    say(f"[train] {cfg.name} full width, {L} of {full_depth} layers "
+        f"({n_params / 1e9:.3f}"
         f" B parameters): teacher + prepare_student (calibration on 2 "
         f"batches, APQ/MMSE init) {t_prep:.1f} s, peak {peak_prep:.2f} GiB")
     if _counts()["fake_quant_fwd"]:
@@ -1218,35 +1404,37 @@ def train_path(cfg) -> dict:
              f"{2 * L}")
     _teacher_on_tensor_cores(_counts(), "calibration")
     torch.cuda.reset_peak_memory_stats()
-    student, hist = trainer.run(student, data, steps=TRAIN_STEPS, log_every=1)
+    student, hist = trainer.run(student, data, steps=steps, log_every=1)
     torch.cuda.synchronize()
     peak_run = _gib()
     losses = [h["loss"] for h in hist]
     ts = [h["t"] for h in hist]
     step_ms = [1e3 * (b - a) for a, b in zip([0.0] + ts[:-1], ts)]
-    per_fwd = 1 + 7 * L           # embed + 7 linears a layer; no lm_head
-    want = TRAIN_STEPS * TRAIN_MICROBATCHES * per_fwd
+    n_lin = _linears_per_layer(cfg)
+    per_fwd = 1 + n_lin * L       # embed + the layers' linears; no lm_head
+    want = steps * TRAIN_MICROBATCHES * per_fwd
     run_counts = _counts()
-    say(f"[train] {TRAIN_STEPS} steps, batch {TRAIN_DATA['batch_size']} x "
+    say(f"[train] {steps} steps, batch {TRAIN_DATA['batch_size']} x "
         f"{TRAIN_DATA['seq_len']} in {TRAIN_MICROBATCHES} microbatches: "
         f"loss {', '.join(f'{x:.6f}' for x in losses)}; ms/step "
-        f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{TRAIN_STEPS} "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{steps} "
         f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
         f"{peak_run:.2f} GiB")
-    fa_want = TRAIN_STEPS * TRAIN_MICROBATCHES * L
+    fa_want = steps * TRAIN_MICROBATCHES * L
     say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
-        f"backward {run_counts['fake_quant_bwd']} (= {TRAIN_STEPS} steps x "
-        f"{TRAIN_MICROBATCHES} microbatches x (1 embed + 7 x {L} linears); "
+        f"backward {run_counts['fake_quant_bwd']} (= {steps} steps x "
+        f"{TRAIN_MICROBATCHES} microbatches x (1 embed + {n_lin} x {L} "
+        f"linears); "
         f"lm_head is not run: the backbone-L2 loss never reads it); "
         f"flash_attention (the teacher) {prep_fa} in calibration + "
         f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
-        f"{TRAIN_STEPS} x {TRAIN_MICROBATCHES} x {L} layers)")
+        f"{steps} x {TRAIN_MICROBATCHES} x {L} layers)")
     if run_counts["flash_attention"] - prep_fa != fa_want:
         fail(f"the steps launched flash_attention "
              f"{run_counts['flash_attention'] - prep_fa} times, want "
              f"{fa_want}")
     _teacher_on_tensor_cores(run_counts, "the train steps")
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}")
     if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
             want, want):
@@ -1256,23 +1444,26 @@ def train_path(cfg) -> dict:
     # --- export the trained student and serve it
     plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
                             params=student, model_cfg=cfg)
-    exempt = sorted(plan.quant_plan.exempt_names)
-    if exempt:                    # trained on the role ladder's grid
-        fail(f"the export plan exempts {exempt}: not the trained grid")
+    if dict(plan.quant_plan) != dict(qplan):
+        fail("the export plan, resolved from the trained student, is not "
+             "the plan it trained on")
     with torch.no_grad():
         exported = export_for_layers(student, plan, device=DEVICE)
         lp0 = layer_slice(student["layers"], 0)
-        w_eff = dof.effective_weight(lp0["attn"]["wq"], qcfg,
-                                     lp0["attn"]["in_stream"]["log_sa"],
-                                     compute_dtype=torch.float32)
-        w_dq = dof.dequantize_export(
-            layer_slice(exported["layers"]["attn"]["wq"], 0), torch.float32)
-        parity = float((w_eff - w_dq).abs().max())
-        w_max = float(w_eff.abs().max())
-    del w_eff, w_dq
-    if parity > 1e-6 * w_max:
-        fail(f"export parity: layer 0 wq dequantized export vs the trained "
-             f"effective weight, max err {parity}")
+        # layer 0's wq, and a MoE's up expert stack (its s_wl shared by
+        # the experts)
+        for mod, lin in (("attn", "wq"),) + (
+                (("mlp", "up"),) if cfg.moe is not None else ()):
+            w_eff = dof.effective_weight(lp0[mod][lin], qcfg,
+                                         lp0[mod]["in_stream"]["log_sa"],
+                                         compute_dtype=torch.float32)
+            w_dq = dof.dequantize_export(
+                layer_slice(exported["layers"][mod][lin], 0), torch.float32)
+            parity = float((w_eff - w_dq).abs().max())
+            if parity > 1e-6 * float(w_eff.abs().max()):
+                fail(f"export parity: layer 0 {lin} dequantized export vs "
+                     f"the trained effective weight, max err {parity}")
+            del w_eff, w_dq
     check = kernel_route_check(exported, plan)
     scfg = ServeConfig(max_slots=2, max_len=256, prefill_chunk=128)
     rng = torch.Generator().manual_seed(8)
@@ -1293,7 +1484,7 @@ def train_path(cfg) -> dict:
             or engine.decode_steps == 0:
         fail(f"decode_attention launched {counts['decode_attention']} times "
              f"over {engine.decode_steps} decode steps of {L} layers")
-    say(f"[train] export parity (layer 0 wq) {parity:.3e}; "
+    say(f"[train] export parity (layer 0 {lin}) {parity:.3e}; "
         f"kernel_route_check {check['path']}: quant_matmul ran, max_err "
         f"{check['max_err']:.3e}; served {len(reqs)} greedy requests from "
         f"the trained artifact: {toks}; launches quant_matmul="
@@ -1308,12 +1499,21 @@ def train_path(cfg) -> dict:
     # compared route against route first; then both student routes take
     # the kernel route's targets, so their gap is fake_quant's alone.
     batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in next(data).items()}
-    hidden = {}
+    # a MoE teacher: the plain route's forward takes the kernel route's
+    # expert choices (the same bf16 logit ties split the routes otherwise,
+    # and one flipped expert moves a token's hidden state far more than
+    # the attention's rounding does); the unpinned forward is reported
+    hidden, routes = {}, {}
+    runs = ((True, None), (False, True)) + (
+        ((False, None),) if cfg.moe is not None else ())
     with torch.no_grad():
-        for use in (True, False):
+        for use, pin in runs:
             before = _counts()
-            hidden[use] = forward(teacher, cfg, None, batch, use_kernels=use,
-                                  logits=False)
+            routes[use, pin] = []
+            with _routing(record=routes[use, pin],
+                          replay=routes[True, None] if pin else None):
+                hidden[use, pin] = forward(teacher, cfg, None, batch,
+                                           use_kernels=use, logits=False)
             now = _counts()
             delta = {k: now[k] - before[k] for k in now}
             if delta["flash_attention"] != (L if use else 0):
@@ -1321,19 +1521,32 @@ def train_path(cfg) -> dict:
                      f"flash_attention {delta['flash_attention']} times over "
                      f"{L} layers")
             _teacher_on_tensor_cores(delta, "the teacher forward")
-    hk, hp = hidden[True]["hidden"].float(), hidden[False]["hidden"].float()
-    hid_rel = float((hk - hp).norm() / hp.norm())
-    del hk, hp
+
+    def rel(a, b):
+        a, b = a["hidden"].float(), b["hidden"].float()
+        return float((a - b).norm() / b.norm())
+    hid_rel = rel(hidden[True, None], hidden[False, True])
+    pinned = ""
+    if cfg.moe is not None:
+        flips = sum(int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                        .any(-1).sum())
+                    for a, b in zip(routes[True, None], routes[False, None]))
+        n_dec = sum(a.shape[0] for a in routes[True, None])
+        pinned = (f"; the plain route on the kernel route's expert choices "
+                  f"— unpinned: rel L2 "
+                  f"{rel(hidden[True, None], hidden[False, None]):.3e}, "
+                  f"{flips} of {n_dec} token-layer expert sets differ")
     say(f"[train] teacher hidden states, flash_attention vs the plain route "
         f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
         f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
         f"{TEACHER_HIDDEN_BOUND:.0e}; both round P to bf16 before P.V, the "
-        f"kernel unnormalised, the plain route normalised)")
+        f"kernel unnormalised, the plain route normalised){pinned}")
     if not hid_rel <= TEACHER_HIDDEN_BOUND:
         fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
-    targets = hidden[True]
+    targets = hidden[True, None]
     del hidden
-    vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES)
+    vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
+                             plan=qplan)
     _profile(lambda: vg(student, teacher, batch), "train-step forward+"
              "backward (kernel route, teacher included, 4 microbatches, no "
              "optimizer)", 1, watch=("fa_wgmma_kernel", "fq_"))
@@ -1341,7 +1554,7 @@ def train_path(cfg) -> dict:
     for use in (True, False):
         before = _counts()
         vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
-                                 use_kernels=use)
+                                 plan=qplan, use_kernels=use)
         grads[use] = vg(student, teacher, batch, targets=targets)
         torch.cuda.synchronize()
         if not use and _counts() != before:
@@ -1359,7 +1572,7 @@ def train_path(cfg) -> dict:
         rel = float((gr - ref).norm()) / max(float(ref.norm()), 1e-30)
         if rel > worst:
             worst, worst_at = rel, ".".join(path)
-    say(f"[train] step {TRAIN_STEPS + 1}, kernel vs plain route: loss "
+    say(f"[train] step {steps + 1}, kernel vs plain route: loss "
         f"{float(lk):.8f} vs {float(lp):.8f} (rel {loss_rel:.2e}); "
         f"gradients: worst leaf {worst_at} rel L2 {worst:.2e}; phase "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1703,9 +1916,12 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
     from repro_torch.configs.qwen3_8b import CONFIG
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.kv_cache import resolve_kv_spec
+    MOE = dataclasses.replace(QWEN2_MOE, moe=dataclasses.replace(
+        QWEN2_MOE.moe, capacity_factor=MOE_CAPACITY_FACTOR))
     t_start = time.perf_counter()
     probe()
     build()
@@ -1714,9 +1930,14 @@ def main() -> int:
     fd_phi4 = check_decode_attention(
         resolve_kv_spec(PHI4, ServeConfig(**MAIN_SERVE)),
         G=PHI4.n_heads // PHI4.n_kv_heads, tag=" phi4-mini")
+    fd_moe = check_decode_attention(
+        resolve_kv_spec(MOE, ServeConfig(**MAIN_SERVE)),
+        G=MOE.n_heads // MOE.n_kv_heads, tag=" qwen2-moe",
+        Hkv=MOE.n_kv_heads)
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
+    fq_moe = check_fake_quant_moe(MOE)
     fa = check_flash_attention(CONFIG)
     check_reference()
     launches = main_path(CONFIG)
@@ -1726,6 +1947,14 @@ def main() -> int:
     t9 = time.perf_counter()
     phi4 = main_path(PHI4)
     say(f"[main] phase 9 ({PHI4.name}) {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    moe = main_path(MOE)
+    say(f"[main] phase 10 ({MOE.name}) {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    moe_train = train_path(MOE, layers=MOE_TRAIN_LAYERS,
+                           steps=MOE_TRAIN_STEPS)
+    say(f"[main] phase 11 ({MOE.name} QFT) "
+        f"{time.perf_counter() - t11:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -1734,13 +1963,17 @@ def main() -> int:
          "launches_paged": launches["decode_attention_paged"], **fd,
          "phi4_mini": dict(fd_phi4,
                            launches=phi4["decode_attention"],
-                           launches_paged=phi4["decode_attention_paged"])},
+                           launches_paged=phi4["decode_attention_paged"]),
+         "qwen2_moe": dict(fd_moe,
+                           launches=moe["decode_attention"],
+                           launches_paged=moe["decode_attention_paged"])},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
          "launches": launches["quant_matmul"],
          **launches["quant_matmul_bodies"], **qmm,
-         "launches_phi4_mini": phi4["quant_matmul"]},
+         "launches_phi4_mini": phi4["quant_matmul"],
+         "launches_qwen2_moe": moe["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
@@ -1749,13 +1982,17 @@ def main() -> int:
          "launches_bwd": train["fake_quant_bwd"], **fq,
          "paper_cnn": {"launches_fwd": cnn["fake_quant_fwd"],
                        "launches_bwd": cnn["fake_quant_bwd"],
-                       "views": fq_cnn}},
+                       "views": fq_cnn},
+         "qwen2_moe": {"launches_fwd": moe_train["fake_quant_fwd"],
+                       "launches_bwd": moe_train["fake_quant_bwd"],
+                       "views": fq_moe}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",
          "launches": pipeline["flash_attention"],
          "launches_wgmma": pipeline["flash_attention_wgmma"],
-         "launches_fma": pipeline["flash_attention_fma"], **fa},
+         "launches_fma": pipeline["flash_attention_fma"], **fa,
+         "launches_qwen2_moe": moe_train["flash_attention"]},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

@@ -1,10 +1,11 @@
 """Name → model configuration, for the architectures the port runs: the
-dense GQA transformers and the paper's CNN."""
+dense GQA transformers, the MoE family and the paper's CNN."""
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-32b": "qwen3_32b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen3-8b": "qwen3_8b",

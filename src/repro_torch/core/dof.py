@@ -124,8 +124,9 @@ def weight_fake_quant(w: torch.Tensor, s: torch.Tensor, bits: int,
                       use_kernels: bool = False) -> torch.Tensor:
     """Signed fake-quant of a weight: a CUDA weight with ``use_kernels``
     goes through the ``fake_quant`` kernel under the ``"ste"`` rule (the
-    gradient of the plain composition), a stacked ``[..., in, out]`` one
-    slice by slice along its leading axes; anything else through the plain
+    gradient of the plain composition) — a stacked ``[..., in, out]`` one
+    in one launch, as the ``[prod(...)·in, out]`` view with its scale
+    broadcast to the weight's shape; anything else through the plain
     composition.  The forward is the same bits either way."""
     if not (use_kernels and w.is_cuda):
         return fake_quant(w, s, bits, signed=True)
@@ -133,11 +134,11 @@ def weight_fake_quant(w: torch.Tensor, s: torch.Tensor, bits: int,
         return fake_quant_kernel(w, s, bits, rule="ste")
     if w.ndim < 2:
         raise ValueError(f"a weight has at least 2 dims, got {tuple(w.shape)}")
-    if s.ndim < w.ndim:
-        s = s.reshape((1,) * (w.ndim - s.ndim) + tuple(s.shape))
-    return torch.stack([
-        weight_fake_quant(w[i], s[i if s.shape[0] > 1 else 0], bits, True)
-        for i in range(w.shape[0])])
+    C = w.shape[-1]
+    y = fake_quant_kernel(w.reshape(-1, C),
+                          torch.broadcast_to(s, w.shape).reshape(-1, C),
+                          bits, rule="ste")
+    return y.reshape(w.shape)
 
 
 def effective_weight(p: Params, cfg: QuantConfig | None,

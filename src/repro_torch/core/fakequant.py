@@ -37,8 +37,10 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int,
     q = ste_round(x / scale)
     if zero_point is not None:
         q = q + zero_point
-    lo_t = torch.tensor(lo, dtype=q.dtype, device=q.device)
-    hi_t = torch.tensor(hi, dtype=q.dtype, device=q.device)
+    # filled on the device: a tensor made from a host value is a copy the
+    # host waits for
+    lo_t = torch.full((), lo, dtype=q.dtype, device=q.device)
+    hi_t = torch.full((), hi, dtype=q.dtype, device=q.device)
     return torch.minimum(torch.maximum(q, lo_t), hi_t)
 
 

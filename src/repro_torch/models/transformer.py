@@ -1,9 +1,9 @@
-"""Quantization-aware dense transformer: init, caches and the forward.
+"""Quantization-aware transformer: init, caches and the forward.
 
 Teacher (``qcfg=None``) and student run the same code.  Layer parameters
 stay stacked on a leading axis, as the JAX package's ``vmap``-stacked trees
 are, so converted trees and exports line up; the ``lax.scan`` over layers is
-a loop over that axis.  Only the dense GQA family is ported.
+a loop over that axis.  The dense GQA and MoE families are ported.
 """
 from __future__ import annotations
 
@@ -20,16 +20,29 @@ from .attention import attention, init_attention, init_kv_cache
 from .config import ModelConfig
 from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, tap)
+from .moe import init_moe, moe_block
 
 Params = dict[str, Any]
 
+#: the families this module runs
+FAMILIES = ("dense", "moe")
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.mlp != "swiglu"
-            or cfg.mrope_sections or cfg.moe or cfg.mla or cfg.ssm):
+_RUNTIME: dict[str, Any] = {}
+
+
+def set_runtime(**kw) -> None:
+    """Process-level runtime knobs: ``moe_mode`` (``"sorted"``, the
+    default, or ``"dense"``, the oracle)."""
+    _RUNTIME.update(kw)
+
+
+def _require_family(cfg: ModelConfig) -> None:
+    if (cfg.family not in FAMILIES or cfg.mlp != "swiglu"
+            or cfg.mrope_sections or cfg.mla or cfg.ssm
+            or (cfg.moe is None) != (cfg.family == "dense")):
         raise NotImplementedError(
-            f"repro_torch ports the dense GQA family (SwiGLU, RoPE); "
-            f"{cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense GQA and MoE families (SwiGLU, "
+            f"RoPE); {cfg.name!r} is family {cfg.family!r}")
 
 
 def _sorted(tree):
@@ -43,8 +56,10 @@ def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
     layers = {"norm1": init_rmsnorm(cfg.d_model, lead, gen.device),
               "norm2": init_rmsnorm(cfg.d_model, lead, gen.device),
               "attn": init_attention(gen, cfg, qcfg, lead=lead),
-              "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, qcfg, bias=False,
-                              lead=lead)}
+              "mlp": (init_moe(gen, cfg, qcfg, lead=lead)
+                      if cfg.moe is not None
+                      else init_mlp(gen, cfg.d_model, cfg.d_ff, qcfg,
+                                    bias=False, lead=lead))}
     # the JAX package's vmap-stacked layer tree comes back with sorted keys;
     # keeping that order keeps plan JSON and artifact walk order identical
     return _sorted(layers)
@@ -62,7 +77,7 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
     the card; ``"meta"`` → a skeleton of shapes, nothing allocated, the
     seed unused).  Key order follows the JAX package, so the resolved
     plan's JSON is the same for a converted tree and for one built here."""
-    _require_dense(cfg)
+    _require_family(cfg)
     dev = resolve_device(device)
     if dev.type == "meta":
         gen = _ShapeOnly()
@@ -126,8 +141,13 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     x = x + a
     h = rmsnorm(x, lp["norm2"])
     tap(taps, prefix + ".mlp_in", h)
-    m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
-            prefix=prefix + ".mlp", use_kernels=use_kernels)
+    if cfg.moe is not None:           # taps no mlp.act, as the JAX package
+        m = moe_block(h, lp["mlp"], cfg, qcfg,
+                      mode=_RUNTIME.get("moe_mode", "sorted"),
+                      plan=pv.child("mlp"), use_kernels=use_kernels)
+    else:
+        m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
+                prefix=prefix + ".mlp", use_kernels=use_kernels)
     tap(taps, prefix + ".mlp_out", m)
     return x + m
 
@@ -153,7 +173,7 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops
     it from a step whose loss reads only the hidden states.
     """
-    _require_dense(cfg)
+    _require_family(cfg)
     pv = plan_view(plan)
     taps: dict | None = {} if collect_taps else None
     tokens = batch["tokens"]

@@ -2,7 +2,7 @@
 
 The orchestrator (pipeline/runner.py) is family-agnostic; an adapter maps the
 five pipeline stages onto the family's machinery — QFTTrainer and
-serve/deploy for the dense transformer family, the conv-specific
+serve/deploy for the transformer families (dense and MoE), the conv-specific
 calibration/export path for the paper CNN.
 """
 from __future__ import annotations
@@ -98,12 +98,12 @@ def _parity_parts(student: Params, artifact: Params
 
 
 # ---------------------------------------------------------------------------
-# Dense transformer family
+# Transformer families (dense, MoE)
 # ---------------------------------------------------------------------------
 
 class TransformerAdapter:
-    """The dense transformer family, via QFTTrainer's stage functions, on
-    ``pcfg.device``."""
+    """The dense and MoE transformer families, via QFTTrainer's stage
+    functions, on ``pcfg.device``."""
 
     def __init__(self, pcfg: PipelineConfig, model_cfg, qcfg: QuantConfig):
         if pcfg.smoke:

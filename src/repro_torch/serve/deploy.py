@@ -262,12 +262,15 @@ def export_for_layers(params: Params, plan_or_qcfg, device=None) -> Params:
     return out
 
 
-def _dequant(ex: Params, dtype) -> torch.Tensor:
-    """dequantize_export, one stacked slice at a time."""
+def _dequant(ex: Params, dtype, stacked: bool) -> torch.Tensor:
+    """dequantize_export, one layer at a time when ``stacked`` (the layer
+    axis only: an expert stack's ``s_wl`` is shared by its experts and
+    broadcasts over them in ``dequantize_export``)."""
     packed = ex["q"].dtype == torch.uint8
-    if ex["q"].ndim == 2:
+    if not stacked:
         return dof.dequantize_export(ex, dtype, packed=packed)
-    return torch.stack([_dequant(layer_slice(ex, i), dtype)
+    return torch.stack([dof.dequantize_export(layer_slice(ex, i), dtype,
+                                              packed=packed)
                         for i in range(ex["q"].shape[0])])
 
 
@@ -277,21 +280,22 @@ def deploy_view(exported: Params, plan_or_qcfg,
     with ``qcfg=None`` in forward), on the artifact's device."""
     _as_plan(plan_or_qcfg, artifact=exported)
 
-    def walk(tree):
+    def walk(tree, stacked: bool):
         if isinstance(tree, dict):
             if "q" in tree and "s" in tree:          # embedding
                 return {"w": tree["q"].to(torch.float32) * tree["s"]}
             if "q" in tree and "s_wr" in tree:
-                out: Params = {"w": _dequant(tree, dtype)}
+                out: Params = {"w": _dequant(tree, dtype, stacked)}
                 if "b" in tree:
                     out["b"] = tree["b"]
                 return out
-            return {k: walk(v) for k, v in tree.items() if k != PLAN_KEY}
+            return {k: walk(v, stacked or k in _STACKED)
+                    for k, v in tree.items() if k != PLAN_KEY}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v) for v in tree)
+            return type(tree)(walk(v, stacked) for v in tree)
         return tree
 
-    return walk(exported)
+    return walk(exported, False)
 
 
 def _effective_node(path: tuple, node: Params, parent: Params,

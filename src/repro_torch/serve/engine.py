@@ -42,11 +42,14 @@ from ..device import resolve_device
 from ..models import init_cache
 from ..models.attention import decode_route
 from ..models.config import ModelConfig
+from ..models.moe import capacity
+from ..models.transformer import FAMILIES
 from ..train.steps import make_bucketed_prefill_step, make_slot_decode_step
 from .deploy import (DeployPlan, deploy_view, export_for_layers,
                      init_slot_cache, init_slot_state, make_deploy_plan,
                      plan_from_artifact, to_device)
-from .kv_cache import KVSpec, PageAllocator, bucket_for, resolve_kv_spec
+from .kv_cache import (BUCKETED_PREFILL_FAMILIES, KVSpec, PageAllocator,
+                       bucket_for, resolve_kv_spec)
 
 
 @dataclasses.dataclass
@@ -277,10 +280,10 @@ class Engine:
 
     def _setup(self, cfg: ModelConfig, plan: DeployPlan, exported,
                scfg: ServeConfig | None, dev: torch.device) -> None:
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves the dense family, not "
-                f"{cfg.family!r}")
+                f"the port's engine serves the {' and '.join(FAMILIES)} "
+                f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.device = dev
         self.scfg = scfg if scfg is not None else ServeConfig()
@@ -289,12 +292,31 @@ class Engine:
                              f"prefill_chunk >= 1, got {self.scfg}")
         self.plan = plan
         self.qcfg = plan.qcfg
+        # MoE capacity: the slot-decode step routes max_slots tokens at
+        # once, and a worst-case batch sends them all to one expert.  A
+        # capacity below that silently drops tokens — outputs that are
+        # wrong and vary with batch composition — so refuse to build.
+        moe = cfg.moe
+        if moe is not None:
+            T = self.scfg.max_slots
+            cap = capacity(cfg, T)
+            if cap < T:
+                min_cf = moe.n_experts / max(moe.top_k, 1)
+                raise ValueError(
+                    f"MoE capacity_factor={moe.capacity_factor} cannot hold "
+                    f"a worst-case decode batch: all max_slots={T} tokens "
+                    f"may route to one expert, but per-expert capacity is "
+                    f"int({T}*top_k/n_experts*cf)={cap} < {T}, so tokens "
+                    f"would be silently dropped (wrong outputs that depend "
+                    f"on batch composition). Use capacity_factor >= "
+                    f"{min_cf:g} (= n_experts/top_k) or fewer slots.")
         self._kv: KVSpec | None = resolve_kv_spec(
             cfg, self.scfg, getattr(plan.qcfg, "kv_bits", 8))
         self._mmse_iters = getattr(plan.qcfg, "mmse_iters", 10)
         with torch.no_grad():
             self.params = deploy_view(exported, plan)
         self.exported = exported
+        self._bucketed = cfg.family in BUCKETED_PREFILL_FAMILIES
         self._prefill = make_bucketed_prefill_step(cfg, None)
         self._decode = make_slot_decode_step(cfg, None,
                                              use_kernels=plan.use_kernels)
@@ -477,7 +499,8 @@ class Engine:
             chunk = list(req.prompt[off: off + scfg.prefill_chunk])
             # pad to the fixed bucket menu: prefill shapes are bounded by
             # the menu, not by prompt lengths
-            b = bucket_for(len(chunk), scfg.prefill_chunk)
+            b = (bucket_for(len(chunk), scfg.prefill_chunk)
+                 if self._bucketed else len(chunk))
             toks = torch.tensor([chunk + [0] * (b - len(chunk))],
                                 dtype=torch.int64, device=self.device)
             logits, st["cache"] = self._prefill(

@@ -36,6 +36,10 @@ import torch
 from ..core.fakequant import quantize
 from ..core.plan import KV_CACHE_FAMILIES as PAGED_KV_FAMILIES
 
+#: families whose prefill takes right-padded chunks (causal attention keeps
+#: pad keys away from real queries); the others prefill exact-length chunks
+BUCKETED_PREFILL_FAMILIES = ("dense", "moe", "vlm", "mla_moe")
+
 @dataclasses.dataclass(frozen=True)
 class KVSpec:
     """Resolved paged-KV geometry for one engine instance."""

@@ -83,7 +83,7 @@ def test_qwen3_8b_config_values(which):
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert get_config("qwen3-8b", smoke=which == "SMOKE") == t
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("qwen2-moe-a2.7b")
+        get_config("deepseek-v2-236b")
 
 
 @pytest.mark.parametrize("spec", ["layerwise", "channel", "group:64"])

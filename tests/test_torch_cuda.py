@@ -723,9 +723,10 @@ def test_training_step_routes_match_for_the_pipeline_mode(cuda):
 @pytest.mark.parametrize("scale", ["full", "col", "shared"])
 def test_stacked_weight_fake_quant_goes_through_kernel(cuda, scale):
     """A stacked ``[E, in, out]`` weight with ``use_kernels`` runs through
-    the kernel slice by slice (one forward and one backward launch per
-    slice), never through the plain composition: forward bit-equal to it,
-    gradients within 1e-5 x max|ref| of its autograd gradients."""
+    the kernel in one forward and one backward launch (the ``[E·in, out]``
+    view, its scale broadcast to the weight's shape), never through the
+    plain composition: forward bit-equal to it, gradients within 1e-5 x
+    max|ref| of its autograd gradients."""
     from repro_torch.core.dof import weight_fake_quant
     from repro_torch.core.fakequant import fake_quant
     E, R, C, bits = 3, 64, 96, 4
@@ -743,8 +744,8 @@ def test_stacked_weight_fake_quant_goes_through_kernel(cuda, scale):
              else fake_quant(wt, st, bits, signed=True))
         y.backward(g)
         torch.cuda.synchronize()
-        assert fake_quant_kernel.launches_fwd - fwd == (E if use else 0)
-        assert fake_quant_kernel.launches_bwd - bwd == (E if use else 0)
+        assert fake_quant_kernel.launches_fwd - fwd == (1 if use else 0)
+        assert fake_quant_kernel.launches_bwd - bwd == (1 if use else 0)
         grads[use] = (y.detach(), wt.grad, st.grad)
     (yk, gwk, gsk), (yp, gwp, gsp) = grads[True], grads[False]
     assert torch.equal(yk, yp)
@@ -792,3 +793,134 @@ def test_pipeline_plain_route_launches_no_kernel(cuda):
     assert counts() == before
     ev = result.metrics["evaluate"]
     assert "kernel_route" not in ev and ev["export_parity_max_err"] < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (qwen2-moe-a2.7b): K3 on the expert stacks, K2 at a GQA
+# group of 1, the sort-based dispatch on the card
+# ---------------------------------------------------------------------------
+
+def test_expert_stack_fake_quant_in_one_launch(cuda):
+    """An ``[E, in, out]`` expert stack with its S_wL ⊗ S_wR scale (the
+    input stream's ``[in]`` shared by every expert): one forward and one
+    backward launch, forward and ``gx`` bit-equal to the per-expert loop of
+    launches and to the plain composition, ``gs`` within 1e-5 x max|ref|."""
+    from repro_torch.core.dof import weight_fake_quant
+    from repro_torch.core.fakequant import fake_quant
+    E, R, C, bits = 6, 64, 96, 4
+    rng = np.random.default_rng(12)
+    s_wl = np.exp(rng.normal(size=(R, 1)) * 0.3)
+    s_wr = np.exp(rng.normal(size=(E, 1, C)) * 0.3) * 0.05
+    s = torch.from_numpy((s_wl * s_wr).astype(np.float32)).to(cuda)
+    w = (_rand((E, R, C), 13, cuda) * 0.3).contiguous()
+    g = _rand((E, R, C), 14, cuda)
+    outs = {}
+    for how in ("stack", "loop", "plain"):
+        fwd, bwd = fake_quant_kernel.launches_fwd, fake_quant_kernel.launches_bwd
+        wt, st = w.clone().requires_grad_(), s.clone().requires_grad_()
+        if how == "stack":
+            y = weight_fake_quant(wt, st, bits, use_kernels=True)
+        elif how == "loop":
+            y = torch.stack([fake_quant_kernel(wt[e], st[e], bits, "ste")
+                             for e in range(E)])
+        else:
+            y = fake_quant(wt, st, bits, signed=True)
+        y.backward(g)
+        torch.cuda.synchronize()
+        n = {"stack": 1, "loop": E, "plain": 0}[how]
+        assert (fake_quant_kernel.launches_fwd - fwd,
+                fake_quant_kernel.launches_bwd - bwd) == (n, n), how
+        outs[how] = (y.detach(), wt.grad, st.grad)
+    y, gx, gs = outs["stack"]
+    for ref in ("loop", "plain"):
+        ry, rgx, rgs = outs[ref]
+        assert torch.equal(y, ry) and torch.equal(gx, rgx), ref
+        assert float((gs - rgs).abs().max()) <= 1e-5 * float(
+            rgs.abs().max()), ref
+
+
+def test_paged_entry_at_qwen2_moe_heads(cuda):
+    """The paged entry at qwen2-moe-a2.7b's slot pool: 8 slots, 16 kv
+    heads, a GQA group of 1, hd 128, pages of 16, 128 pages a slot, bf16
+    queries; against the gather + plain version, two launches
+    bit-identical."""
+    S, Hkv, G, hd, P, n_pg = 8, 16, 1, 128, 16, 128
+    g = torch.Generator().manual_seed(21)
+    n_pages = S * n_pg
+    pool_k, pool_v = (torch.randint(-127, 128, (n_pages + 1, P, Hkv, hd),
+                                    generator=g, dtype=torch.int8)
+                      for _ in range(2))
+    pool_k[n_pages] = 127
+    pool_v[n_pages] = 127
+    lengths = torch.tensor([1, 25, 138, 308, 1008, 33, 2047, 2048],
+                           dtype=torch.int32)
+    pt = torch.randperm(n_pages, generator=g).to(torch.int32).reshape(S, n_pg)
+    for s in range(S):
+        pt[s, -(-int(lengths[s]) // P):] = n_pages
+    q = torch.randn((S, Hkv, G, hd), generator=g).bfloat16()
+    ks, vs = (torch.rand((S, Hkv), generator=g) * 0.02 + 0.005
+              for _ in range(2))
+    args = [t.to(cuda) for t in (q, pool_k, pool_v, pt, lengths, ks, vs)]
+    out = decode_attention_paged(*args)
+    again = decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_paged_ref(*args))
+
+
+def _moe_smoke(cf=3.0):
+    from repro_torch.configs.qwen2_moe_a2_7b import SMOKE
+    return dataclasses.replace(SMOKE, moe=dataclasses.replace(
+        SMOKE.moe, capacity_factor=cf))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_sorted_on_the_card(cuda, dtype):
+    """The sort-based dispatch on the card, W4A8 experts through K3: equal
+    to the dense oracle (nothing drops at capacity_factor 3; f32 to 1e-5,
+    bf16 to 2e-2 of max|ref|, the oracle's einsum rounding once), and two
+    runs bit-identical (the combine sums in a fixed order)."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import moe
+    cfg, qcfg = _moe_smoke(), QuantConfig()
+    p = moe.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg, qcfg)
+    x = _rand((64, cfg.d_model), 22, cuda).to(getattr(torch, dtype))
+    with torch.no_grad():
+        runs = [moe.moe_sorted(x, p, cfg, qcfg, use_kernels=True)
+                for _ in range(2)]
+        dense = moe.moe_dense(x, p, cfg, qcfg, use_kernels=True)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    err = float((runs[0].float() - dense.float()).abs().max())
+    assert err <= tol * float(dense.float().abs().max()), err
+
+
+def test_moe_decode_step_makes_no_host_sync(cuda):
+    """One decode step of a MoE engine on the card (routing, the sorted
+    dispatch, K2's paged entry, sampling) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation reads the
+    device back to the host."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg, qcfg = _moe_smoke(), QuantConfig()
+    params = init_model(0, cfg, qcfg, device=cuda)
+    plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
+                            params=params, model_cfg=cfg)
+    eng = Engine.from_artifact(cfg, plan, export_for_layers(params, plan),
+                               ServeConfig(max_slots=2, max_len=64,
+                                           prefill_chunk=16))
+    eng.submit(Request(prompt=[1, 2, 3, 4, 5], max_new_tokens=8))
+    eng.step()                            # admit, prefill, install, decode
+    before = decode_attention.launches_paged
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.cache, eng.state, _, _ = eng._decode(eng.params, eng.cache,
+                                                 eng.state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_paged - before == cfg.n_layers
