@@ -22,9 +22,12 @@ Phases, each fatal on failure:
    qwen3-8b's four layer-linear shapes with a full doubly-channelwise
    scale, the embedding with a per-row scale and the lm_head, and at the
    paper CNN's four weight views (each conv's HWIO kernel as [kh·kw,
-   cin·cout] with one scale row, the fc [64, 10]) and at qwen2-moe's
+   cin·cout] with one scale row, the fc [64, 10]), at qwen2-moe's
    (each expert stack [E, in, out] as one [E·in, out] view with its full
-   scale, the 8-bit router, the shared experts);
+   scale, the 8-bit router, the shared experts) and at deepseek-v2-236b's
+   six MLA weights (q_down, q_up, kv_down, k_up, v_up, wo; each with the
+   train path's full scale and with a per-channel one beside the
+   library's per-channel fake-quant);
    flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
    B 1 x S 300, 32/8 heads, f32 through its FMA body and bf16 through its
    tensor-core body, causal and not), with the error,
@@ -94,6 +97,28 @@ Phases, each fatal on failure:
    the experts' geometric-mean S_wL, the teacher's 16/16-head attention
    on flash_attention's tensor-core body; export (the expert stacks'
    parity too) and 2 greedy requests from the trained artifact.
+12. deepseek-v2 — phase 5's main path on deepseek-v2-236b at full width
+   (d 5120, 128 heads, MLA kv_lora 512 / q_lora 1536 / nope 128 + rope
+   64 / v 128, 160 routed experts top-6 + 2 shared, vocab 102400),
+   depth cut to 3 of 60 layers (12.97 B parameters; the f32 masters of a
+   fourth layer would not fit beside the export), at capacity factor 27:
+   the monolithic bf16 latent cache, MLA's attention as einsums (no
+   decode_attention and no flash_attention launch: the reference's
+   decode_route excludes MLA), quant_matmul once through the route
+   check.  Served three ways: the kernel route, the plain route (the
+   same computation here: tokens must be identical, or split at a
+   near-tie), and the absorbed decode form (mla_absorb; held to the
+   default form's tokens up to the first decision that differs, which
+   must be a near-tie); a profile of four decode steps with the
+   k_up/v_up products over the latent cache and the experts' FFN as
+   separate ranges.
+13. deepseek-v2 QFT — phase 6's train path on the MLA student at full
+   MLA and model width, experts cut from 160 to 16 (top-6, 2 shared, ff
+   1536, capacity factor 3), 2 layers, 3 steps: every MLA weight and
+   expert stack through fake_quant (1 + 13 x 2 launches a microbatch each
+   way), no flash_attention launch (the teacher's MLA is einsums on both
+   routes, so its hidden states must agree exactly), export and 2 greedy
+   requests from the trained artifact.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -151,6 +176,21 @@ CNN_PIPELINE = dict(mode="w4a8", steps=600, teacher_steps=300,
 MOE_CAPACITY_FACTOR = 15.0
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 3
+#: phase 12: deepseek-v2-236b at full width, 3 of 60 layers (3.97 B
+#: parameters a layer, 1.05 B in the embedding and head: 12.97 B, whose f32
+#: masters and export peak at ~73 GiB), at capacity factor 27, the least
+#: whole one above 160 experts / top-6 = 26.67: int(T·6/160·27) >= T at 8
+#: slots and at every prefill bucket up to the 128-token chunk.
+DS_LAYERS = 3
+DS_CAPACITY_FACTOR = 27.0
+#: phase 13: the MLA student at full width with 16 of the 160 experts
+#: (2.20 B parameters at 2 layers; one full-width layer would be 5.0 B,
+#: ~100 GB of f32 training state), capacity factor 3: C = int(2048·6/16·3)
+#: = 2304 >= the 2048 tokens of a microbatch
+DS_TRAIN_EXPERTS = 16
+DS_TRAIN_CAPACITY_FACTOR = 3.0
+DS_TRAIN_LAYERS = 2
+DS_TRAIN_STEPS = 3
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -830,6 +870,39 @@ def check_fake_quant_moe(cfg) -> dict:
     return out
 
 
+def check_fake_quant_mla(cfg) -> dict:
+    """fake_quant at deepseek-v2-236b's six MLA weights, at full width:
+    each with the full scale the train path hands over (``S_wL[in]`` from
+    the input stream times ``S_wR[out]``; at 4 bits, as an 8-bit exempt
+    weight runs the same body), then with a per-channel scale ``[1, out]``
+    beside the library's per-channel learnable fake-quant on axis 1.
+    Returns {view: record} (the per-channel rows under ``"<view>
+    channel"``)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    views = {"q_down": (d, m.q_lora),
+             "q_up": (m.q_lora, H * (m.d_nope + m.d_rope)),
+             "kv_down": (d, m.kv_lora + m.d_rope),
+             "k_up": (m.kv_lora, H * m.d_nope),
+             "v_up": (m.kv_lora, H * m.d_v),
+             "wo": (H * m.d_v, d)}
+    out = {}
+    for name, (R, C) in views.items():
+        qmax = 7
+        x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+        col = (torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+            3 * R ** -0.5 / qmax)
+        s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * col
+        out[name] = _fq_row(f"deepseek-v2 {name}", x, s, 4, exact_gs=True)
+        out[f"{name} channel"] = _fq_row(f"deepseek-v2 {name} channel", x,
+                                         col, 4, exact_gs=False, lib_axis=1)
+        del x, s, col
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_fake_quant_cnn(ccfg) -> dict:
     """fake_quant at the paper CNN's weight views, as models/cnn.py hands
     them over: each conv's HWIO kernel as ``[kh·kw, cin·cout]`` with one
@@ -992,6 +1065,8 @@ def _profile(run, what: str, steps: int, watch: tuple = (),
 def profile_decode(engine, cfg, steps: int = 4) -> None:
     """Trace a few steady decode steps (8 live slots)."""
     import torch
+    from repro_torch.core import dof
+    from repro_torch.models import transformer
     from repro_torch.serve.engine import Request
     engine.reset()
     rng = torch.Generator().manual_seed(5)
@@ -1009,36 +1084,94 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
     # step's K/V (the pool[pt] gather of the route before the paged entry
     # would show here too); a MoE's expert FFN (its three batched
     # products, silu and product) as one range
+    # a MoE's expert FFN (its three batched products, silu and product) as
+    # one range; MLA's attention as one, and inside it, in the default
+    # form, the k_up/v_up products over the whole latent cache (the only
+    # linears whose input is kv_lora wide) as another
     from repro_torch.models import moe
-    ffn = moe._expert_ffn
+    ffn, qlinear, mla = moe._expert_ffn, dof.qlinear, \
+        transformer.mla_attention
 
-    def ranged_ffn(*a, **k):
-        with torch.profiler.record_function("expert_ffn"):
-            return ffn(*a, **k)
-    moe._expert_ffn = ranged_ffn
+    def ranged(fn, name, when=lambda *a, **k: True):
+        def run(*a, **k):
+            if not when(*a, **k):
+                return fn(*a, **k)
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return run
+    ranges = ("expert_ffn",) if cfg.moe is not None else ()
+    moe._expert_ffn = ranged(ffn, "expert_ffn")
+    if cfg.mla is not None:
+        ranges += ("mla_attention",)
+        transformer.mla_attention = ranged(mla, "mla_attention")
+    if cfg.mla is not None and not cfg.mla_absorb:
+        ranges += ("k_up/v_up over the cache",)
+        dof.qlinear = ranged(qlinear, "k_up/v_up over the cache",
+                             lambda x, *a, **k: x.ndim == 3 and x.shape[1] > 1
+                             and x.shape[-1] == cfg.mla.kv_lora)
     try:
         _profile(run, "decode steps, 8 live slots", steps,
                  watch=("fd_split", "fd_combine", "index", "gather"),
-                 ranges=("expert_ffn",) if cfg.moe is not None else ())
+                 ranges=ranges)
     finally:
-        moe._expert_ffn = ffn
+        moe._expert_ffn, dof.qlinear, transformer.mla_attention = \
+            ffn, qlinear, mla
 
 
-def main_path(cfg) -> dict:
+def _engine_as(engine, cfg, use_kernels: bool = True):
+    """A second engine over ``engine``'s weights (no second deploy view)
+    whose prefill and decode steps serve ``cfg`` (MLA's absorbed form)."""
+    import copy
+    from repro_torch.train.steps import (make_bucketed_prefill_step,
+                                         make_slot_decode_step)
+    alt = copy.copy(engine)
+    alt.cfg = cfg
+    alt._prefill = make_bucketed_prefill_step(cfg, None)
+    alt._decode = make_slot_decode_step(cfg, None, use_kernels=use_kernels)
+    alt.reset()
+    return alt
+
+
+def _serve_way(engine, reqs, what: str) -> tuple[list[list[int]], dict]:
+    """Serve ``reqs`` through ``engine`` with the peak reset just before;
+    print decode ms a step, prefill ms a token and the peak."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing: dict = {}
+    toks = _serve(engine, reqs, timing)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    timing.update(decode_ms=timing["decode_s"] * 1e3 / engine.decode_steps,
+                  prefill_ms=timing["prefill_s"] * 1e3 / n_prompt,
+                  peak=_gib())
+    say(f"[main] {what}: decode {timing['decode_ms']:.3f} ms/step, prefill "
+        f"{timing['prefill_ms']:.3f} ms/token, peak {timing['peak']:.2f} GiB")
+    return toks, timing
+
+
+def main_path(cfg, layers: int | None = None) -> dict:
+    """Phase 5's path on ``cfg`` at full width, ``layers`` deep (None: the
+    config's depth).  Returns the kernels' launch counts."""
     import torch
     from repro_torch.core.qconfig import QuantConfig
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.models import init_model
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
                                           make_deploy_plan)
     from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.tree import tree_items
+    full_depth = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    mla = cfg.mla is not None
+    # layers whose decode attention decode_attention carries (MLA: none)
+    n_routed = 0 if mla else cfg.n_layers
     qcfg = QuantConfig()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen, cfg, qcfg, device="cuda")
+    n_params = sum(t.numel() for _, t in tree_items(params))
     plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
                             params=params, model_cfg=cfg)
     with torch.no_grad():
@@ -1050,7 +1183,12 @@ def main_path(cfg) -> dict:
           f"{cfg.moe.n_shared} shared, ff {cfg.moe.d_ff_expert}, capacity "
           f"factor {cfg.moe.capacity_factor:g}" if cfg.moe is not None
           else f"ff={cfg.d_ff}")
-    say(f"[main] {cfg.name} full width: {cfg.n_layers} layers d={cfg.d_model} "
+    if mla:
+        m = cfg.mla
+        ff = (f"MLA kv_lora {m.kv_lora} q_lora {m.q_lora} nope {m.d_nope} "
+              f"rope {m.d_rope} v {m.d_v}, " + ff)
+    say(f"[main] {cfg.name} full width: {cfg.n_layers} of {full_depth} "
+        f"layers ({n_params / 1e9:.2f} B parameters) d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} {ff} vocab={cfg.vocab};"
         f" init+export {time.perf_counter() - t0:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; f32 masters "
@@ -1063,11 +1201,8 @@ def main_path(cfg) -> dict:
     reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
 
     # --- the main path, with every kernel count at 0 just before it
-    decode_attention.launches = 0
-    decode_attention.launches_paged = 0
-    quant_matmul.launches = 0
-    for body in ("mma", "mma_wide", "fma"):
-        setattr(quant_matmul, f"launches_{body}", 0)
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
     check = kernel_route_check(exported, plan)
     engine = Engine.from_artifact(cfg, plan, exported, scfg)
     timing: dict = {}
@@ -1075,11 +1210,13 @@ def main_path(cfg) -> dict:
     toks = _serve(engine, reqs, timing)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "decode_attention_paged": decode_attention.launches_paged,
-                "quant_matmul": quant_matmul.launches,
+    counts = _counts()
+    launches = {"decode_attention": counts["decode_attention"],
+                "decode_attention_paged": counts["decode_attention_paged"],
+                "flash_attention": counts["flash_attention"],
+                "quant_matmul": counts["quant_matmul"],
                 "quant_matmul_bodies": {
-                    f"launches_{b}": getattr(quant_matmul, f"launches_{b}")
+                    f"launches_{b}": counts[f"quant_matmul_{b}"]
                     for b in ("mma", "mma_wide", "fma")}}
     # ---
     stats = engine.stats()
@@ -1088,18 +1225,23 @@ def main_path(cfg) -> dict:
         fail(f"kernel_route_check did not run quant_matmul: {check}")
     if not check["max_err"] <= 1e-4:
         fail(f"kernel_route_check max_err {check['max_err']} > 1e-4")
-    if stats["decode_attn_kernel_layers"] != cfg.n_layers:
+    if stats["decode_attn_kernel_layers"] != n_routed:
         fail(f"decode_attn_kernel_layers {stats['decode_attn_kernel_layers']}"
-             f" != {cfg.n_layers}")
-    if launches["decode_attention"] != cfg.n_layers * steps or steps == 0:
+             f" != {n_routed}")
+    if launches["decode_attention"] != n_routed * steps or steps == 0:
         fail(f"decode_attention launched {launches['decode_attention']} "
-             f"times over {steps} decode steps of {cfg.n_layers} layers")
-    if launches["decode_attention_paged"] != cfg.n_layers * steps:
+             f"times over {steps} decode steps of {n_routed} routed layers")
+    if launches["decode_attention_paged"] != n_routed * steps:
         fail(f"decode_attention's paged entry launched "
              f"{launches['decode_attention_paged']} times over {steps} "
-             f"decode steps of {cfg.n_layers} layers")
-    if launches["quant_matmul"] < 1:
-        fail("quant_matmul never launched on the main path")
+             f"decode steps of {n_routed} routed layers")
+    if launches["flash_attention"]:
+        fail(f"the engine launched flash_attention "
+             f"{launches['flash_attention']} times")
+    if launches["quant_matmul"] < 1 or (mla and launches["quant_matmul"]
+                                        != 1):
+        fail(f"quant_matmul launched {launches['quant_matmul']} times on the "
+             f"main path")
     for p, t in zip(prompts, toks):
         if len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t):
             fail(f"bad output for a {len(p)}-token prompt: {t}")
@@ -1112,8 +1254,9 @@ def main_path(cfg) -> dict:
         f" {NEW_TOKENS} new each) in {wall:.2f} s: {steps} decode steps; "
         f"decode_attn_kernel_layers={stats['decode_attn_kernel_layers']}; "
         f"launches decode_attention={launches['decode_attention']} "
-        f"(= {cfg.n_layers} x {steps}; paged entry "
-        f"{launches['decode_attention_paged']}) quant_matmul="
+        f"(= {n_routed} x {steps}; paged entry "
+        f"{launches['decode_attention_paged']}) flash_attention="
+        f"{launches['flash_attention']} quant_matmul="
         f"{launches['quant_matmul']} {launches['quant_matmul_bodies']}")
     say(f"[main] prefill {timing['prefill_s'] * 1e3 / n_prompt:.3f} ms/token "
         f"({n_prompt} prompt tokens, {timing['prefill_s']:.3f} s); decode "
@@ -1127,22 +1270,39 @@ def main_path(cfg) -> dict:
     # --- the same requests through the plain route on the card
     del engine
     torch.cuda.empty_cache()
-    before = decode_attention.launches
+    before = _counts()
     plain = Engine.from_artifact(
         cfg, dataclasses.replace(plan, use_kernels=False), exported, scfg)
-    ptiming: dict = {}
-    ptoks = _serve(plain, reqs, ptiming)
-    if decode_attention.launches != before:
+    ptoks, ptiming = _serve_way(plain, reqs, "plain route")
+    if _counts()["decode_attention"] != before["decode_attention"]:
         fail("the plain route launched decode_attention")
     same = sum(a == b for a, b in zip(toks, ptoks))
     say(f"[main] plain route: {same}/{len(reqs)} requests token-identical to "
-        f"the kernel route (greedy); decode "
-        f"{ptiming['decode_s'] * 1e3 / plain.decode_steps:.3f} ms/step")
+        f"the kernel route (greedy)")
     for p, a, b in zip(prompts, toks, ptoks):
         if a != b:
-            where = _first_split(plain, cfg, p, a, b)
+            where = _first_split(cfg, p, ("plain", plain, False, b),
+                                 ("kernel", plain, True, a))
             say(f"[main]   {a} vs {b}: the routes first split at {where} "
                 f"(limit {MARGIN_ULPS})")
+    if mla:
+        # --- the absorbed decode form, over the same weights
+        acfg = dataclasses.replace(cfg, mla_absorb=True)
+        absorbed = _engine_as(plain, acfg)
+        atoks, _ = _serve_way(absorbed, reqs, "absorbed form (mla_absorb)")
+        same = sum(a == b for a, b in zip(toks, atoks))
+        say(f"[main] absorbed form: {same}/{len(reqs)} requests "
+            f"token-identical to the default form (greedy)")
+        for p, a, b in zip(prompts, toks, atoks):
+            if a != b:
+                where = _first_split(cfg, p, ("default", plain, True, a),
+                                     ("absorbed", absorbed, True, b))
+                say(f"[main]   {a} vs {b}: the forms first split at {where} "
+                    f"(limit {MARGIN_ULPS})")
+        profile_decode(absorbed, acfg)
+        del absorbed
+    del plain
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1152,6 +1312,7 @@ def _serve_recorded(engine, prompt: list[int], n: int, use_kernels: bool
     step of the kernel or the plain route, recording in call order each
     router call's f32 logits (``("r", ·)``; MoE only), each prefill
     chunk's logits (``("p", ·)``) and each decode step's (``("z", ·)``)."""
+    import torch
     from repro_torch.models import moe
     from repro_torch.serve.engine import Request
     from repro_torch.train import steps
@@ -1172,7 +1333,8 @@ def _serve_recorded(engine, prompt: list[int], n: int, use_kernels: bool
 
     def rec_forward(*a, **k):
         out = forward(*a, **k)
-        if "pt" in (k.get("cache") or {}):        # the paged decode step
+        # the slot decode step: its cache carries a per-slot pos vector
+        if isinstance((k.get("cache") or {}).get("pos"), torch.Tensor):
             events.append(("z", out["logits"][:, -1].float().cpu()))
         return out
 
@@ -1195,34 +1357,34 @@ def _ulp(z: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(abs(z), 1e-30))) - 7)
 
 
-def _first_split(engine, cfg, prompt: list[int], kernel_toks: list[int],
-                 plain_toks: list[int]) -> str:
-    """Where a request's kernel-route and plain-route tokens differ: serve
-    it alone through both decode routes (recording every router call and
-    every emitted token's logits), walk the two runs' decisions in call
-    order — each real token's top-k experts in every layer (MoE), then
-    each emitted token — and fail unless, at the first decision that
-    differs, the plain route's own margin is within MARGIN_ULPS bf16 ulps
-    of the row's largest logit in magnitude (the top logit, for a token):
-    the k-th minus the (k+1)-th router logit, or the top-2 logit margin.
-    Returns a description of that decision."""
+def _first_split(cfg, prompt: list[int], ref: tuple, other: tuple) -> str:
+    """Where a request's tokens differ between two ways of serving it,
+    each ``(label, engine, use_kernels, tokens in the batch)``: serve it
+    alone both ways (recording every router call and every emitted token's
+    logits), walk the two runs' decisions in call order — each real
+    token's top-k experts in every layer (MoE), then each emitted token —
+    and fail unless, at the first decision that differs, ``ref``'s own
+    margin is within MARGIN_ULPS bf16 ulps of the row's largest logit in
+    magnitude (the top logit, for a token): the k-th minus the (k+1)-th
+    router logit, or the top-2 logit margin.  Returns a description of
+    that decision."""
     import torch
-    n = len(kernel_toks)
+    n = len(ref[3])
     got = {}
-    for use in (True, False):
-        got[use] = _serve_recorded(engine, prompt, n, use)
-        want = kernel_toks if use else plain_toks
-        if got[use][0] != want:
-            fail(f"{cfg.name}: the {'kernel' if use else 'plain'} route "
-                 f"served alone gave {got[use][0]}, in the batch {want}")
-    if [k for k, _ in got[False][1]] != [k for k, _ in got[True][1]]:
-        fail(f"{cfg.name}: the two routes made different calls")
+    for label, engine, use, want in (ref, other):
+        got[label] = _serve_recorded(engine, prompt, n, use)
+        if got[label][0] != want:
+            fail(f"{cfg.name}: {label} served alone gave {got[label][0]}, "
+                 f"in the batch {want}")
+    a_run, b_run = got[ref[0]][1], got[other[0]][1]
+    if [k for k, _ in a_run] != [k for k, _ in b_run]:
+        fail(f"{cfg.name}: {ref[0]} and {other[0]} made different calls")
     K = cfg.moe.top_k if cfg.moe is not None else 0
-    chunk = engine.scfg.prefill_chunk
+    chunk = ref[1].scfg.prefill_chunk
     lens = [min(chunk, len(prompt) - o)
             for o in range(0, len(prompt), chunk)]
     f, tok = 0, 0                   # forward calls ended, tokens emitted
-    for (kind, a), (_, b) in zip(got[False][1], got[True][1]):
+    for (kind, a), (_, b) in zip(a_run, b_run):
         prefill = f < len(lens)
         if kind == "r":
             for r in range(lens[f] if prefill else 1):
@@ -1235,12 +1397,12 @@ def _first_split(engine, cfg, prompt: list[int], kernel_toks: list[int],
                 ulp = _ulp(float(a[r].abs().max()))
                 at = (f"prefill chunk {f}" if prefill
                       else f"decode step {f - len(lens)}")
-                where = (f"routing, {at} row {r}: plain experts "
-                         f"{sorted(pa)}, kernel {sorted(pb)}; the plain "
-                         f"k-th/(k+1)-th logit gap {gap:.6g} = "
+                where = (f"routing, {at} row {r}: {ref[0]} experts "
+                         f"{sorted(pa)}, {other[0]} {sorted(pb)}; the "
+                         f"{ref[0]} k-th/(k+1)-th logit gap {gap:.6g} = "
                          f"{gap / ulp:.2f} bf16 ulps")
                 if gap > MARGIN_ULPS * ulp:
-                    fail(f"{cfg.name}: the routes split at {where} (limit "
+                    fail(f"{cfg.name}: the two split at {where} (limit "
                          f"{MARGIN_ULPS})")
                 return where
             continue
@@ -1250,15 +1412,15 @@ def _first_split(engine, cfg, prompt: list[int], kernel_toks: list[int],
         if int(torch.argmax(a[0])) != int(torch.argmax(b[0])):
             top = torch.topk(a[0], 2).values
             margin, ulp = float(top[0] - top[1]), _ulp(float(top[0]))
-            where = (f"token {tok}: the plain top-2 margin {margin:.6g} = "
-                     f"{margin / ulp:.2f} bf16 ulps")
+            where = (f"token {tok}: the {ref[0]} top-2 margin {margin:.6g} "
+                     f"= {margin / ulp:.2f} bf16 ulps")
             if margin > MARGIN_ULPS * ulp:
-                fail(f"{cfg.name}: the routes split at {where} (limit "
+                fail(f"{cfg.name}: the two split at {where} (limit "
                      f"{MARGIN_ULPS})")
             return where
         tok += 1
-    fail(f"{cfg.name}: kernel tokens {kernel_toks} != plain tokens "
-         f"{plain_toks}, but the requests served alone split nowhere")
+    fail(f"{cfg.name}: {other[0]} tokens {other[3]} != {ref[0]} tokens "
+         f"{ref[3]}, but the requests served alone split nowhere")
 
 
 # ---------------------------------------------------------------------------
@@ -1340,11 +1502,13 @@ def _routing(record: list | None = None, replay: list | None = None):
 
 def _linears_per_layer(cfg) -> int:
     """Quantized weights a layer's forward fake-quantizes: wq, wk, wv, wo
-    and the MLP's three (dense), or the router, the three expert stacks
-    (one K3 launch each) and the three shared experts' (MoE)."""
+    (MLA: q_down, q_up, kv_down, k_up, v_up, wo), then the MLP's three
+    (dense), or the router, the three expert stacks (one K3 launch each)
+    and the three shared experts' (MoE)."""
+    attn = 6 if cfg.mla is not None else 4
     if cfg.moe is None:
-        return 7
-    return 4 + 1 + 3 + (3 if cfg.moe.n_shared else 0)
+        return attn + 3
+    return attn + 1 + 3 + (3 if cfg.moe.n_shared else 0)
 
 
 def train_path(cfg, layers: int = TRAIN_LAYERS,
@@ -1369,6 +1533,9 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     full_depth = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
     L = cfg.n_layers
+    # layers whose attention the attention kernels carry (MLA: none; its
+    # attention is einsums on both routes)
+    L_attn = 0 if cfg.mla is not None else L
     qcfg = QuantConfig()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1399,9 +1566,9 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     if _counts()["fake_quant_fwd"]:
         fail("prepare_student launched fake_quant: the teacher is FP")
     prep_fa = _counts()["flash_attention"]
-    if prep_fa != 2 * L:          # the teacher over 2 calibration batches
+    if prep_fa != 2 * L_attn:     # the teacher over 2 calibration batches
         fail(f"calibration launched flash_attention {prep_fa} times, want "
-             f"{2 * L}")
+             f"{2 * L_attn}")
     _teacher_on_tensor_cores(_counts(), "calibration")
     torch.cuda.reset_peak_memory_stats()
     student, hist = trainer.run(student, data, steps=steps, log_every=1)
@@ -1420,7 +1587,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
         f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{steps} "
         f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
         f"{peak_run:.2f} GiB")
-    fa_want = steps * TRAIN_MICROBATCHES * L
+    fa_want = steps * TRAIN_MICROBATCHES * L_attn
     say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
         f"backward {run_counts['fake_quant_bwd']} (= {steps} steps x "
         f"{TRAIN_MICROBATCHES} microbatches x (1 embed + {n_lin} x {L} "
@@ -1428,7 +1595,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
         f"lm_head is not run: the backbone-L2 loss never reads it); "
         f"flash_attention (the teacher) {prep_fa} in calibration + "
         f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
-        f"{steps} x {TRAIN_MICROBATCHES} x {L} layers)")
+        f"{steps} x {TRAIN_MICROBATCHES} x {L_attn} layers)")
     if run_counts["flash_attention"] - prep_fa != fa_want:
         fail(f"the steps launched flash_attention "
              f"{run_counts['flash_attention'] - prep_fa} times, want "
@@ -1450,9 +1617,10 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     with torch.no_grad():
         exported = export_for_layers(student, plan, device=DEVICE)
         lp0 = layer_slice(student["layers"], 0)
-        # layer 0's wq, and a MoE's up expert stack (its s_wl shared by
-        # the experts)
-        for mod, lin in (("attn", "wq"),) + (
+        # layer 0's wq (MLA: q_down), and a MoE's up expert stack (its
+        # s_wl shared by the experts)
+        first = "q_down" if cfg.mla is not None else "wq"
+        for mod, lin in (("attn", first),) + (
                 (("mlp", "up"),) if cfg.moe is not None else ()):
             w_eff = dof.effective_weight(lp0[mod][lin], qcfg,
                                          lp0[mod]["in_stream"]["log_sa"],
@@ -1480,16 +1648,18 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     for t in toks:
         if len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t):
             fail(f"bad output from the trained artifact: {t}")
-    if counts["decode_attention"] != L * engine.decode_steps \
+    if counts["decode_attention"] != L_attn * engine.decode_steps \
             or engine.decode_steps == 0:
         fail(f"decode_attention launched {counts['decode_attention']} times "
-             f"over {engine.decode_steps} decode steps of {L} layers")
+             f"over {engine.decode_steps} decode steps of {L_attn} routed "
+             f"layers")
     say(f"[train] export parity (layer 0 {lin}) {parity:.3e}; "
         f"kernel_route_check {check['path']}: quant_matmul ran, max_err "
         f"{check['max_err']:.3e}; served {len(reqs)} greedy requests from "
         f"the trained artifact: {toks}; launches quant_matmul="
         f"{counts['quant_matmul']} decode_attention="
-        f"{counts['decode_attention']} (= {L} x {engine.decode_steps}); "
+        f"{counts['decode_attention']} (= {L_attn} x "
+        f"{engine.decode_steps}); "
         f"peak {_gib():.2f} GiB")
     del engine, exported
     torch.cuda.empty_cache()
@@ -1516,10 +1686,10 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
                                            use_kernels=use, logits=False)
             now = _counts()
             delta = {k: now[k] - before[k] for k in now}
-            if delta["flash_attention"] != (L if use else 0):
+            if delta["flash_attention"] != (L_attn if use else 0):
                 fail(f"teacher forward (use_kernels={use}) launched "
                      f"flash_attention {delta['flash_attention']} times over "
-                     f"{L} layers")
+                     f"{L_attn} routed layers")
             _teacher_on_tensor_cores(delta, "the teacher forward")
 
     def rel(a, b):
@@ -1536,13 +1706,19 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
                   f"— unpinned: rel L2 "
                   f"{rel(hidden[True, None], hidden[False, None]):.3e}, "
                   f"{flips} of {n_dec} token-layer expert sets differ")
-    say(f"[train] teacher hidden states, flash_attention vs the plain route "
+    what = ("the kernel route (MLA: einsums, no kernel)"
+            if cfg.mla is not None else "flash_attention")
+    say(f"[train] teacher hidden states, {what} vs the plain route "
         f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
         f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
         f"{TEACHER_HIDDEN_BOUND:.0e}; both round P to bf16 before P.V, the "
         f"kernel unnormalised, the plain route normalised){pinned}")
     if not hid_rel <= TEACHER_HIDDEN_BOUND:
         fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
+    if cfg.mla is not None and not torch.equal(hidden[True, None]["hidden"],
+                                               hidden[False, None]["hidden"]):
+        fail(f"teacher hidden states: MLA runs no kernel on either route, "
+             f"yet they differ (rel L2 {hid_rel})")
     targets = hidden[True, None]
     del hidden
     vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
@@ -1914,6 +2090,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
@@ -1922,6 +2099,12 @@ def main() -> int:
     from repro_torch.serve.kv_cache import resolve_kv_spec
     MOE = dataclasses.replace(QWEN2_MOE, moe=dataclasses.replace(
         QWEN2_MOE.moe, capacity_factor=MOE_CAPACITY_FACTOR))
+    DS = dataclasses.replace(DEEPSEEK, moe=dataclasses.replace(
+        DEEPSEEK.moe, capacity_factor=DS_CAPACITY_FACTOR))
+    DS_TRAIN = dataclasses.replace(DEEPSEEK, moe=dataclasses.replace(
+        DEEPSEEK.moe, n_experts=DS_TRAIN_EXPERTS,
+        n_experts_padded=DS_TRAIN_EXPERTS,
+        capacity_factor=DS_TRAIN_CAPACITY_FACTOR))
     t_start = time.perf_counter()
     probe()
     build()
@@ -1938,6 +2121,7 @@ def main() -> int:
     fq = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
     fq_moe = check_fake_quant_moe(MOE)
+    fq_mla = check_fake_quant_mla(DS)
     fa = check_flash_attention(CONFIG)
     check_reference()
     launches = main_path(CONFIG)
@@ -1955,6 +2139,14 @@ def main() -> int:
                            steps=MOE_TRAIN_STEPS)
     say(f"[main] phase 11 ({MOE.name} QFT) "
         f"{time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    ds = main_path(DS, layers=DS_LAYERS)
+    say(f"[main] phase 12 ({DS.name}) {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    ds_train = train_path(DS_TRAIN, layers=DS_TRAIN_LAYERS,
+                          steps=DS_TRAIN_STEPS)
+    say(f"[main] phase 13 ({DS.name} QFT, {DS_TRAIN_EXPERTS} experts) "
+        f"{time.perf_counter() - t13:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -1966,14 +2158,17 @@ def main() -> int:
                            launches_paged=phi4["decode_attention_paged"]),
          "qwen2_moe": dict(fd_moe,
                            launches=moe["decode_attention"],
-                           launches_paged=moe["decode_attention_paged"])},
+                           launches_paged=moe["decode_attention_paged"]),
+         "deepseek_v2": {"launches": ds["decode_attention"]
+                         + ds_train["decode_attention"]}},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
          "launches": launches["quant_matmul"],
          **launches["quant_matmul_bodies"], **qmm,
          "launches_phi4_mini": phi4["quant_matmul"],
-         "launches_qwen2_moe": moe["quant_matmul"]},
+         "launches_qwen2_moe": moe["quant_matmul"],
+         "launches_deepseek_v2": ds["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
@@ -1985,14 +2180,19 @@ def main() -> int:
                        "views": fq_cnn},
          "qwen2_moe": {"launches_fwd": moe_train["fake_quant_fwd"],
                        "launches_bwd": moe_train["fake_quant_bwd"],
-                       "views": fq_moe}},
+                       "views": fq_moe},
+         "deepseek_v2": {"launches_fwd": ds_train["fake_quant_fwd"],
+                         "launches_bwd": ds_train["fake_quant_bwd"],
+                         "views": fq_mla}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",
          "launches": pipeline["flash_attention"],
          "launches_wgmma": pipeline["flash_attention_wgmma"],
          "launches_fma": pipeline["flash_attention_fma"], **fa,
-         "launches_qwen2_moe": moe_train["flash_attention"]},
+         "launches_qwen2_moe": moe_train["flash_attention"],
+         "deepseek_v2": {"launches": ds["flash_attention"]
+                         + ds_train["flash_attention"]}},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

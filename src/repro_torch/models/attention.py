@@ -1,4 +1,5 @@
-"""GQA attention (+qk-norm, RoPE) with monolithic and paged int8 KV caches.
+"""GQA attention (+qk-norm, RoPE) with monolithic and paged int8 KV caches,
+and DeepSeek-V2's MLA with its monolithic latent cache.
 
 Caches are dicts of tensors updated **in place** (the JAX package returns
 new caches; here the slot cache is one preallocated set of tensors the
@@ -94,35 +95,63 @@ def _is_vector(pos) -> bool:
     return isinstance(pos, torch.Tensor) and pos.ndim == 1
 
 
+def _write_rows(c: torch.Tensor, u: torch.Tensor, pos) -> None:
+    """Write ``u [B, Sq, ...]`` into the cache ``c [B, T, ...]`` at ``pos``
+    (in place).  Per-slot offsets: the start clamps so the write stays
+    inside the cache (dead slots keep advancing), as
+    ``dynamic_update_slice``.  A scalar offset drops rows past the cache
+    end, which can only be bucketed-prefill padding."""
+    B, Sq = u.shape[:2]
+    T = c.shape[1]
+    if _is_vector(pos):
+        start = torch.clamp(pos, 0, T - Sq)
+        rows = start[:, None] + torch.arange(Sq, device=u.device)[None]
+        c[torch.arange(B, device=u.device)[:, None], rows] = u.to(c.dtype)
+    else:
+        n = min(Sq, T - pos)
+        c[:, pos:pos + n] = u[:, :n].to(c.dtype)
+
+
+def _mask(q_offset, Sq: int, Skv: int, causal: bool, kv_len,
+          device) -> torch.Tensor:
+    """Which keys each query sees: ``[B, Sq, Skv]`` for per-slot ``[B]``
+    offsets (serving: every slot at its own offset, each attending its own
+    valid prefix ``kv_len``), else ``[Sq, Skv]``."""
+    pos_k = torch.arange(Skv, device=device)
+    ar_q = torch.arange(Sq, device=device)
+    if _is_vector(q_offset):
+        pos_q = q_offset[:, None] + ar_q[None, :]                 # [B, Sq]
+        mask = torch.ones((q_offset.shape[0], Sq, Skv), dtype=torch.bool,
+                          device=device)
+        if causal:
+            mask = mask & (pos_q[:, :, None] >= pos_k[None, None, :])
+        if kv_len is not None:
+            mask = mask & (pos_k[None, None, :] < kv_len[:, None, None])
+        return mask
+    pos_q = q_offset + ar_q
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (pos_q[:, None] >= pos_k[None, :])
+    if kv_len is not None:
+        mask = mask & (pos_k[None, :] < kv_len)
+    return mask
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
           q_offset, kv_len=None) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd]; f32 logits and softmax.
 
-    ``q_offset``/``kv_len`` are ints, or per-slot ``[B]`` tensors (serving:
-    every slot at its own offset, each attending its own valid prefix)."""
+    ``q_offset``/``kv_len`` are ints, or per-slot ``[B]`` tensors (see
+    :func:`_mask`)."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, hd)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32)) * (hd ** -0.5)
-    pos_k = torch.arange(Skv, device=q.device)
-    ar_q = torch.arange(Sq, device=q.device)
+    mask = _mask(q_offset, Sq, Skv, causal, kv_len, q.device)
     if _is_vector(q_offset):
-        pos_q = q_offset[:, None] + ar_q[None, :]                 # [B, Sq]
-        mask = torch.ones((B, Sq, Skv), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (pos_q[:, :, None] >= pos_k[None, None, :])
-        if kv_len is not None:
-            mask = mask & (pos_k[None, None, :] < kv_len[:, None, None])
         mask = mask[:, None, None]
-    else:
-        pos_q = q_offset + ar_q
-        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (pos_q[:, None] >= pos_k[None, :])
-        if kv_len is not None:
-            mask = mask & (pos_k[None, :] < kv_len)
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
@@ -230,19 +259,8 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     else:
         pos, ck, cv = cache["pos"], cache["k"], cache["v"]
         T = ck.shape[1]
-        if _is_vector(pos):
-            # per-slot offsets; the start clamps so the write stays inside
-            # the cache (dead slots keep advancing), as dynamic_update_slice
-            start = torch.clamp(pos, 0, T - Sq)
-            rows = start[:, None] + torch.arange(Sq, device=x.device)[None]
-            slots = torch.arange(B, device=x.device)[:, None]
-            ck[slots, rows] = k.to(ck.dtype)
-            cv[slots, rows] = v.to(cv.dtype)
-        else:
-            # rows past the cache end can only be bucketed-prefill padding
-            n = min(Sq, T - pos)
-            ck[:, pos:pos + n] = k[:, :n].to(ck.dtype)
-            cv[:, pos:pos + n] = v[:, :n].to(cv.dtype)
+        _write_rows(ck, k, pos)
+        _write_rows(cv, v, pos)
         if Sq == 1 and _is_vector(pos) and decode_route(cfg, T, use_kernels):
             qd = q[:, 0].reshape(B, Hkv, H // Hkv, hd).contiguous()
             od = decode_attention(qd, ck, cv, pos + 1)
@@ -254,3 +272,139 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     tap(taps, prefix + ".pre_o", out)
     return dof.qlinear(out, p["wo"], qcfg, stream=p.get("out_stream"),
                        bits=pv.bits("wo"), use_kernels=use_kernels)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV, optional absorbed decode
+# --------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             qcfg: QuantConfig | None, lead: tuple = ()) -> Params:
+    """The six linears, two norms and (student) four streams, keyed in
+    the JAX package's (sorted) order."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads_padded
+    dev = gen.device
+    p: Params = {
+        "q_down": dof.init_qlinear(gen, d, m.q_lora, qcfg, name="q_down",
+                                   lead=lead),
+        "q_up": dof.init_qlinear(gen, m.q_lora, H * (m.d_nope + m.d_rope),
+                                 qcfg, name="q_up", lead=lead),
+        "kv_down": dof.init_qlinear(gen, d, m.kv_lora + m.d_rope, qcfg,
+                                    name="kv_down", lead=lead),
+        "k_up": dof.init_qlinear(gen, m.kv_lora, H * m.d_nope, qcfg,
+                                 name="k_up", lead=lead),
+        "v_up": dof.init_qlinear(gen, m.kv_lora, H * m.d_v, qcfg,
+                                 name="v_up", lead=lead),
+        "wo": dof.init_qlinear(gen, H * m.d_v, d, qcfg, name="wo",
+                               lead=lead),
+        "q_norm": init_rmsnorm(m.q_lora, lead, dev),
+        "kv_norm": init_rmsnorm(m.kv_lora, lead, dev),
+    }
+    if qcfg is not None:
+        p["in_stream"] = dof.init_stream(d, lead=lead, device=dev)
+        p["q_stream"] = dof.init_stream(m.q_lora, lead=lead, device=dev)
+        p["kv_stream"] = dof.init_stream(m.kv_lora, lead=lead, device=dev)
+        p["out_stream"] = dof.init_stream(H * m.d_v, lead=lead, device=dev)
+    return {k: p[k] for k in sorted(p)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   n_layers: int, dtype=torch.bfloat16,
+                   device=None) -> Params:
+    """Monolithic latent cache ``ckv [L, B, max_len, kv_lora]`` and ``kr
+    [L, B, max_len, d_rope]`` and a scalar (Python int) ``pos``."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((n_layers, batch, max_len, m.kv_lora),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((n_layers, batch, max_len, m.d_rope),
+                              dtype=dtype, device=device),
+            "pos": 0}
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+            f32: bool = False) -> torch.Tensor:
+    """``jnp.einsum``'s dtype rules: the operands promoted to a common
+    dtype, or both to f32 (``preferred_element_type=float32``)."""
+    dt = torch.float32 if f32 else torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                  qcfg: QuantConfig | None, positions: torch.Tensor,
+                  cache: Params | None = None, plan=None,
+                  use_kernels: bool = False) -> torch.Tensor:
+    """MLA forward; writes this step's latent ``ckv``/``kr`` into ``cache``
+    (in place) when one is given.  Cache modes: none (full sequence,
+    causal); a scalar ``pos`` (batch prefill); a per-slot ``pos [B]``
+    (serving decode).  ``cfg.mla_absorb`` runs the attention in the latent
+    space, with ``k_up`` folded into the query and ``v_up`` into the
+    output (each effective weight tied to ``kv_stream``'s ``log_sa``);
+    otherwise ``k_up``/``v_up`` expand the whole latent cache.
+
+    The attention itself is plain einsums, as in the JAX package (f32
+    logits, the ``-1e30`` mask, softmax in f32 cast to ``x.dtype``): no
+    kernel of the repo computes it.  ``use_kernels`` routes the weights'
+    fake-quant through the ``fake_quant`` kernel."""
+    m = cfg.mla
+    B, Sq, _ = x.shape
+    H = cfg.n_heads_padded
+    pv = plan_view(plan)
+    ins = p.get("in_stream")
+
+    def lin(inp, name, stream):
+        return dof.qlinear(inp, p[name], qcfg, stream=stream,
+                           bits=pv.bits(name), use_kernels=use_kernels)
+
+    ql = rmsnorm(lin(x, "q_down", ins), p["q_norm"])
+    q = lin(ql, "q_up", p.get("q_stream"))
+    q = q.reshape(B, Sq, H, m.d_nope + m.d_rope)
+    q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = lin(x, "kv_down", ins)
+    ckv, kr = kv[..., : m.kv_lora], kv[..., m.kv_lora:]
+    ckv = rmsnorm(ckv, p["kv_norm"])
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        pos = cache["pos"]
+        _write_rows(cache["ckv"], ckv, pos)
+        _write_rows(cache["kr"], kr, pos)
+        ckv_all, kr_all = cache["ckv"], cache["kr"]
+        kv_len, q_offset = pos + Sq, pos
+    else:
+        ckv_all, kr_all, kv_len, q_offset = ckv, kr, None, 0
+
+    scale = (m.d_nope + m.d_rope) ** -0.5
+    Skv = ckv_all.shape[1]
+    log_sa = None if qcfg is None else p["kv_stream"]["log_sa"]
+
+    def absorbed(name, width):
+        w = dof.effective_weight(p[name], qcfg, log_sa, compute_dtype=x.dtype,
+                                 bits=pv.bits(name), use_kernels=use_kernels)
+        return w.reshape(m.kv_lora, H, width)
+
+    if cfg.mla_absorb:
+        q_c = _einsum("bqhn,chn->bqhc", q_nope, absorbed("k_up", m.d_nope))
+        logits = _einsum("bqhc,bsc->bhqs", q_c, ckv_all, f32=True)
+    else:
+        k_nope = lin(ckv_all, "k_up", p.get("kv_stream")).reshape(
+            B, Skv, H, m.d_nope)
+        logits = _einsum("bqhn,bshn->bhqs", q_nope, k_nope, f32=True)
+    logits = (logits + _einsum("bqhr,bsr->bhqs", q_rope, kr_all,
+                               f32=True)) * scale
+
+    mask = _mask(q_offset, Sq, Skv, True, kv_len, x.device)
+    if _is_vector(q_offset):
+        mask = mask[:, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+
+    if cfg.mla_absorb:
+        ctx_c = _einsum("bhqs,bsc->bqhc", probs, ckv_all)     # latent context
+        ctx = _einsum("bqhc,chv->bqhv", ctx_c, absorbed("v_up", m.d_v))
+    else:
+        v = lin(ckv_all, "v_up", p.get("kv_stream")).reshape(B, Skv, H, m.d_v)
+        ctx = _einsum("bhqs,bshv->bqhv", probs, v)
+    ctx = ctx.reshape(B, Sq, H * m.d_v)
+    return lin(ctx, "wo", p.get("out_stream"))

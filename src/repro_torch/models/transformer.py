@@ -3,7 +3,8 @@
 Teacher (``qcfg=None``) and student run the same code.  Layer parameters
 stay stacked on a leading axis, as the JAX package's ``vmap``-stacked trees
 are, so converted trees and exports line up; the ``lax.scan`` over layers is
-a loop over that axis.  The dense GQA and MoE families are ported.
+a loop over that axis.  The dense GQA, MoE and MLA + MoE (DeepSeek-V2)
+families are ported.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..device import resolve_device
 from ..tree import tree_from_items, tree_items
-from .attention import attention, init_attention, init_kv_cache
+from .attention import (attention, init_attention, init_kv_cache, init_mla,
+                        init_mla_cache, mla_attention)
 from .config import ModelConfig
 from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, tap)
@@ -25,7 +27,7 @@ from .moe import init_moe, moe_block
 Params = dict[str, Any]
 
 #: the families this module runs
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "mla_moe")
 
 _RUNTIME: dict[str, Any] = {}
 
@@ -38,11 +40,12 @@ def set_runtime(**kw) -> None:
 
 def _require_family(cfg: ModelConfig) -> None:
     if (cfg.family not in FAMILIES or cfg.mlp != "swiglu"
-            or cfg.mrope_sections or cfg.mla or cfg.ssm
-            or (cfg.moe is None) != (cfg.family == "dense")):
+            or cfg.mrope_sections or cfg.ssm
+            or (cfg.moe is None) != (cfg.family == "dense")
+            or (cfg.mla is None) != (cfg.family != "mla_moe")):
         raise NotImplementedError(
-            f"repro_torch ports the dense GQA and MoE families (SwiGLU, "
-            f"RoPE); {cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense GQA, MoE and MLA + MoE families "
+            f"(SwiGLU, RoPE); {cfg.name!r} is family {cfg.family!r}")
 
 
 def _sorted(tree):
@@ -55,7 +58,9 @@ def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
     lead = (n,)
     layers = {"norm1": init_rmsnorm(cfg.d_model, lead, gen.device),
               "norm2": init_rmsnorm(cfg.d_model, lead, gen.device),
-              "attn": init_attention(gen, cfg, qcfg, lead=lead),
+              "attn": (init_mla(gen, cfg, qcfg, lead=lead)
+                       if cfg.mla is not None
+                       else init_attention(gen, cfg, qcfg, lead=lead)),
               "mlp": (init_moe(gen, cfg, qcfg, lead=lead)
                       if cfg.moe is not None
                       else init_mlp(gen, cfg.d_model, cfg.d_ff, qcfg,
@@ -100,8 +105,10 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Params:
-    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, dtype,
-                         device=device)
+    """The monolithic cache: the latent ``ckv``/``kr`` for MLA, else
+    ``k``/``v``."""
+    init = init_mla_cache if cfg.mla is not None else init_kv_cache
+    return init(cfg, batch, max_len, cfg.n_layers, dtype, device=device)
 
 
 def stack_depth(tree) -> int:
@@ -134,9 +141,13 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
                 prefix):
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".attn_in", h)
-    a = attention(h, lp["attn"], cfg, qcfg, positions, cache,
-                  plan=pv.child("attn"), use_kernels=use_kernels, taps=taps,
-                  prefix=prefix + ".attn")
+    if cfg.mla is not None:           # taps nothing inside, as the JAX package
+        a = mla_attention(h, lp["attn"], cfg, qcfg, positions, cache,
+                          plan=pv.child("attn"), use_kernels=use_kernels)
+    else:
+        a = attention(h, lp["attn"], cfg, qcfg, positions, cache,
+                      plan=pv.child("attn"), use_kernels=use_kernels,
+                      taps=taps, prefix=prefix + ".attn")
     tap(taps, prefix + ".attn_out", a)
     x = x + a
     h = rmsnorm(x, lp["norm2"])

@@ -20,7 +20,9 @@ engine does; ``quant_matmul`` is reached through
 ``serve.deploy.kernel_route_check`` on the artifact, not from the decode
 loop.  The decode attention goes through the CUDA ``decode_attention``
 kernel (its paged entry, which reads the pools through the page table, for
-the paged cache) unless the DeployPlan says ``use_kernels=False``.
+the paged cache) unless the DeployPlan says ``use_kernels=False``.  MLA
+(DeepSeek-V2) serves its monolithic bf16 latent cache, and its attention is
+einsums on either route: ``decode_route`` never routes it.
 
 Sampling: per-request temperature/top_k/top_p/seed drawn on the device
 (core/sampling.py); ``temperature=0`` (the default) is exact greedy.
@@ -167,10 +169,12 @@ def _activate_state(state, slot: int, last_logits: torch.Tensor, req: Request
 
 def _install(cache, slot_cache, slot: int, plen: int) -> None:
     """Copy a finished batch-1 prefill into slot row ``slot`` of the
-    monolithic cache (the whole row, so garbage the masked decode wrote into
-    a dead slot is erased)."""
-    for name in ("k", "v"):
-        cache[name][:, slot] = slot_cache[name][:, 0].to(cache[name].dtype)
+    monolithic cache: every leaf (``k``/``v``, or MLA's latent ``ckv``/
+    ``kr``), the whole row, so garbage the masked decode wrote into a dead
+    slot is erased."""
+    for name, leaf in cache.items():
+        if name != "pos":
+            leaf[:, slot] = slot_cache[name][:, 0].to(leaf.dtype)
     cache["pos"][slot] = plen
 
 
@@ -282,7 +286,7 @@ class Engine:
                scfg: ServeConfig | None, dev: torch.device) -> None:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves the {' and '.join(FAMILIES)} "
+                f"the port's engine serves the {', '.join(FAMILIES)} "
                 f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.device = dev
@@ -322,9 +326,10 @@ class Engine:
                                              use_kernels=plan.use_kernels)
         self._params_bytes = _tree_bytes(self.params)
         self._artifact_bytes = _tree_bytes(exported)
-        self._prefill_slot_bytes = 2 * math.prod(
-            (cfg.n_layers, 1, self.scfg.max_len, cfg.n_kv_heads_padded,
-             cfg.head_dim)) * torch.bfloat16.itemsize
+        # a batch-1 cache sized on the meta device, its pos counted as the
+        # JAX package's int32 scalar
+        self._prefill_slot_bytes = _tree_bytes(
+            init_cache(cfg, 1, self.scfg.max_len, device="meta")) + 4
         self.reset()
 
     # ------------------------------------------------------------ lifecycle
@@ -363,8 +368,9 @@ class Engine:
         attention invocations of one decode step take the ``decode_attention``
         kernel route vs the plain masked route, per
         ``models.attention.decode_route`` — the predicate the forward uses.
+        MLA's attention is neither (it never routes): both are 0.
         """
-        n_attn = self.cfg.n_layers           # one attention per layer
+        n_attn = 0 if self.cfg.mla is not None else self.cfg.n_layers
         depth = (self._kv.view_len if self._kv is not None
                  else self.scfg.max_len)
         routed = (n_attn if decode_route(self.cfg, depth,

@@ -924,3 +924,104 @@ def test_moe_decode_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert decode_attention.launches_paged - before == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-236b's MLA: K3 at an MLA weight, the latent-cache decode step,
+# the absorbed decode form
+# ---------------------------------------------------------------------------
+
+def _mla_smoke(cf=4.0, absorb=False):
+    from repro_torch.configs.deepseek_v2_236b import SMOKE
+    return dataclasses.replace(SMOKE, mla_absorb=absorb,
+                               moe=dataclasses.replace(SMOKE.moe,
+                                                       capacity_factor=cf))
+
+
+@pytest.mark.parametrize("rule", ["kernel", "ste"])
+def test_fake_quant_kernel_at_an_mla_view(cuda, rule):
+    """K3 at deepseek-v2-236b's k_up/v_up weight ``[512, 16384]`` with its
+    full S_wL ⊗ S_wR scale (``kv_stream``'s ``[512]`` times ``[16384]``):
+    forward, gx and gs bit for bit against the plain version."""
+    R, C = 512, 16384
+    x, s, g = _fq_case(R, C, (R, C), 4, cuda, seed=23)
+    xt, st = x.clone().requires_grad_(), s.clone().requires_grad_()
+    before = fake_quant_kernel.launches_fwd
+    y = fake_quant_kernel(xt, st, 4, rule=rule)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert fake_quant_kernel.launches_fwd == before + 1
+    assert torch.equal(y.detach(), fake_quant_ref(x, s, 4))
+    gx_ref, gs_ref = fake_quant_grad_ref(g, x, s, 4, rule)
+    assert torch.equal(xt.grad, gx_ref)
+    assert torch.equal(st.grad, gs_ref)
+
+
+def _mla_engine(cuda, absorb=False):
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg, qcfg = _mla_smoke(absorb=absorb), QuantConfig()
+    params = init_model(0, cfg, qcfg, device=cuda)
+    plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
+                            params=params, model_cfg=cfg)
+    return Engine.from_artifact(cfg, plan, export_for_layers(params, plan),
+                                ServeConfig(max_slots=2, max_len=64,
+                                            prefill_chunk=16))
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_decode_step_makes_no_host_sync(cuda, absorb):
+    """One decode step of an MLA engine on the card (the latent cache's
+    per-slot write, the einsum attention in either decode form, the MoE
+    dispatch, sampling) under ``torch.cuda.set_sync_debug_mode("error")``:
+    no operation reads the device back to the host; no decode_attention
+    or flash_attention launch."""
+    from repro_torch.serve.engine import Request
+    eng = _mla_engine(cuda, absorb)
+    assert sorted(eng.cache) == ["ckv", "kr", "pos"]
+    eng.submit(Request(prompt=[1, 2, 3, 4, 5], max_new_tokens=8))
+    eng.step()                            # admit, prefill, install, decode
+    before = (decode_attention.launches, flash_attention.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.cache, eng.state, _, _ = eng._decode(eng.params, eng.cache,
+                                                 eng.state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_mla_absorbed_form_matches_default_form_on_the_card(cuda, cached):
+    """``mla_attention`` in f32 on the card, a weights-only W4 student
+    (no activation fake-quant, so the two forms are the same function):
+    the absorbed form within 1e-5 x max|default| of the default one,
+    cache-free and on a per-slot latent cache."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import attention
+    cfg, qcfg = _mla_smoke(), QuantConfig(a_bits=None)
+    p = attention.init_mla(torch.Generator(device=cuda).manual_seed(1), cfg,
+                           qcfg)
+    B, Sq = (3, 1) if cached else (2, 9)
+    x = _rand((B, Sq, cfg.d_model), 24, cuda)
+    pos = torch.tensor([4, 0, 12], dtype=torch.int32, device=cuda)
+    positions = (pos[:, None] if cached else
+                 torch.arange(Sq, device=cuda)[None].expand(B, Sq))
+    outs = []
+    for absorb in (False, True):
+        cache = None
+        if cached:
+            m = cfg.mla
+            cache = {"ckv": _rand((B, 16, m.kv_lora), 25, cuda),
+                     "kr": _rand((B, 16, m.d_rope), 26, cuda), "pos": pos}
+        with torch.no_grad():
+            outs.append(attention.mla_attention(
+                x, p, dataclasses.replace(cfg, mla_absorb=absorb), qcfg,
+                positions, cache, use_kernels=True))
+    torch.cuda.synchronize()
+    err = float((outs[1] - outs[0]).abs().max())
+    assert err <= 1e-5 * float(outs[0].abs().max()), err
