@@ -27,10 +27,14 @@ Phases, each fatal on failure:
    scale, the 8-bit router, the shared experts) and at deepseek-v2-236b's
    six MLA weights (q_down, q_up, kv_down, k_up, v_up, wo; each with the
    train path's full scale and with a per-channel one beside the
-   library's per-channel fake-quant);
+   library's per-channel fake-quant), and at the four Mamba2 weights of
+   mamba2-1.3b and zamba2-7b (in_proj, out_proj; the same two scales);
    flash_attention at the teacher's prefill, B 16 x S 512, and a ragged
    B 1 x S 300, 32/8 heads, f32 through its FMA body and bf16 through its
-   tensor-core body, causal and not), with the error,
+   tensor-core body, causal and not, and zamba2-7b's teacher shape, B 16 x
+   S 512, 32/32 heads, hd 112, bf16 causal, through its FMA body;
+   decode_attention at zamba2-7b's head dim 112, 32 kv heads x a group of
+   1, bf16 and int8 on the slot view and the paged entry), with the error,
    the kernel's, the plain version's and a library call's time (CUDA
    events, after warm-up) and the least time the card could take.
 4. reference — a SMOKE-size model served on the card through the kernels
@@ -119,6 +123,33 @@ Phases, each fatal on failure:
    way), no flash_attention launch (the teacher's MLA is einsums on both
    routes, so its hidden states must agree exactly), export and 2 greedy
    requests from the trained artifact.
+14. mamba2 — phase 5's main path on mamba2-1.3b at full width and depth
+   (48 layers, d 2048, 64 SSM heads x 64, d_state 128, the head tied to
+   the embedding): the monolithic cache of f32 Mamba2 state, prefill in
+   exact-length 128-token chunks (the 300- and 1000-token prompts cross
+   several), no kernel in a decode step (so the kernel and plain routes
+   must give identical tokens), quant_matmul once through the route
+   check; a profile of four decode steps with the recurrent state update
+   as a range.
+15. mamba2 QFT — phase 6's train path on mamba2-1.3b at full width and
+   depth (48 layers), 3 steps of the batch in 8 microbatches: in_proj and
+   out_proj of every layer through fake_quant (1 + 2 x 48 launches a
+   microbatch each way, the tied head
+   not run), no attention kernel (the teacher's hidden states must agree
+   exactly across routes), export and 2 greedy requests.
+16. zamba2 — phase 5's main path on zamba2-7b at full width and depth (81
+   layers: 13 groups of 6 Mamba2 layers, each followed by the one shared
+   attention block, then 3 tail layers): decode_attention at hd 112 on
+   the monolithic bf16 KV cache in all 13 shared-attention calls of every
+   decode step (stats() reports 13 kernel layers), exact-length chunked
+   prefill, tokens against the plain route under phase 5's margin rule.
+17. zamba2 QFT — phase 6's train path on zamba2-7b at full width, depth
+   cut to 7 layers (one group of 6 and one tail layer, so the tail runs),
+   3 steps: every weight through fake_quant (the shared block's seven
+   once per group call), the teacher's shared attention through
+   flash_attention's FMA body (hd 112), its hidden states against the
+   plain route, export (the [G, 6] Mamba2 stack's parity) and 2 greedy
+   requests.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -191,6 +222,17 @@ DS_TRAIN_EXPERTS = 16
 DS_TRAIN_CAPACITY_FACTOR = 3.0
 DS_TRAIN_LAYERS = 2
 DS_TRAIN_STEPS = 3
+#: phase 15: mamba2-1.3b's QFT at its full 48 layers (1.34 B parameters,
+#: ~27 GB of f32 teacher, student, Adam state and gradients); phase 17:
+#: zamba2-7b's at 7 of 81 layers (one group of 6 and one tail layer)
+MAMBA_TRAIN_LAYERS = 48
+#: the batch (16 x 512) in 8 microbatches: in 4, the SSD scan's f32
+#: intermediates that autograd keeps ([2 sequences, 4 chunks, 128, 128, 64
+#: heads] a tensor) outgrow the card at 48 layers (measured: out of memory
+#: in the first step's forward)
+MAMBA_TRAIN_MICROBATCHES = 8
+ZAMBA_TRAIN_LAYERS = 7
+SSM_TRAIN_STEPS = 3
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -289,9 +331,10 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
 
 
 def check_decode_attention(kv, G: int = 4, tag: str = "",
-                           Hkv: int = 8) -> dict:
-    """K2's rows at ``Hkv`` kv heads and a GQA group of ``G`` query heads
-    per kv head (qwen3-8b 8 x 4, phi4-mini 8 x 3, qwen2-moe 16 x 1): bf16
+                           Hkv: int = 8, hd: int = 128) -> dict:
+    """K2's rows at ``Hkv`` kv heads, a GQA group of ``G`` query heads
+    per kv head and head dim ``hd`` (qwen3-8b 8 x 4, phi4-mini 8 x 3,
+    qwen2-moe 16 x 1, zamba2 32 x 1 at hd 112): bf16
     and int8 on the slot view at the engine's slot
     pool (S 8 x T ``kv.view_len``), one long bf16 slot (S 1 x T 2048), and
     the paged entry at the engine's geometry (``kv``: P 16, pt [8, 128])
@@ -307,7 +350,7 @@ def check_decode_attention(kv, G: int = 4, tag: str = "",
                                          decode_attention_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    S, hd, T = 8, 128, kv.view_len
+    S, T = 8, kv.view_len
     P, n_pg = kv.page_size, kv.max_pages_per_slot
     # the main path's four requests mid-decode, a fresh slot (length 1), a
     # full slot (T) and two split edges
@@ -739,6 +782,58 @@ def check_flash_attention(cfg) -> dict:
     return record
 
 
+def check_flash_attention_fma(cfg) -> dict:
+    """flash_attention's FMA body at zamba2-7b's teacher shape: B 16 x
+    S 512, its 32/32 heads at hd 112 (the tensor-core body is built for
+    hd 64 and 128 only), bf16, causal; against the plain version within
+    the bf16 tolerance of check_flash_attention, two runs' bits compared,
+    beside SDPA.  Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_prefill,
+                                                     flash_attention)
+    from repro_torch.kernels.ref import attention_prefill_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    B, S, H, Hkv, hd = 16, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+               .bfloat16() for h in (H, Hkv, Hkv))
+    before = flash_attention.launches_fma
+    out = attention_prefill(q, k, v, causal=True)
+    if flash_attention.launches_fma != before + 1:
+        fail(f"flash_attention at hd {hd} did not run the FMA body")
+    ref = attention_prefill_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol = atol = 3e-2
+    diff = (out.float() - ref.float()).abs()
+    excess = float((diff - rtol * ref.float().abs()).max())
+    err = float(diff.max())
+    if not math.isfinite(err) or excess > atol:
+        fail(f"flash_attention hd {hd}: max_abs_err {err}, beyond rtol "
+             f"{rtol} + atol {atol} by {excess - atol}")
+    if not torch.equal(out, attention_prefill(q, k, v, causal=True)):
+        fail("flash_attention hd 112: two runs differ")
+    ms = time_ms(lambda: attention_prefill(q, k, v, causal=True), iters=10)
+    plain_ms = time_ms(lambda: attention_prefill_ref(q, k, v, causal=True),
+                       iters=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    nbytes = 2 * hd * B * S * (2 * H + 2 * Hkv)
+    flops = 4.0 * B * H * (S * (S + 1) // 2) * hd
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    say(f"[kernel] flash_attention zamba2 B={B} S={S} H={H} Hkv={Hkv} "
+        f"hd={hd} bf16 causal=True body=fma max_abs_err={err:.3e} (rtol "
+        f"{rtol} atol {atol}) ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (kernel/SDPA "
+        f"{ms / lib_ms:.2f}x) bound_ms={b_ms:.4f} ({b_by})")
+    del q, k, v, out, ref, diff
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "body": "fma", "hd": hd}
+
+
 def _fq_row(name: str, x, s, bits: int, exact_gs: bool,
             lib_axis: int | None = None) -> dict:
     """One fake_quant row: forward bit-equal, both backward rules (gx
@@ -900,6 +995,37 @@ def check_fake_quant_mla(cfg) -> dict:
                                          col, 4, exact_gs=False, lib_axis=1)
         del x, s, col
         torch.cuda.empty_cache()
+    return out
+
+
+def check_fake_quant_ssm(*cfgs) -> dict:
+    """fake_quant at the Mamba2 weights of each config (mamba2-1.3b's
+    in_proj ``[2048, 8512]`` and out_proj ``[4096, 2048]``, zamba2-7b's
+    ``[3584, 14704]`` and ``[7168, 3584]``), as the train path hands them
+    over one layer at a time: with the full scale (``S_wL[in]`` from the
+    stream times ``S_wR[out]``), then with a per-channel one beside the
+    library's per-channel learnable fake-quant.  Returns {view: record}."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for cfg in cfgs:
+        sc, d = cfg.ssm, cfg.d_model
+        di = sc.d_inner(d)
+        views = {"in_proj": (d, 2 * di + 2 * sc.n_groups * sc.d_state
+                             + sc.n_heads(d)),
+                 "out_proj": (di, d)}
+        for name, (R, C) in views.items():
+            tag = f"{cfg.name} {name}"
+            x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+            col = (torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+                3 * R ** -0.5 / 7)
+            s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * col
+            out[tag] = _fq_row(tag, x, s, 4, exact_gs=True)
+            out[f"{tag} channel"] = _fq_row(f"{tag} channel", x, col, 4,
+                                            exact_gs=False, lib_axis=1)
+            del x, s, col
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1088,9 +1214,11 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
     # one range; MLA's attention as one, and inside it, in the default
     # form, the k_up/v_up products over the whole latent cache (the only
     # linears whose input is kv_lora wide) as another
-    from repro_torch.models import moe
-    ffn, qlinear, mla = moe._expert_ffn, dof.qlinear, \
-        transformer.mla_attention
+    # the SSM's recurrent state update (the conv over the cached window,
+    # h·exp(dt·A) + dt·B·x written into the cache, C·h + D·x) as one
+    from repro_torch.models import moe, ssm
+    ffn, qlinear, mla, step = moe._expert_ffn, dof.qlinear, \
+        transformer.mla_attention, ssm._recurrent_step
 
     def ranged(fn, name, when=lambda *a, **k: True):
         def run(*a, **k):
@@ -1104,6 +1232,9 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
     if cfg.mla is not None:
         ranges += ("mla_attention",)
         transformer.mla_attention = ranged(mla, "mla_attention")
+    if cfg.ssm is not None:
+        ranges += ("ssm state update",)
+        ssm._recurrent_step = ranged(step, "ssm state update")
     if cfg.mla is not None and not cfg.mla_absorb:
         ranges += ("k_up/v_up over the cache",)
         dof.qlinear = ranged(qlinear, "k_up/v_up over the cache",
@@ -1116,6 +1247,7 @@ def profile_decode(engine, cfg, steps: int = 4) -> None:
     finally:
         moe._expert_ffn, dof.qlinear, transformer.mla_attention = \
             ffn, qlinear, mla
+        ssm._recurrent_step = step
 
 
 def _engine_as(engine, cfg, use_kernels: bool = True):
@@ -1158,14 +1290,16 @@ def main_path(cfg, layers: int | None = None) -> dict:
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
                                           make_deploy_plan)
-    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.serve.engine import (Engine, Request, ServeConfig,
+                                          _attn_layer_count)
     from repro_torch.tree import tree_items
     full_depth = cfg.n_layers
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     mla = cfg.mla is not None
-    # layers whose decode attention decode_attention carries (MLA: none)
-    n_routed = 0 if mla else cfg.n_layers
+    # attention calls of a decode step that decode_attention carries (MLA
+    # and the SSM: none; the hybrid: one a group)
+    n_routed = _attn_layer_count(cfg)
     qcfg = QuantConfig()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1187,6 +1321,13 @@ def main_path(cfg, layers: int | None = None) -> dict:
         m = cfg.mla
         ff = (f"MLA kv_lora {m.kv_lora} q_lora {m.q_lora} nope {m.d_nope} "
               f"rope {m.d_rope} v {m.d_v}, " + ff)
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        ff = (f"Mamba2 d_inner {sc.d_inner(cfg.d_model)} heads "
+              f"{sc.n_heads(cfg.d_model)} x {sc.head_dim} d_state "
+              f"{sc.d_state} groups {sc.n_groups} chunk {sc.chunk}"
+              + (f", attention every {cfg.attn_every} layers (hd "
+                 f"{cfg.head_dim}), " + ff if cfg.family == "hybrid" else ""))
     say(f"[main] {cfg.name} full width: {cfg.n_layers} of {full_depth} "
         f"layers ({n_params / 1e9:.2f} B parameters) d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} {ff} vocab={cfg.vocab};"
@@ -1221,6 +1362,7 @@ def main_path(cfg, layers: int | None = None) -> dict:
     # ---
     stats = engine.stats()
     steps = engine.decode_steps
+    n_paged = n_routed if engine._kv is not None else 0
     if not (check and check["kernel"]):
         fail(f"kernel_route_check did not run quant_matmul: {check}")
     if not check["max_err"] <= 1e-4:
@@ -1231,15 +1373,15 @@ def main_path(cfg, layers: int | None = None) -> dict:
     if launches["decode_attention"] != n_routed * steps or steps == 0:
         fail(f"decode_attention launched {launches['decode_attention']} "
              f"times over {steps} decode steps of {n_routed} routed layers")
-    if launches["decode_attention_paged"] != n_routed * steps:
+    if launches["decode_attention_paged"] != n_paged * steps:
         fail(f"decode_attention's paged entry launched "
              f"{launches['decode_attention_paged']} times over {steps} "
-             f"decode steps of {n_routed} routed layers")
+             f"decode steps, want {n_paged} a step")
     if launches["flash_attention"]:
         fail(f"the engine launched flash_attention "
              f"{launches['flash_attention']} times")
-    if launches["quant_matmul"] < 1 or (mla and launches["quant_matmul"]
-                                        != 1):
+    if launches["quant_matmul"] < 1 or (
+            (mla or cfg.ssm is not None) and launches["quant_matmul"] != 1):
         fail(f"quant_matmul launched {launches['quant_matmul']} times on the "
              f"main path")
     for p, t in zip(prompts, toks):
@@ -1279,6 +1421,9 @@ def main_path(cfg, layers: int | None = None) -> dict:
     same = sum(a == b for a, b in zip(toks, ptoks))
     say(f"[main] plain route: {same}/{len(reqs)} requests token-identical to "
         f"the kernel route (greedy)")
+    if n_routed == 0 and not mla and same != len(reqs):
+        fail(f"{cfg.name}: no kernel runs in a decode step, yet the plain "
+             f"route's tokens differ")
     for p, a, b in zip(prompts, toks, ptoks):
         if a != b:
             where = _first_split(cfg, p, ("plain", plain, False, b),
@@ -1334,7 +1479,10 @@ def _serve_recorded(engine, prompt: list[int], n: int, use_kernels: bool
     def rec_forward(*a, **k):
         out = forward(*a, **k)
         # the slot decode step: its cache carries a per-slot pos vector
-        if isinstance((k.get("cache") or {}).get("pos"), torch.Tensor):
+        # (the hybrid's under its shared attention's cache)
+        cache = k.get("cache") or {}
+        if isinstance(cache.get("pos", cache.get("attn", {}).get("pos")),
+                      torch.Tensor):
             events.append(("z", out["logits"][:, -1].float().cpu()))
         return out
 
@@ -1460,13 +1608,15 @@ def _zero_counts() -> None:
     _set_counts(dict.fromkeys(_counters(), 0))
 
 
-def _teacher_on_tensor_cores(counts: dict, where: str) -> None:
-    """Every flash_attention launch in ``counts`` went through the
-    tensor-core body (the teacher's bf16 attention at hd 128)."""
-    if counts["flash_attention_wgmma"] != counts["flash_attention"]:
-        fail(f"{where}: {counts['flash_attention_fma']} of "
-             f"{counts['flash_attention']} flash_attention launches took the "
-             f"FMA body")
+def _teacher_on_tensor_cores(counts: dict, where: str,
+                             body: str = "wgmma") -> None:
+    """Every flash_attention launch in ``counts`` went through ``body``:
+    the tensor-core body for the teacher's bf16 attention at hd 128, the
+    FMA body at hd 112 (zamba2)."""
+    other = counts["flash_attention"] - counts[f"flash_attention_{body}"]
+    if other:
+        fail(f"{where}: {other} of {counts['flash_attention']} "
+             f"flash_attention launches did not take the {body} body")
 
 
 def _gib() -> float:
@@ -1511,17 +1661,55 @@ def _linears_per_layer(cfg) -> int:
     return attn + 1 + 3 + (3 if cfg.moe.n_shared else 0)
 
 
-def train_path(cfg, layers: int = TRAIN_LAYERS,
-               steps: int = TRAIN_STEPS) -> dict:
-    """QFT at full width, ``layers`` deep: prepare, ``steps`` steps, export
-    and serve, the plain-route comparison.  Returns the kernels' launch
-    counts."""
+def _fq_per_forward(cfg) -> int:
+    """fake_quant launches of one student forward that reads no head: the
+    embedding, then each Mamba2 layer's in_proj and out_proj (SSM,
+    hybrid) and each call of the hybrid's shared block (its seven
+    weights, every group), or each layer's linears."""
+    if cfg.family == "ssm":
+        return 1 + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return 1 + 2 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every)
+    return 1 + _linears_per_layer(cfg) * cfg.n_layers
+
+
+def _parity_nodes(cfg, student, exported) -> list:
+    """(name, student linear, its input stream, exported linear) for the
+    export parity check: layer 0's first linear (wq; MLA's q_down; the
+    Mamba2 in_proj — for the hybrid its group 0, the whole ``[6, in,
+    out]`` stack — and the tail's and the shared block's first), and a
+    MoE's up expert stack (its s_wl shared by the experts)."""
+    from repro_torch.models.transformer import layer_slice
+    if cfg.ssm is not None:
+        mods = [("layers", "ssm", "in_proj")]
+        if cfg.family == "hybrid":
+            mods += [("tail", "ssm", "in_proj")] if "tail" in student else []
+            mods += [("shared_attn", "attn", "wq")]
+    else:
+        mods = [("layers", "attn", "q_down" if cfg.mla is not None
+                 else "wq")]
+        mods += [("layers", "mlp", "up")] if cfg.moe is not None else []
+    out = []
+    for top, mod, lin in mods:
+        s_node, e_node = student[top][mod], exported[top][mod][lin]
+        if top != "shared_attn":
+            s_node = layer_slice(s_node, 0)
+            e_node = layer_slice(e_node, 0)
+        out.append((f"{top} 0 {lin}", s_node[lin], s_node["in_stream"],
+                    e_node))
+    return out
+
+
+def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
+               microbatches: int = TRAIN_MICROBATCHES) -> dict:
+    """QFT at full width, ``layers`` deep: prepare, ``steps`` steps of the
+    batch in ``microbatches``, export and serve, the plain-route
+    comparison.  Returns the kernels' launch counts."""
     import torch
     from repro_torch.core import dof
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.calib import CalibConfig, CalibDataset
     from repro_torch.models import forward, init_model
-    from repro_torch.models.transformer import layer_slice
     from repro_torch.pipeline.adapters import resolve_quant_plan
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
@@ -1530,12 +1718,18 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
     from repro_torch.train.steps import make_value_and_grad
     from repro_torch.tree import tree_items
+    from repro_torch.kernels.flash_attention import body_for
+    from repro_torch.serve.engine import _attn_layer_count
     full_depth = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
     L = cfg.n_layers
-    # layers whose attention the attention kernels carry (MLA: none; its
-    # attention is einsums on both routes)
-    L_attn = 0 if cfg.mla is not None else L
+    # attention calls of a forward that the attention kernels carry (MLA
+    # and the SSM: none; MLA's attention is einsums on both routes; the
+    # hybrid: one a group)
+    L_attn = _attn_layer_count(cfg)
+    # the teacher's bf16 attention: the tensor-core body at hd 64/128, the
+    # FMA body otherwise (zamba2's hd 112)
+    fa_body = body_for(torch.bfloat16, cfg.head_dim, "bshd")
     qcfg = QuantConfig()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1551,7 +1745,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     qplan = resolve_quant_plan(cfg, qcfg)
     trainer = QFTTrainer(cfg, qcfg, teacher, QFTConfig(),
                          steps_per_epoch=data.steps_per_epoch,
-                         microbatches=TRAIN_MICROBATCHES, plan=qplan)
+                         microbatches=microbatches, plan=qplan)
 
     # --- the path, with every kernel count at 0 just before it
     _zero_counts()
@@ -1569,7 +1763,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     if prep_fa != 2 * L_attn:     # the teacher over 2 calibration batches
         fail(f"calibration launched flash_attention {prep_fa} times, want "
              f"{2 * L_attn}")
-    _teacher_on_tensor_cores(_counts(), "calibration")
+    _teacher_on_tensor_cores(_counts(), "calibration", fa_body)
     torch.cuda.reset_peak_memory_stats()
     student, hist = trainer.run(student, data, steps=steps, log_every=1)
     torch.cuda.synchronize()
@@ -1577,30 +1771,32 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
     losses = [h["loss"] for h in hist]
     ts = [h["t"] for h in hist]
     step_ms = [1e3 * (b - a) for a, b in zip([0.0] + ts[:-1], ts)]
-    n_lin = _linears_per_layer(cfg)
-    per_fwd = 1 + n_lin * L       # embed + the layers' linears; no lm_head
-    want = steps * TRAIN_MICROBATCHES * per_fwd
+    per_fwd = _fq_per_forward(cfg)    # embed + the layers'; no lm_head
+    want = steps * microbatches * per_fwd
     run_counts = _counts()
     say(f"[train] {steps} steps, batch {TRAIN_DATA['batch_size']} x "
-        f"{TRAIN_DATA['seq_len']} in {TRAIN_MICROBATCHES} microbatches: "
+        f"{TRAIN_DATA['seq_len']} in {microbatches} microbatches: "
         f"loss {', '.join(f'{x:.6f}' for x in losses)}; ms/step "
         f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{steps} "
         f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
         f"{peak_run:.2f} GiB")
-    fa_want = steps * TRAIN_MICROBATCHES * L_attn
+    fa_want = steps * microbatches * L_attn
     say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
         f"backward {run_counts['fake_quant_bwd']} (= {steps} steps x "
-        f"{TRAIN_MICROBATCHES} microbatches x (1 embed + {n_lin} x {L} "
-        f"linears); "
+        f"{microbatches} microbatches x {per_fwd}: 1 embed + the "
+        f"linears of {L} layers"
+        + (f" + 7 x {L_attn} shared-block calls" if cfg.family == "hybrid"
+           else "") + "); "
         f"lm_head is not run: the backbone-L2 loss never reads it); "
         f"flash_attention (the teacher) {prep_fa} in calibration + "
         f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
-        f"{steps} x {TRAIN_MICROBATCHES} x {L_attn} layers)")
+        f"{steps} x {microbatches} x {L_attn} attention calls, "
+        f"{fa_body} body)")
     if run_counts["flash_attention"] - prep_fa != fa_want:
         fail(f"the steps launched flash_attention "
              f"{run_counts['flash_attention'] - prep_fa} times, want "
              f"{fa_want}")
-    _teacher_on_tensor_cores(run_counts, "the train steps")
+    _teacher_on_tensor_cores(run_counts, "the train steps", fa_body)
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}")
     if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
@@ -1616,21 +1812,16 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
              "the plan it trained on")
     with torch.no_grad():
         exported = export_for_layers(student, plan, device=DEVICE)
-        lp0 = layer_slice(student["layers"], 0)
-        # layer 0's wq (MLA: q_down), and a MoE's up expert stack (its
-        # s_wl shared by the experts)
-        first = "q_down" if cfg.mla is not None else "wq"
-        for mod, lin in (("attn", first),) + (
-                (("mlp", "up"),) if cfg.moe is not None else ()):
-            w_eff = dof.effective_weight(lp0[mod][lin], qcfg,
-                                         lp0[mod]["in_stream"]["log_sa"],
+        parities = []
+        for lin, node, stream, ex in _parity_nodes(cfg, student, exported):
+            w_eff = dof.effective_weight(node, qcfg, stream["log_sa"],
                                          compute_dtype=torch.float32)
-            w_dq = dof.dequantize_export(
-                layer_slice(exported["layers"][mod][lin], 0), torch.float32)
+            w_dq = dof.dequantize_export(ex, torch.float32)
             parity = float((w_eff - w_dq).abs().max())
             if parity > 1e-6 * float(w_eff.abs().max()):
-                fail(f"export parity: layer 0 {lin} dequantized export vs "
-                     f"the trained effective weight, max err {parity}")
+                fail(f"export parity: {lin} dequantized export vs the "
+                     f"trained effective weight, max err {parity}")
+            parities.append(f"{lin} {tuple(w_eff.shape)} {parity:.3e}")
             del w_eff, w_dq
     check = kernel_route_check(exported, plan)
     scfg = ServeConfig(max_slots=2, max_len=256, prefill_chunk=128)
@@ -1653,7 +1844,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
         fail(f"decode_attention launched {counts['decode_attention']} times "
              f"over {engine.decode_steps} decode steps of {L_attn} routed "
              f"layers")
-    say(f"[train] export parity (layer 0 {lin}) {parity:.3e}; "
+    say(f"[train] export parity ({'; '.join(parities)}); "
         f"kernel_route_check {check['path']}: quant_matmul ran, max_err "
         f"{check['max_err']:.3e}; served {len(reqs)} greedy requests from "
         f"the trained artifact: {toks}; launches quant_matmul="
@@ -1690,7 +1881,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
                 fail(f"teacher forward (use_kernels={use}) launched "
                      f"flash_attention {delta['flash_attention']} times over "
                      f"{L_attn} routed layers")
-            _teacher_on_tensor_cores(delta, "the teacher forward")
+            _teacher_on_tensor_cores(delta, "the teacher forward", fa_body)
 
     def rel(a, b):
         a, b = a["hidden"].float(), b["hidden"].float()
@@ -1706,8 +1897,9 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
                   f"— unpinned: rel L2 "
                   f"{rel(hidden[True, None], hidden[False, None]):.3e}, "
                   f"{flips} of {n_dec} token-layer expert sets differ")
-    what = ("the kernel route (MLA: einsums, no kernel)"
-            if cfg.mla is not None else "flash_attention")
+    what = ("the kernel route (no attention kernel: MLA's is einsums, the "
+            "SSM has none)" if L_attn == 0 else
+            f"flash_attention ({fa_body} body)")
     say(f"[train] teacher hidden states, {what} vs the plain route "
         f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
         f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
@@ -1715,21 +1907,25 @@ def train_path(cfg, layers: int = TRAIN_LAYERS,
         f"kernel unnormalised, the plain route normalised){pinned}")
     if not hid_rel <= TEACHER_HIDDEN_BOUND:
         fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
-    if cfg.mla is not None and not torch.equal(hidden[True, None]["hidden"],
-                                               hidden[False, None]["hidden"]):
-        fail(f"teacher hidden states: MLA runs no kernel on either route, "
-             f"yet they differ (rel L2 {hid_rel})")
+    if L_attn == 0 and not torch.equal(hidden[True, None]["hidden"],
+                                       hidden[False, True]["hidden"]):
+        fail(f"teacher hidden states: no kernel runs on either route, yet "
+             f"they differ (rel L2 {hid_rel})")
     targets = hidden[True, None]
     del hidden
-    vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
-                             plan=qplan)
-    _profile(lambda: vg(student, teacher, batch), "train-step forward+"
-             "backward (kernel route, teacher included, 4 microbatches, no "
-             "optimizer)", 1, watch=("fa_wgmma_kernel", "fq_"))
+    # one microbatch profiled, not the step: the profiler's processing
+    # grows with the events in its window, and a whole step of mamba2's 48
+    # layers in 8 microbatches launches ~200,000 kernels
+    rows = TRAIN_DATA["batch_size"] // microbatches
+    mb = {k: v[:rows] for k, v in batch.items()}
+    vg = make_value_and_grad(cfg, qcfg, plan=qplan)
+    _profile(lambda: vg(student, teacher, mb), f"microbatch forward+"
+             f"backward ({rows} x {TRAIN_DATA['seq_len']}, kernel route, "
+             f"teacher included, no optimizer)", 1, watch=("fa_", "fq_"))
     grads = {}
     for use in (True, False):
         before = _counts()
-        vg = make_value_and_grad(cfg, qcfg, microbatches=TRAIN_MICROBATCHES,
+        vg = make_value_and_grad(cfg, qcfg, microbatches=microbatches,
                                  plan=qplan, use_kernels=use)
         grads[use] = vg(student, teacher, batch, targets=targets)
         torch.cuda.synchronize()
@@ -2091,10 +2287,12 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
+    from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
     from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.kv_cache import resolve_kv_spec
     MOE = dataclasses.replace(QWEN2_MOE, moe=dataclasses.replace(
@@ -2117,12 +2315,20 @@ def main() -> int:
         resolve_kv_spec(MOE, ServeConfig(**MAIN_SERVE)),
         G=MOE.n_heads // MOE.n_kv_heads, tag=" qwen2-moe",
         Hkv=MOE.n_kv_heads)
+    # zamba2 serves a monolithic cache; the paged row takes the engine's
+    # page geometry at the same max_len
+    fd_zamba = check_decode_attention(
+        resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)),
+        G=ZAMBA2.n_heads // ZAMBA2.n_kv_heads, tag=" zamba2",
+        Hkv=ZAMBA2.n_kv_heads, hd=ZAMBA2.head_dim)
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
     fq_moe = check_fake_quant_moe(MOE)
     fq_mla = check_fake_quant_mla(DS)
+    fq_ssm = check_fake_quant_ssm(MAMBA2, ZAMBA2)
     fa = check_flash_attention(CONFIG)
+    fa_zamba = check_flash_attention_fma(ZAMBA2)
     check_reference()
     launches = main_path(CONFIG)
     train = train_path(CONFIG)
@@ -2147,6 +2353,23 @@ def main() -> int:
                           steps=DS_TRAIN_STEPS)
     say(f"[main] phase 13 ({DS.name} QFT, {DS_TRAIN_EXPERTS} experts) "
         f"{time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    mamba = main_path(MAMBA2)
+    say(f"[main] phase 14 ({MAMBA2.name}) {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    mamba_train = train_path(MAMBA2, layers=MAMBA_TRAIN_LAYERS,
+                             steps=SSM_TRAIN_STEPS,
+                             microbatches=MAMBA_TRAIN_MICROBATCHES)
+    say(f"[main] phase 15 ({MAMBA2.name} QFT, {MAMBA_TRAIN_LAYERS} layers) "
+        f"{time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    zamba = main_path(ZAMBA2)
+    say(f"[main] phase 16 ({ZAMBA2.name}) {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    zamba_train = train_path(ZAMBA2, layers=ZAMBA_TRAIN_LAYERS,
+                             steps=SSM_TRAIN_STEPS)
+    say(f"[main] phase 17 ({ZAMBA2.name} QFT, {ZAMBA_TRAIN_LAYERS} layers) "
+        f"{time.perf_counter() - t17:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2160,7 +2383,12 @@ def main() -> int:
                            launches=moe["decode_attention"],
                            launches_paged=moe["decode_attention_paged"]),
          "deepseek_v2": {"launches": ds["decode_attention"]
-                         + ds_train["decode_attention"]}},
+                         + ds_train["decode_attention"]},
+         "mamba2": {"launches": mamba["decode_attention"]
+                    + mamba_train["decode_attention"]},
+         "zamba2": dict(fd_zamba, launches=zamba["decode_attention"],
+                        launches_paged=zamba["decode_attention_paged"],
+                        launches_train=zamba_train["decode_attention"])},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
@@ -2168,7 +2396,9 @@ def main() -> int:
          **launches["quant_matmul_bodies"], **qmm,
          "launches_phi4_mini": phi4["quant_matmul"],
          "launches_qwen2_moe": moe["quant_matmul"],
-         "launches_deepseek_v2": ds["quant_matmul"]},
+         "launches_deepseek_v2": ds["quant_matmul"],
+         "launches_mamba2": mamba["quant_matmul"],
+         "launches_zamba2": zamba["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
@@ -2183,7 +2413,15 @@ def main() -> int:
                        "views": fq_moe},
          "deepseek_v2": {"launches_fwd": ds_train["fake_quant_fwd"],
                          "launches_bwd": ds_train["fake_quant_bwd"],
-                         "views": fq_mla}},
+                         "views": fq_mla},
+         "mamba2": {"launches_fwd": mamba_train["fake_quant_fwd"],
+                    "launches_bwd": mamba_train["fake_quant_bwd"],
+                    "views": {k: v for k, v in fq_ssm.items()
+                              if k.startswith(MAMBA2.name)}},
+         "zamba2": {"launches_fwd": zamba_train["fake_quant_fwd"],
+                    "launches_bwd": zamba_train["fake_quant_bwd"],
+                    "views": {k: v for k, v in fq_ssm.items()
+                              if k.startswith(ZAMBA2.name)}}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",
@@ -2192,7 +2430,11 @@ def main() -> int:
          "launches_fma": pipeline["flash_attention_fma"], **fa,
          "launches_qwen2_moe": moe_train["flash_attention"],
          "deepseek_v2": {"launches": ds["flash_attention"]
-                         + ds_train["flash_attention"]}},
+                         + ds_train["flash_attention"]},
+         "mamba2": {"launches": mamba["flash_attention"]
+                    + mamba_train["flash_attention"]},
+         "zamba2": dict(fa_zamba, launches=zamba_train["flash_attention"],
+                        launches_fma=zamba_train["flash_attention_fma"])},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

@@ -1,6 +1,6 @@
 """Name → model configuration, for the architectures the port runs: the
-dense GQA transformers, the MoE family, DeepSeek-V2's MLA + MoE and the
-paper's CNN."""
+dense GQA transformers, the MoE family, DeepSeek-V2's MLA + MoE, the
+Mamba2 SSM and the Zamba2 hybrid, and the paper's CNN."""
 from __future__ import annotations
 
 import importlib
@@ -8,10 +8,12 @@ import importlib
 _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "zamba2-7b": "zamba2_7b",
     "qwen3-32b": "qwen3_32b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen3-8b": "qwen3_8b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "paper-cnn": "paper_cnn",
 }
 

@@ -43,7 +43,10 @@
 // whose exp is 0).  The paged body reads row j of slot s at pool[pt[s, j / P],
 // j % P, h]: each block loads its own page-table entries, once for K and V, and
 // pages at or past ceil(length / P) (the trash-page padding) are never read.
-// Any page size >= 1 is taken.
+// Any page size >= 1 is taken.  Head dims 16, 32, 64, 112 and 128: at 112 a
+// row is 14 16-byte vectors (bf16) or 7 (int8), so its lanes are padded to the
+// next power of two (16 or 8) and the padding lanes read nothing; a warp still
+// holds 2 (bf16) or 4 (int8) rows, and 4 of its 32 lanes sit idle.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -55,6 +58,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxTile = 128;     // rows of one tile, at most
 constexpr int kMaxGroup = 8;      // query heads per kv-head
 constexpr int kMaxHeadDim = 128;
+
+constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
 constexpr int kCombineWarps = 8;  // split subsets of a combine block
 constexpr int kCombineThreads = 32 * kCombineWarps;
 constexpr float kNeg = -1e30f;
@@ -138,19 +145,22 @@ template <typename KT> struct PagedView {
 };
 
 // One tile: the rows a block reads in a single round of loads.  A lane
-// reads one 16-byte vector of a row (LPR lanes a row, RPW rows a warp, RSTEP
-// rows the block) and U rows of K and of V; U is 8, or 4 where the lane's
-// query slice already takes 128 registers (int8 at G > 4), and a tile holds
-// at most kMaxTile rows.
+// reads one 16-byte vector of a row (LPR lanes a row, padded to LPRP, a power
+// of two, so that xor-shuffles stay within a row; RPW rows a warp, RSTEP rows
+// the block) and U rows of K and of V; U is 8, or 4 where the lane's query
+// slice already takes 128 registers (int8 at G > 4), and a tile holds at most
+// kMaxTile rows.  A lane whose slot in its row is LPR or past has no vector:
+// it loads nothing and adds zeros.
 template <typename KT, int HD, int GM> struct Tile {
   static constexpr int VN = Vec16<KT>::N;
   static constexpr int LPR = HD / VN;
-  static constexpr int RPW = 32 / LPR;
+  static constexpr int LPRP = pow2_ceil(LPR);
+  static constexpr int RPW = 32 / LPRP;
   static constexpr int RSTEP = kWarps * RPW;
   static constexpr int U0 = GM * VN >= 128 ? 4 : 8;
   static constexpr int U = U0 * RSTEP <= kMaxTile ? U0 : kMaxTile / RSTEP;
   static constexpr int ROWS = U * RSTEP;
-  static_assert(HD % VN == 0 && LPR >= 1 && LPR <= 32 && U >= 1, "tile");
+  static_assert(HD % VN == 0 && LPR >= 1 && LPRP <= 32 && U >= 1, "tile");
 };
 
 // One (chunk, kv head, slot), chunk <= Tile::ROWS rows: the chunk's
@@ -165,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
     int G, int chunk, float scale) {
   using TL = Tile<KT, HD, GM>;
   constexpr int VN = TL::VN;
-  constexpr int LPR = TL::LPR;
+  constexpr int LPRP = TL::LPRP;
   constexpr int U = TL::U;
   __shared__ float p_s[GM][TL::ROWS];
   __shared__ float red_s[kWarps][GM][HD];
@@ -180,9 +190,10 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   const int rows = min(chunk, len - j0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int sub = lane % LPR;           // this lane's vector of a row
-  const int rl = warp * TL::RPW + lane / LPR;   // its first row
-  const int d0 = sub * VN;
+  const int sub = lane % LPRP;          // this lane's vector of a row
+  const bool has = sub < TL::LPR;       // false on a padding lane
+  const int rl = warp * TL::RPW + lane / LPRP;  // its first row
+  const int d0 = has ? sub * VN : 0;
   const size_t sh = static_cast<size_t>(s) * Hkv + h;
   const size_t part = sh * gridDim.x + c;
 
@@ -192,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   for (int u = 0; u < U; ++u) {
     const int r = u * TL::RSTEP + rl;
     kv[u] = vv[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
+    if (has && r < rows) {
       const size_t off = view.row(s, h, j0 + r, HD) + d0;
       kv[u] = load16(view.k + off);
       vv[u] = load16(view.v + off);
@@ -205,7 +216,8 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int e = 0; e < VN; ++e)
-      qr[g][e] = g < G ? to_float(qp[g * HD + d0 + e]) * qscale : 0.f;
+      qr[g][e] = has && g < G ? to_float(qp[g * HD + d0 + e]) * qscale
+                              : 0.f;
 
   // scores of the live rows -> p_s
 #pragma unroll
@@ -222,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
       sc[g] = a;
     }
 #pragma unroll
-    for (int off = LPR / 2; off > 0; off >>= 1)
+    for (int off = LPRP / 2; off > 0; off >>= 1)
 #pragma unroll
       for (int g = 0; g < GM; ++g)
         sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], off);
@@ -276,13 +288,13 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   }
   // across the warp's rows (lanes with the same slice), then across warps
 #pragma unroll
-  for (int off = LPR; off < 32; off <<= 1)
+  for (int off = LPRP; off < 32; off <<= 1)
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
       for (int e = 0; e < VN; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-  if (lane < LPR)
+  if (lane < TL::LPR)
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
@@ -422,6 +434,11 @@ cudaError_t launch(const void* q_, const View& view, const int* lengths,
       rc = launch_split<QT, KT, 64, QUANT>(grid, q, view, lengths, ks,
                                            part_acc, part_ml, T, G, chunk,
                                            scale, st);
+      break;
+    case 112:
+      rc = launch_split<QT, KT, 112, QUANT>(grid, q, view, lengths, ks,
+                                            part_acc, part_ml, T, G, chunk,
+                                            scale, st);
       break;
     case 128:
       rc = launch_split<QT, KT, 128, QUANT>(grid, q, view, lengths, ks,

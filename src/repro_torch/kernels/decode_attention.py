@@ -25,7 +25,7 @@ from . import _build
 from .ref import decode_attention_paged_ref, decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 112, 128)
 _MAX_GROUP = 8
 _ELT = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _WARPS = 4
@@ -44,12 +44,14 @@ def kernel_takes(G: int, hd: int) -> bool:
 
 def tile_rows(kv_dtype: torch.dtype, hd: int, G: int) -> int:
     """Rows one block of the kernel reads in a single round of loads (its
-    ``Tile::ROWS``): a lane takes one 16-byte vector of a row and 8 rows of
-    K and of V, 4 where its slice of the G queries is 128 floats (int8,
+    ``Tile::ROWS``): a lane takes one 16-byte vector of a row (a row's
+    lanes padded to a power of two: 14 → 16 for bf16 at hd 112) and 8 rows
+    of K and of V, 4 where its slice of the G queries is 128 floats (int8,
     G > 4); at most 128.  128 for the int8 cache at hd 128 and G <= 4, 64
     for bf16."""
     vn = 16 // _ELT[kv_dtype]
-    rows_per_step = _WARPS * (32 // (hd // vn))
+    lanes = 1 << (hd // vn - 1).bit_length()
+    rows_per_step = _WARPS * (32 // lanes)
     u = 4 if (4 if G <= 4 else 8) * vn >= 128 else 8
     return min(u, _MAX_TILE // rows_per_step) * rows_per_step
 

@@ -3,11 +3,14 @@
 Teacher (``qcfg=None``) and student run the same code.  Layer parameters
 stay stacked on a leading axis, as the JAX package's ``vmap``-stacked trees
 are, so converted trees and exports line up; the ``lax.scan`` over layers is
-a loop over that axis.  The dense GQA, MoE and MLA + MoE (DeepSeek-V2)
-families are ported.
+a loop over that axis.  The dense GQA, MoE, MLA + MoE (DeepSeek-V2),
+Mamba2 SSM and Zamba2 hybrid families are ported.  The hybrid's Mamba2
+layers are stacked ``[G, attn_every]`` (each group followed by the one
+shared attention block), its remainder ``[r]`` under ``tail``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -23,11 +26,16 @@ from .config import ModelConfig
 from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, tap)
 from .moe import init_moe, moe_block
+from .ssm import init_ssm, init_ssm_cache, ssm_block
 
 Params = dict[str, Any]
 
-#: the families this module runs
-FAMILIES = ("dense", "moe", "mla_moe")
+#: the families this module runs, each with whether its config carries
+#: (moe, mla, ssm)
+_FAMILY_BLOCKS = {"dense": (False, False, False), "moe": (True, False, False),
+                  "mla_moe": (True, True, False),
+                  "ssm": (False, False, True), "hybrid": (False, False, True)}
+FAMILIES = tuple(_FAMILY_BLOCKS)
 
 _RUNTIME: dict[str, Any] = {}
 
@@ -39,13 +47,19 @@ def set_runtime(**kw) -> None:
 
 
 def _require_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in FAMILIES or cfg.mlp != "swiglu"
-            or cfg.mrope_sections or cfg.ssm
-            or (cfg.moe is None) != (cfg.family == "dense")
-            or (cfg.mla is None) != (cfg.family != "mla_moe")):
+    blocks = (cfg.moe is not None, cfg.mla is not None, cfg.ssm is not None)
+    if (blocks != _FAMILY_BLOCKS.get(cfg.family) or cfg.mlp != "swiglu"
+            or cfg.mrope_sections
+            or (cfg.family == "hybrid" and cfg.attn_every < 1)):
         raise NotImplementedError(
-            f"repro_torch ports the dense GQA, MoE and MLA + MoE families "
-            f"(SwiGLU, RoPE); {cfg.name!r} is family {cfg.family!r}")
+            f"repro_torch ports the dense GQA, MoE, MLA + MoE, Mamba2 SSM "
+            f"and Zamba2 hybrid families (SwiGLU, RoPE); {cfg.name!r} is "
+            f"family {cfg.family!r}")
+
+
+def _dense_view(cfg: ModelConfig) -> ModelConfig:
+    """The hybrid's shared attention block is a dense layer."""
+    return dataclasses.replace(cfg, moe=None, mla=None)
 
 
 def _sorted(tree):
@@ -54,8 +68,7 @@ def _sorted(tree):
 
 
 def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
-                      qcfg: QuantConfig | None, n: int) -> Params:
-    lead = (n,)
+                      qcfg: QuantConfig | None, lead: tuple) -> Params:
     layers = {"norm1": init_rmsnorm(cfg.d_model, lead, gen.device),
               "norm2": init_rmsnorm(cfg.d_model, lead, gen.device),
               "attn": (init_mla(gen, cfg, qcfg, lead=lead)
@@ -68,6 +81,12 @@ def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
     # the JAX package's vmap-stacked layer tree comes back with sorted keys;
     # keeping that order keeps plan JSON and artifact walk order identical
     return _sorted(layers)
+
+
+def _init_ssm_layers(gen: torch.Generator, cfg: ModelConfig,
+                     qcfg: QuantConfig | None, lead: tuple) -> Params:
+    return {"norm1": init_rmsnorm(cfg.d_model, lead, gen.device),
+            "ssm": init_ssm(gen, cfg, qcfg, lead=lead)}
 
 
 class _ShapeOnly:
@@ -99,14 +118,43 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
             w_bits=None if qcfg is None else qcfg.embed_bits)
     if qcfg is not None:
         params["head_stream"] = dof.init_stream(d, device=dev)
-    params["layers"] = _init_attn_layers(gen, cfg, qcfg, cfg.n_layers)
+    if cfg.family == "ssm":
+        params["layers"] = _init_ssm_layers(gen, cfg, qcfg, (cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        G, r = divmod(cfg.n_layers, cfg.attn_every)
+        params["layers"] = _init_ssm_layers(gen, cfg, qcfg,
+                                            (G, cfg.attn_every))
+        if r:
+            params["tail"] = _init_ssm_layers(gen, cfg, qcfg, (r,))
+        params["shared_attn"] = _init_attn_layers(gen, _dense_view(cfg),
+                                                  qcfg, ())
+    else:
+        params["layers"] = _init_attn_layers(gen, cfg, qcfg,
+                                             (cfg.n_layers,))
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Params:
-    """The monolithic cache: the latent ``ckv``/``kr`` for MLA, else
-    ``k``/``v``."""
+    """The monolithic cache: the latent ``ckv``/``kr`` for MLA, the f32
+    ``ssm_state``/``conv_state`` for the SSM, else ``k``/``v``.  The
+    hybrid's is ``{"mamba": [G, attn_every, ...], "tail": [r, ...],
+    "attn": {k, v [G, ...], pos}}``; only attention caches hold a
+    ``pos``."""
+    if cfg.family == "ssm":
+        return init_ssm_cache(cfg, batch, cfg.n_layers, device=device)
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        G, r = divmod(cfg.n_layers, k)
+        c: Params = {"mamba": {
+            name: t.reshape((G, k) + t.shape[1:])
+            for name, t in init_ssm_cache(cfg, batch, G * k,
+                                          device=device).items()}}
+        if r:
+            c["tail"] = init_ssm_cache(cfg, batch, r, device=device)
+        c["attn"] = init_kv_cache(cfg, batch, max_len, G, dtype,
+                                  device=device)
+        return c
     init = init_mla_cache if cfg.mla is not None else init_kv_cache
     return init(cfg, batch, max_len, cfg.n_layers, dtype, device=device)
 
@@ -163,6 +211,49 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     return x + m
 
 
+def _ssm_layers(x, layers, cfg, qcfg, cache, pv, use_kernels, taps, tag):
+    """The stacked Mamba2 layers (pre-norm, residual) in order; layer
+    ``i``'s taps are named ``tag(i)``."""
+    for i, lp in enumerate(unstack(layers)):
+        c = None if cache is None else {k: v[i] for k, v in cache.items()}
+        h = rmsnorm(x, lp["norm1"])
+        tap(taps, tag(i) + ".ssm_in", h)
+        y = ssm_block(h, lp["ssm"], cfg, qcfg, c, taps=taps,
+                      prefix=tag(i) + ".ssm", plan=pv.child("ssm"),
+                      use_kernels=use_kernels)
+        tap(taps, tag(i) + ".ssm_out", y)
+        x = x + y
+    return x
+
+
+def _forward_hybrid(params, x, cfg, qcfg, positions, cache, pv, use_kernels,
+                    taps):
+    """Each group's ``attn_every`` Mamba2 layers, then the shared attention
+    block over the group's own KV; then the tail.  The tap names repeat in
+    every group (``G.m{j}``, ``G.attn``; the tail's ``T{i}``), as the JAX
+    package's unrolled forward writes them."""
+    attn = None if cache is None else cache["attn"]
+    lpv = pv.child("layers")
+    for gi, gp in enumerate(unstack(params["layers"])):
+        mc = None if cache is None else {
+            k: v[gi] for k, v in cache["mamba"].items()}
+        x = _ssm_layers(x, gp, cfg, qcfg, mc, lpv, use_kernels, taps,
+                        lambda j: f"G.m{j}")
+        ac = None if attn is None else {
+            "k": attn["k"][gi], "v": attn["v"][gi], "pos": attn["pos"]}
+        x = _attn_block(x, params["shared_attn"], _dense_view(cfg), qcfg,
+                        positions, ac, pv.child("shared_attn"), use_kernels,
+                        taps, "G.attn")
+    if "tail" in params:
+        x = _ssm_layers(x, params["tail"], cfg, qcfg,
+                        None if cache is None else cache["tail"],
+                        pv.child("tail"), use_kernels, taps,
+                        lambda i: f"T{i}")
+    if attn is not None:
+        attn["pos"] = attn["pos"] + x.shape[1]
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
             batch: dict[str, torch.Tensor], cache: Params | None = None,
             compute_dtype=torch.bfloat16, plan=None,
@@ -171,16 +262,16 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     """Returns {hidden, logits, cache, taps}.
 
     cache=None → full sequence (train / eval); a cache → prefill (S > 1) or
-    decode (S == 1), writing K/V into it in place and advancing its
-    ``pos``.  ``plan`` makes the fake-quant forward plan-aware (per-path
-    bits); ``use_kernels`` routes the per-slot decode attention
-    (``models.attention.decode_route``), the cache-free attention of a
-    full-precision model's no-gradient forward
-    (``models.attention.prefill_route``) and the
-    weights' fake-quant (``core.dof.weight_fake_quant``) through the
-    kernels.
+    decode (S == 1), writing K/V (and Mamba2 state) into it in place and
+    advancing its ``pos``.  ``plan`` makes the fake-quant forward
+    plan-aware (per-path bits); ``use_kernels`` routes the per-slot decode
+    attention (``models.attention.decode_route``), the cache-free attention
+    of a full-precision model's no-gradient forward
+    (``models.attention.prefill_route``) and the weights' fake-quant
+    (``core.dof.weight_fake_quant``) through the kernels.
     ``collect_taps`` records per-channel ``{min, max, mean}`` at every
-    stream point as ``L{i}.attn_in`` … (the JAX package's tap names);
+    stream point as ``L{i}.attn_in`` … (the JAX package's tap names; the
+    hybrid's ``G.m{j}.ssm_in``, ``G.attn.attn_in``, ``T{i}.ssm_in`` …);
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops
     it from a step whose loss reads only the hidden states.
     """
@@ -191,24 +282,35 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
                      use_kernels=use_kernels)
-    base = 0 if cache is None else cache["pos"]
+    base = 0
+    if cache is not None and "pos" in cache:
+        base = cache["pos"]
+    elif cache is not None and "attn" in cache:
+        base = cache["attn"]["pos"]          # hybrid: the shared-attn cache
     ar = torch.arange(S, device=tokens.device)
     if isinstance(base, torch.Tensor) and base.ndim == 1:
         positions = base[:, None] + ar[None, :]
     else:
         positions = torch.broadcast_to(base + ar[None, :], (B, S))
-    layers = params["layers"]
-    lpv = pv.child("layers")
-    shared = {} if cache is None else {
-        k: cache[k] for k in ("pos", "pt") if k in cache}
-    for i, lp in enumerate(unstack(layers)):
-        c = None if cache is None else {
-            **{k: v[i] for k, v in cache.items() if k not in ("pos", "pt")},
-            **shared}
-        x = _attn_block(x, lp, cfg, qcfg, positions, c, lpv, use_kernels,
-                        taps, f"L{i}")
-    if cache is not None:
-        cache["pos"] = cache["pos"] + S
+    if cfg.family == "ssm":
+        x = _ssm_layers(x, params["layers"], cfg, qcfg, cache,
+                        pv.child("layers"), use_kernels, taps,
+                        lambda i: f"L{i}")
+    elif cfg.family == "hybrid":
+        x = _forward_hybrid(params, x, cfg, qcfg, positions, cache, pv,
+                            use_kernels, taps)
+    else:
+        lpv = pv.child("layers")
+        shared = {} if cache is None else {
+            k: cache[k] for k in ("pos", "pt") if k in cache}
+        for i, lp in enumerate(unstack(params["layers"])):
+            c = None if cache is None else {
+                **{k: v[i] for k, v in cache.items()
+                   if k not in ("pos", "pt")}, **shared}
+            x = _attn_block(x, lp, cfg, qcfg, positions, c, lpv,
+                            use_kernels, taps, f"L{i}")
+        if cache is not None:
+            cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
     out = None
     if logits and cfg.tie_embeddings:

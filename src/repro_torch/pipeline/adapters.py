@@ -81,14 +81,14 @@ def tree_parity_error(deployed: Params, effective: Params) -> float:
 def _parity_parts(student: Params, artifact: Params
                   ) -> Iterator[tuple[Params, Params]]:
     """(student part, artifact part) pairs covering the whole model: each
-    top-level entry with the streams it is tied to, then each layer of the
-    stack alone (a stack of depth 1) — so the two f32 views exist for one
-    part at a time, never for the whole model."""
+    top-level entry with the streams it is tied to, then each layer of a
+    stack (``layers``, ``tail``) alone, as a stack of depth 1 — so the two
+    f32 views exist for one part at a time, never for the whole model."""
     streams = {k: student[k] for k in STREAM_KEYS & student.keys()}
     for k, v in student.items():
         if k in STREAM_KEYS:
             continue
-        if k == "layers":
+        if k in ("layers", "tail"):
             for i in range(stack_depth(v)):
                 yield tuple({k: tree_map(lambda x: x[None],
                                          layer_slice(tree, i))}
@@ -98,12 +98,13 @@ def _parity_parts(student: Params, artifact: Params
 
 
 # ---------------------------------------------------------------------------
-# Transformer families (dense, MoE)
+# Transformer families (dense, MoE, MLA + MoE, SSM, hybrid)
 # ---------------------------------------------------------------------------
 
 class TransformerAdapter:
-    """The dense and MoE transformer families, via QFTTrainer's stage
-    functions, on ``pcfg.device``."""
+    """The transformer families the port runs (dense, MoE, MLA + MoE, the
+    Mamba2 SSM, the Zamba2 hybrid), via QFTTrainer's stage functions, on
+    ``pcfg.device``."""
 
     def __init__(self, pcfg: PipelineConfig, model_cfg, qcfg: QuantConfig):
         if pcfg.smoke:

@@ -36,7 +36,10 @@ from .kv_cache import PAGED_KV_FAMILIES, KVSpec
 
 Params = dict[str, Any]
 
-_STACKED = ("layers",)
+#: the layer-stacked subtrees, exported and dequantized one leading index
+#: at a time (the hybrid's ``layers`` is ``[G, attn_every, ...]``: a group
+#: at a time)
+_STACKED = ("layers", "tail")
 
 
 # Deprecation shim only: the bare-name exemption set artifacts exported
@@ -125,10 +128,12 @@ def init_slot_cache(cfg, max_slots: int, max_len: int,
                     device=None) -> Params:
     """The preallocated slot-indexed serving cache.
 
-    ``kv=None``: the monolithic cache with a per-slot ``pos [max_slots]``.
-    With a :class:`KVSpec`: per-layer int8 page pools (plus the trash page),
-    per-layer per-slot per-kv-head scales (1.0 until install fits them),
-    the shared page table (all trash) and ``pos``.
+    ``kv=None``: the monolithic cache, each ``pos`` it holds (none for the
+    SSM, the shared attention's for the hybrid) made a per-slot
+    ``[max_slots]`` vector.  With a :class:`KVSpec`: per-layer int8 page
+    pools (plus the trash page), per-layer per-slot per-kv-head scales
+    (1.0 until install fits them), the shared page table (all trash) and
+    ``pos``.
     """
     if kv is not None:
         if cfg.family not in PAGED_KV_FAMILIES:
@@ -148,9 +153,13 @@ def init_slot_cache(cfg, max_slots: int, max_len: int,
             "pos": torch.zeros((max_slots,), dtype=torch.int32,
                                device=device),
         }
-    cache = init_cache(cfg, max_slots, max_len, dtype, device=device)
-    cache["pos"] = torch.zeros((max_slots,), dtype=torch.int32, device=device)
-    return cache
+    def slot_pos(tree):
+        return {k: (torch.zeros((max_slots,), dtype=torch.int32,
+                                device=device) if k == "pos"
+                    else slot_pos(v) if isinstance(v, dict) else v)
+                for k, v in tree.items()}
+
+    return slot_pos(init_cache(cfg, max_slots, max_len, dtype, device=device))
 
 
 def init_slot_state(max_slots: int, device=None) -> Params:
@@ -380,8 +389,11 @@ def kernel_route_check(exported: Params, plan: DeployPlan) -> dict | None:
     Returns ``{path, layout, kernel, max_err}``; ``kernel`` says whether the
     CUDA ``quant_matmul`` kernel actually launched (read off its launch
     count), so the check cannot report parity that never ran the kernel.
-    Prefers a linear whose packed shape the kernel takes.  None if the
-    artifact has no matmul-shaped linear.
+    Prefers, in walk order, a linear whose packed shape both the kernel and
+    the JAX package's Pallas blocks tile (so both packages probe the same
+    linear: mamba2's ``in_proj``, N 8512, tiles by the kernel's 64 but not
+    by the Pallas 128), then one the kernel tiles.  None if the artifact
+    has no matmul-shaped linear.
     """
     paths = find_exported_linears(exported)
     if not paths:
@@ -406,15 +418,22 @@ def kernel_route_check(exported: Params, plan: DeployPlan) -> dict | None:
         return kernel_tiles_ok(M, ex["q"].shape[-1], ex["q"].shape[-2] * 2,
                                n_groups)
 
-    chosen = None
-    for path in paths:
-        ex = unstack(leaf(path))
-        if reaches_kernel(ex):
-            chosen = (path, ex)
-            break
-        if chosen is None:
-            chosen = (path, ex)
-    path, ex = chosen
+    def pallas_tiles(ex):
+        """The JAX package's ``pallas_tiles_ok`` (blocks 128 x 128 x 256,
+        each clamped to its dim)."""
+        N, K = ex["q"].shape[-1], ex["q"].shape[-2] * 2
+        bn, bk = min(128, N), min(256, K)
+        if N % bn or K % bk:
+            return False
+        if ex["s_wr"].ndim != 2:
+            return True
+        n_groups = ex["s_wr"].shape[0]
+        return K % n_groups == 0 and bk % (K // n_groups) == 0
+
+    cands = [(path, unstack(leaf(path))) for path in paths]
+    path, ex = next(
+        (c for c in cands if reaches_kernel(c[1]) and pallas_tiles(c[1])),
+        next((c for c in cands if reaches_kernel(c[1])), cands[0]))
     dotted = ".".join(str(p) for p in path)
     spec = plan.spec_for(dotted)
     w = dof.dequantize_export(ex, torch.float32,

@@ -22,7 +22,10 @@ loop.  The decode attention goes through the CUDA ``decode_attention``
 kernel (its paged entry, which reads the pools through the page table, for
 the paged cache) unless the DeployPlan says ``use_kernels=False``.  MLA
 (DeepSeek-V2) serves its monolithic bf16 latent cache, and its attention is
-einsums on either route: ``decode_route`` never routes it.
+einsums on either route: ``decode_route`` never routes it.  The Mamba2
+SSM and the Zamba2 hybrid serve their monolithic cache (f32 Mamba2 state;
+the hybrid's shared attention over bf16 KV, through the kernel) and
+prefill in exact-length chunks: a recurrent state cannot mask pad tokens.
 
 Sampling: per-request temperature/top_k/top_p/seed drawn on the device
 (core/sampling.py); ``temperature=0`` (the default) is exact greedy.
@@ -46,7 +49,8 @@ from ..models.attention import decode_route
 from ..models.config import ModelConfig
 from ..models.moe import capacity
 from ..models.transformer import FAMILIES
-from ..train.steps import make_bucketed_prefill_step, make_slot_decode_step
+from ..train.steps import (make_bucketed_prefill_step, make_prefill_step,
+                           make_slot_decode_step)
 from .deploy import (DeployPlan, deploy_view, export_for_layers,
                      init_slot_cache, init_slot_state, make_deploy_plan,
                      plan_from_artifact, to_device)
@@ -88,11 +92,26 @@ class ServeConfig:
 
 
 def _tree_bytes(tree) -> int:
-    """Byte size of every tensor leaf, from shapes and dtypes only."""
+    """Byte size of every tensor leaf, from shapes and dtypes only; a
+    batch-1 cache's Python-int ``pos`` counts as the JAX package's int32
+    scalar."""
     if isinstance(tree, dict):
-        return sum(_tree_bytes(v) for v in tree.values())
+        return sum(4 if k == "pos" and isinstance(v, int)
+                   else _tree_bytes(v) for k, v in tree.items())
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    return 0
+
+
+def _attn_layer_count(cfg: ModelConfig) -> int:
+    """Attention invocations per slot-decode step, the denominator of the
+    route counters in :meth:`Engine.stats`: one shared-attention call per
+    group of the hybrid, every layer of the dense and MoE families, none
+    for the SSM or MLA (which never routes)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family in ("dense", "moe", "vlm"):
+        return cfg.n_layers
     return 0
 
 
@@ -169,13 +188,25 @@ def _activate_state(state, slot: int, last_logits: torch.Tensor, req: Request
 
 def _install(cache, slot_cache, slot: int, plen: int) -> None:
     """Copy a finished batch-1 prefill into slot row ``slot`` of the
-    monolithic cache: every leaf (``k``/``v``, or MLA's latent ``ckv``/
-    ``kr``), the whole row, so garbage the masked decode wrote into a dead
-    slot is erased."""
+    monolithic cache: every leaf (``k``/``v``, MLA's latent ``ckv``/``kr``,
+    the Mamba2 ``ssm_state``/``conv_state``, nested as the hybrid's are),
+    the whole row, so garbage the masked decode wrote into a dead slot is
+    erased; every ``pos`` becomes ``plen``.  The slot axis is the first
+    whose size differs from the batch-1 leaf's, as the JAX package's
+    ``_install_step`` finds it (axis 2 of the hybrid's ``[G, k, S, ...]``
+    Mamba2 leaves)."""
     for name, leaf in cache.items():
-        if name != "pos":
-            leaf[:, slot] = slot_cache[name][:, 0].to(leaf.dtype)
-    cache["pos"][slot] = plen
+        small = slot_cache[name]
+        if name == "pos":
+            leaf[slot] = plen
+        elif isinstance(leaf, dict):
+            _install(leaf, small, slot, plen)
+        elif leaf.shape == small.shape:              # max_slots == 1
+            leaf.copy_(small)
+        else:
+            axis = next(i for i in range(leaf.ndim)
+                        if leaf.shape[i] != small.shape[i])
+            leaf.select(axis, slot).copy_(small.select(axis, 0))
 
 
 def _paged_install(cache, slot_cache, slot: int, pages: torch.Tensor,
@@ -321,15 +352,15 @@ class Engine:
             self.params = deploy_view(exported, plan)
         self.exported = exported
         self._bucketed = cfg.family in BUCKETED_PREFILL_FAMILIES
-        self._prefill = make_bucketed_prefill_step(cfg, None)
+        self._prefill = (make_bucketed_prefill_step(cfg, None)
+                         if self._bucketed else make_prefill_step(cfg, None))
         self._decode = make_slot_decode_step(cfg, None,
                                              use_kernels=plan.use_kernels)
         self._params_bytes = _tree_bytes(self.params)
         self._artifact_bytes = _tree_bytes(exported)
-        # a batch-1 cache sized on the meta device, its pos counted as the
-        # JAX package's int32 scalar
+        # a batch-1 cache sized on the meta device
         self._prefill_slot_bytes = _tree_bytes(
-            init_cache(cfg, 1, self.scfg.max_len, device="meta")) + 4
+            init_cache(cfg, 1, self.scfg.max_len, device="meta"))
         self.reset()
 
     # ------------------------------------------------------------ lifecycle
@@ -368,13 +399,14 @@ class Engine:
         attention invocations of one decode step take the ``decode_attention``
         kernel route vs the plain masked route, per
         ``models.attention.decode_route`` — the predicate the forward uses.
-        MLA's attention is neither (it never routes): both are 0.
+        The hybrid has one invocation per group; the SSM and MLA have
+        none (MLA never routes): both are 0.
         """
-        n_attn = 0 if self.cfg.mla is not None else self.cfg.n_layers
+        n_attn = _attn_layer_count(self.cfg)
         depth = (self._kv.view_len if self._kv is not None
                  else self.scfg.max_len)
-        routed = (n_attn if decode_route(self.cfg, depth,
-                                         self.plan.use_kernels) else 0)
+        routed = (n_attn if n_attn and decode_route(
+            self.cfg, depth, self.plan.use_kernels) else 0)
         live = self._live_bytes()
         return {
             "decode_attn_kernel_layers": routed,
@@ -504,13 +536,15 @@ class Engine:
             req, off = st["req"], st["off"]
             chunk = list(req.prompt[off: off + scfg.prefill_chunk])
             # pad to the fixed bucket menu: prefill shapes are bounded by
-            # the menu, not by prompt lengths
+            # the menu, not by prompt lengths (a recurrent state cannot
+            # mask pads: the other families take the exact length)
             b = (bucket_for(len(chunk), scfg.prefill_chunk)
                  if self._bucketed else len(chunk))
             toks = torch.tensor([chunk + [0] * (b - len(chunk))],
                                 dtype=torch.int64, device=self.device)
             logits, st["cache"] = self._prefill(
-                self.params, st["cache"], {"tokens": toks}, len(chunk))
+                self.params, st["cache"], {"tokens": toks},
+                *((len(chunk),) if self._bucketed else ()))
             st["off"] = off + len(chunk)
             if st["off"] == len(req.prompt):
                 if self._kv is not None:

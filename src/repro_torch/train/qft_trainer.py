@@ -36,13 +36,19 @@ from .steps import make_train_step
 Params = dict[str, Any]
 
 # tap name suffix → (module key, stream key) for calibration write-back
-# (the dense family's; the JAX package also maps the SSM taps)
 _TAP_TO_STREAM = {
     "attn_in": ("attn", "in_stream"),
     "attn.pre_o": ("attn", "out_stream"),
     "mlp_in": ("mlp", "in_stream"),
     "mlp.act": ("mlp", "act_stream"),
+    "ssm_in": ("ssm", "in_stream"),
+    "ssm.out": ("ssm", "out_stream"),
 }
+
+#: the stacked subtrees: each is walked one leading index at a time (the
+#: JAX package's ``vmap``), so the hybrid's ``[G, attn_every]`` Mamba2
+#: stack reaches the init one group ``[attn_every, ...]`` at a time
+_STACKED = ("layers", "tail")
 
 
 def _device_of(tree) -> torch.device:
@@ -63,7 +69,12 @@ def _init_scales_tree(tree: Params, qcfg: QuantConfig,
     """MMSE-init every qlinear's log_swr (PPQ; APQ for dchw, folding the
     left scale into the stream: ``log_sa = -log_swl``, the last sibling in
     key order writing it, as in the JAX package).  Per-tensor fit bits come
-    from the plan; without one the role defaults apply."""
+    from the plan; without one the role defaults apply.
+
+    A hybrid group's Mamba2 weights reach the init as one ``[attn_every,
+    in, out]`` stack, like an expert stack: APQ fits its layers jointly and
+    gives them one geometric-mean ``S_wL``, as the JAX package's ``vmap``
+    over the groups does (F17)."""
 
     def bits_at(path: tuple, default: int | None = None) -> int | None:
         if plan is not None:
@@ -105,8 +116,8 @@ def _init_scales_tree(tree: Params, qcfg: QuantConfig,
 
     out = dict(tree)
     for k, v in tree.items():
-        if k == "layers":
-            out[k] = _per_layer(v, lambda lp: walk(lp, ("layers",)))
+        if k in _STACKED:
+            out[k] = _per_layer(v, lambda lp, k=k: walk(lp, (k,)))
         elif isinstance(v, dict):
             if _is_qlinear(v):
                 sname = STREAM_OF.get(k)
@@ -145,7 +156,9 @@ def calibrate_student(student: Params, cfg: ModelConfig, qcfg: QuantConfig,
                       use_kernels: bool = True) -> Params:
     """Naive max-min activation calibration (paper's pre-QFT step) from
     teacher taps; writes per-layer stream ``(log_sa, zp)`` into a new tree
-    (the written leaves are fresh tensors; the input is unchanged).
+    (the written leaves are fresh tensors; the input is unchanged).  Only
+    ``L{i}`` taps are written back, as in the JAX package, so the hybrid's
+    streams (``G.m{j}``, ``G.attn``, ``T{i}``) keep their init (F17).
     ``use_kernels`` routes the teacher's attention through the
     ``flash_attention`` kernel on the card."""
     if not qcfg.act_quant:
@@ -168,6 +181,8 @@ def calibrate_student(student: Params, cfg: ModelConfig, qcfg: QuantConfig,
     fresh: set = set()
     for name, (lo, hi) in acc.items():
         layer_tag, _, suffix = name.partition(".")
+        if not (layer_tag[:1] == "L" and layer_tag[1:].isdigit()):
+            continue
         if suffix not in _TAP_TO_STREAM:
             continue                      # attn_out / mlp_out feed no stream
         module, stream = _TAP_TO_STREAM[suffix]
@@ -189,7 +204,7 @@ def cle_init_student(student: Params, cfg: ModelConfig,
     benefit goes to the consumers)."""
     def walk(layer: Params) -> Params:
         out = dict(layer)
-        for mod_name in ("attn", "mlp"):
+        for mod_name in ("attn", "mlp", "ssm"):
             mod = layer.get(mod_name)
             if not isinstance(mod, dict) or "in_stream" not in mod:
                 continue
@@ -212,7 +227,8 @@ def cle_init_student(student: Params, cfg: ModelConfig,
             out[mod_name] = mod
         return out
 
-    return {**student, "layers": _per_layer(student["layers"], walk)}
+    return {**student, **{k: _per_layer(student[k], walk)
+                          for k in _STACKED if k in student}}
 
 
 def build_student(gen: torch.Generator | int, cfg: ModelConfig,

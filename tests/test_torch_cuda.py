@@ -1025,3 +1025,176 @@ def test_mla_absorbed_form_matches_default_form_on_the_card(cuda, cached):
     torch.cuda.synchronize()
     err = float((outs[1] - outs[0]).abs().max())
     assert err <= 1e-5 * float(outs[0].abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# zamba2-7b's head dim 112 in K2; the Mamba2 block and the SSM/hybrid
+# engines on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("part", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
+def test_split_body_hd112_against_plain(cuda, monkeypatch, part, G, kv):
+    """hd 112, a row of 14 (bf16), 7 (int8) or 28 (f32) 16-byte vectors
+    whose padding lanes read nothing: the split body at the whole tile, a
+    half and a quarter, lengths 1, rows - 1, rows, rows + 1 and T (300, a
+    ragged last split), against the plain version; two launches
+    bit-identical."""
+    rows = max(fd.tile_rows(getattr(torch, kv), 112, G) // part, 2)
+    monkeypatch.setattr(fd, "split_rows", lambda T, slot_heads, tile: rows)
+    S, T, Hkv, hd = 5, 300, 2, 112
+    q = _rand((S, Hkv, G, hd), 31, cuda)
+    k = _rand((S, T, Hkv, hd), 32, cuda)
+    v = _rand((S, T, Hkv, hd), 33, cuda)
+    lengths = torch.tensor([1, rows - 1, rows, rows + 1, T],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    before = decode_attention.launches
+    out = decode_attention(*args)
+    again = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_decode_attention_hd112_at_zamba2_slot_pool(cuda, kv):
+    """zamba2-7b's shared attention at its serving slot pool: 8 slots x
+    T 2048, 32 kv heads, a GQA group of 1, hd 112, the engine's split, the
+    main path's lengths; against the plain version."""
+    S, T, Hkv, G, hd = 8, 2048, 32, 1, 112
+    q = _rand((S, Hkv, G, hd), 34, cuda)
+    k = _rand((S, T, Hkv, hd), 35, cuda)
+    v = _rand((S, T, Hkv, hd), 36, cuda)
+    lengths = torch.tensor([1, 25, 138, 308, 1008, 33, 2047, 2048],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    _fd_close(decode_attention(*args), decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("P,n_pg", [(16, 20), (5, 61)])
+@pytest.mark.parametrize("G", [1, 4])
+def test_paged_entry_hd112_against_plain(cuda, P, n_pg, G):
+    """The paged entry at hd 112 (int8 pools, shuffled page ids, a trash
+    page of 127s, a retired slot), against the gather + plain version;
+    two launches bit-identical."""
+    args = _paged(cuda, P, n_pg, G, 40 + P + G, hd=112)
+    args[0] = args[0].bfloat16()
+    out = decode_attention_paged(*args)
+    again = decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_paged_ref(*args))
+
+
+def _ssm_smoke(name):
+    from repro_torch.configs.registry import get_config
+    return get_config(name, smoke=True)
+
+
+@pytest.mark.parametrize("mode", ["none", "prefill", "decode"])
+def test_ssm_block_on_the_card_matches_the_cpu(cuda, mode):
+    """mamba2-1.3b's SMOKE Mamba2 block in f32, a weights-only W4 student
+    (an A8 grid would turn a last-bit difference of the two devices'
+    matmuls into a whole grid step) with its weights' fake-quant through
+    K3 on the card and the plain route on the CPU: cache-free (S 37, a
+    ragged last chunk), a cached prefill (S 20) and a decode step; outputs
+    and the written cache 1e-4 of max|CPU|."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import ssm
+    cfg, qcfg = _ssm_smoke("mamba2-1.3b"), QuantConfig(a_bits=None)
+    p = ssm.init_ssm(torch.Generator().manual_seed(2), cfg, qcfg)
+    B, S = 2, {"none": 37, "prefill": 20, "decode": 1}[mode]
+    x = _rand((B, S, cfg.d_model), 41, "cpu")
+    cache = None
+    if mode != "none":
+        cache = ssm.init_ssm_cache(cfg, B, 1)
+        cache = {k: _rand(v.shape[1:], 42 + i, "cpu") * 0.3
+                 for i, (k, v) in enumerate(sorted(cache.items()))}
+    outs = []
+    for dev in ("cpu", cuda):
+        c = None if cache is None else {k: v.to(dev).clone()
+                                        for k, v in cache.items()}
+        with torch.no_grad():
+            y = ssm.ssm_block(x.to(dev), {k: (v.to(dev) if torch.is_tensor(v)
+                                              else {kk: vv.to(dev)
+                                                    for kk, vv in v.items()})
+                                          for k, v in p.items()},
+                              cfg, qcfg, c, use_kernels=True)
+        outs.append((y.cpu(), None if c is None else
+                     {k: v.cpu() for k, v in c.items()}))
+    torch.cuda.synchronize()
+    (y0, c0), (y1, c1) = outs
+    assert float((y1 - y0).abs().max()) <= 1e-4 * float(y0.abs().max())
+    for k in (c0 or {}):
+        assert float((c1[k] - c0[k]).abs().max()) <= 1e-4 * float(
+            c0[k].abs().max()), k
+
+
+def _serving_engine(cuda, name):
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg, qcfg = _ssm_smoke(name), QuantConfig()
+    params = init_model(0, cfg, qcfg, device=cuda)
+    plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
+                            params=params, model_cfg=cfg)
+    return Engine.from_artifact(cfg, plan, export_for_layers(params, plan),
+                                ServeConfig(max_slots=2, max_len=64,
+                                            prefill_chunk=16))
+
+
+def test_ssm_decode_step_makes_no_host_sync(cuda):
+    """One decode step of a mamba2 SMOKE engine on the card (the
+    recurrent state update written into the slot cache in place,
+    sampling) under ``torch.cuda.set_sync_debug_mode("error")``: no
+    operation reads the device back to the host; no attention kernel
+    launches."""
+    from repro_torch.serve.engine import Request
+    eng = _serving_engine(cuda, "mamba2-1.3b")
+    assert sorted(eng.cache) == ["conv_state", "ssm_state"]
+    eng.submit(Request(prompt=list(range(1, 21)), max_new_tokens=8))
+    eng.step()                            # admit, prefill, install, decode
+    state = eng.cache["ssm_state"].clone()
+    before = (decode_attention.launches, flash_attention.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.cache, eng.state, _, _ = eng._decode(eng.params, eng.cache,
+                                                 eng.state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, flash_attention.launches) == before
+    assert not torch.equal(eng.cache["ssm_state"], state)
+
+
+def test_hybrid_engine_routes_every_shared_attention_through_k2(cuda):
+    """A zamba2 SMOKE engine on the card: ``stats()`` reports every
+    shared-attention invocation of a decode step on the kernel route
+    (n_layers // attn_every of them), and each decode step launches K2
+    that many times; a decode step makes no host sync."""
+    from repro_torch.serve.engine import Request
+    eng = _serving_engine(cuda, "zamba2-7b")
+    cfg = eng.cfg
+    n_attn = cfg.n_layers // cfg.attn_every
+    s = eng.stats()
+    assert s["decode_attn_kernel_layers"] == n_attn
+    assert s["decode_attn_ref_layers"] == 0
+    eng.submit(Request(prompt=list(range(3, 40)), max_new_tokens=6))
+    eng.step()
+    before = decode_attention.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.cache, eng.state, _, _ = eng._decode(eng.params, eng.cache,
+                                                 eng.state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert decode_attention.launches - before == n_attn
+    out = eng.generate([Request(prompt=[5, 6, 7], max_new_tokens=4)])
+    assert len(out[0]) == 4 and all(0 <= t < cfg.vocab for t in out[0])

@@ -369,13 +369,15 @@ def test_python_m_repro_torch_lists_configs():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[::2] == ["command-r-plus-104b",
-                                       "deepseek-v2-236b", "paper-cnn",
-                                       "phi4-mini-3.8b", "qwen2-moe-a2.7b",
-                                       "qwen3-32b", "qwen3-8b"]
+                                       "deepseek-v2-236b", "mamba2-1.3b",
+                                       "paper-cnn", "phi4-mini-3.8b",
+                                       "qwen2-moe-a2.7b", "qwen3-32b",
+                                       "qwen3-8b", "zamba2-7b"]
     assert out.stdout.split()[1::2] == [
         f"repro_torch.configs.{m}" for m in (
-            "command_r_plus_104b", "deepseek_v2_236b", "paper_cnn",
-            "phi4_mini_3_8b", "qwen2_moe_a2_7b", "qwen3_32b", "qwen3_8b")]
+            "command_r_plus_104b", "deepseek_v2_236b", "mamba2_1_3b",
+            "paper_cnn", "phi4_mini_3_8b", "qwen2_moe_a2_7b", "qwen3_32b",
+            "qwen3_8b", "zamba2_7b")]
 
 
 # ---------------------------------------------------------------------------
@@ -620,10 +622,11 @@ def test_canonical_arch_spellings_match_jax():
     for name in ("qwen3_8b", "qwen3-8b", "paper_cnn", "paper-cnn",
                  "phi4_mini_3_8b", "phi4-mini-3.8b", "qwen3_32b",
                  "command_r_plus_104b", "qwen2_moe_a2_7b",
-                 "qwen2-moe-a2.7b", "deepseek_v2_236b", "deepseek-v2-236b"):
+                 "qwen2-moe-a2.7b", "deepseek_v2_236b", "deepseek-v2-236b",
+                 "mamba2_1_3b", "mamba2-1.3b", "zamba2_7b", "zamba2-7b"):
         assert canonical_arch(name) == j_canonical_arch(name), name
         assert _canon_arch(name) == j_canon(name), name
     assert canonical_arch("paper_cnn") == "paper-cnn"
-    for bad in ("mamba2-1.3b", "nonexistent"):
+    for bad in ("qwen2-vl-7b", "nonexistent"):
         with pytest.raises(KeyError):
             _canon_arch(bad)
