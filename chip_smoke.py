@@ -34,7 +34,15 @@ Phases, each fatal on failure:
    tensor-core body, causal and not, and zamba2-7b's teacher shape, B 16 x
    S 512, 32/32 heads, hd 112, bf16 causal, through its FMA body;
    decode_attention at zamba2-7b's head dim 112, 32 kv heads x a group of
-   1, bf16 and int8 on the slot view and the paged entry), with the error,
+   1, bf16 and int8 on the slot view and the paged entry; decode_attention
+   at qwen2-vl-7b's 4 kv heads x a group of 7 on the same entries;
+   flash_attention's tensor-core body at qwen2-vl-7b's teacher shape (B 16
+   x S 512, 28/4 heads, hd 128, causal), seamless-m4t-medium's
+   self-attention (B 16 x S 512, 16/16 heads, hd 64, causal) and its cross
+   attention (64 decoder queries over 512 encoder keys, non-causal);
+   fake_quant at the two embeddings (152064 x 3584, 256206 x 1024, per-row
+   scale) and seamless's up (1024 x 4096, full and per-channel scale)),
+   with the error,
    the kernel's, the plain version's and a library call's time (CUDA
    events, after warm-up) and the least time the card could take.
 4. reference — a SMOKE-size model served on the card through the kernels
@@ -150,6 +158,29 @@ Phases, each fatal on failure:
    flash_attention's FMA body (hd 112), its hidden states against the
    plain route, export (the [G, 6] Mamba2 stack's parity) and 2 greedy
    requests.
+18. qwen2-vl — phase 5's main path on qwen2-vl-7b at full width and depth
+   (28 layers, d 3584, 28/4 heads, biased q/k/v, M-RoPE, vocab 152064),
+   text-only requests: decode_attention's paged entry at a GQA group of 7
+   in every layer of every decode step, quant_matmul once through the
+   route check (on the biased wk), tokens against the plain route under
+   phase 5's margin rule.
+19. qwen2-vl QFT — phase 6's train path on qwen2-vl-7b at full width, 4
+   of 28 layers, on input_specs' train form with a quarter of the context
+   as image: 16 x (384 tokens + 128 patch embeddings), positions [16, 3,
+   512] with three different streams (the patches on an 8 x 16 grid), so
+   that M-RoPE's sections rotate by different positions; the teacher's
+   28/4-head attention on flash_attention's tensor-core body.
+20. seamless QFT — phase 6's train path on seamless-m4t-medium at full
+   width and depth (12 encoder + 12 decoder layers, d 1024, 16/16 heads of
+   64, GELU, vocab 256206), 3 steps of 16 x (512 frames -> 64 tokens) in
+   4 microbatches: every weight through fake_quant (frame_proj, 6 a
+   encoder layer, 10 a decoder layer), the teacher's 36 attention calls a
+   forward on flash_attention's tensor-core body (12 causal encoder, 12
+   causal decoder, 12 non-causal cross); export and quant_matmul once
+   through the route check; then the cache-mode forward on the trained
+   artifact (batch 2, 512 frames, a 16-token prompt, prefill, 16 greedy
+   decode steps over the cached cross K/V) against one cache-free forward
+   (argmax equal, or a near-tie), and the engine's refusal of the family.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -233,6 +264,19 @@ MAMBA_TRAIN_LAYERS = 48
 MAMBA_TRAIN_MICROBATCHES = 8
 ZAMBA_TRAIN_LAYERS = 7
 SSM_TRAIN_STEPS = 3
+# phase 19: qwen2-vl QFT at 4 layers, input_specs' train form with 1/4 of
+# the context as image: 16 x (384 tokens + 128 patches on an 8 x 16 grid)
+VLM_PATCHES = 128
+VLM_GRID = (8, 16)
+VLM_TRAIN_DATA = dict(TRAIN_DATA, seq_len=384)
+# phase 20: seamless QFT at full depth, input_specs' train form at S 512:
+# 512 frames and 64 decoder tokens; then the cache-mode forward
+ENCDEC_FRAMES = 512
+ENCDEC_TRAIN_DATA = dict(TRAIN_DATA, seq_len=64)
+ENCDEC_TRAIN_STEPS = 3
+ENCDEC_SERVE_BATCH = 2
+ENCDEC_PROMPT = 16
+ENCDEC_NEW = 16
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -785,53 +829,70 @@ def check_flash_attention(cfg) -> dict:
 def check_flash_attention_fma(cfg) -> dict:
     """flash_attention's FMA body at zamba2-7b's teacher shape: B 16 x
     S 512, its 32/32 heads at hd 112 (the tensor-core body is built for
-    hd 64 and 128 only), bf16, causal; against the plain version within
-    the bf16 tolerance of check_flash_attention, two runs' bits compared,
-    beside SDPA.  Returns the record."""
+    hd 64 and 128 only), bf16, causal (:func:`check_flash_attention_at`).
+    Returns the record."""
+    return check_flash_attention_at("zamba2", 16, 512, 512, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, True,
+                                    "fma", seed=19)
+
+
+def check_flash_attention_at(tag: str, B: int, S: int, Sk: int, H: int,
+                             Hkv: int, hd: int, causal: bool, body: str,
+                             seed: int) -> dict:
+    """flash_attention at one teacher shape: q ``[B, S, H, hd]`` over k, v
+    ``[B, Sk, Hkv, hd]``, bf16, through ``body`` (read off its count);
+    against the plain version within the bf16 tolerance of
+    check_flash_attention, two runs' bits compared, beside SDPA.  Returns
+    the record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_prefill,
                                                      flash_attention)
     from repro_torch.kernels.ref import attention_prefill_ref
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(19)
-    B, S, H, Hkv, hd = 16, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
-               .bfloat16() for h in (H, Hkv, Hkv))
-    before = flash_attention.launches_fma
-    out = attention_prefill(q, k, v, causal=True)
-    if flash_attention.launches_fma != before + 1:
-        fail(f"flash_attention at hd {hd} did not run the FMA body")
-    ref = attention_prefill_ref(q, k, v, causal=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, Sk, Hkv, hd), generator=g, device=dev)
+            .bfloat16() for _ in range(2))
+    attr = f"launches_{body}"
+    before = getattr(flash_attention, attr)
+    out = attention_prefill(q, k, v, causal=causal)
+    if getattr(flash_attention, attr) != before + 1:
+        fail(f"flash_attention {tag} did not run the {body} body")
+    ref = attention_prefill_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     rtol = atol = 3e-2
     diff = (out.float() - ref.float()).abs()
     excess = float((diff - rtol * ref.float().abs()).max())
     err = float(diff.max())
     if not math.isfinite(err) or excess > atol:
-        fail(f"flash_attention hd {hd}: max_abs_err {err}, beyond rtol "
+        fail(f"flash_attention {tag}: max_abs_err {err}, beyond rtol "
              f"{rtol} + atol {atol} by {excess - atol}")
-    if not torch.equal(out, attention_prefill(q, k, v, causal=True)):
-        fail("flash_attention hd 112: two runs differ")
-    ms = time_ms(lambda: attention_prefill(q, k, v, causal=True), iters=10)
-    plain_ms = time_ms(lambda: attention_prefill_ref(q, k, v, causal=True),
-                       iters=3)
+    if not torch.equal(out, attention_prefill(q, k, v, causal=causal)):
+        fail(f"flash_attention {tag}: two runs differ")
+    ms = time_ms(lambda: attention_prefill(q, k, v, causal=causal),
+                 iters=10)
+    plain_ms = time_ms(lambda: attention_prefill_ref(q, k, v,
+                                                     causal=causal), iters=3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-    nbytes = 2 * hd * B * S * (2 * H + 2 * Hkv)
-    flops = 4.0 * B * H * (S * (S + 1) // 2) * hd
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
+    nbytes = 2 * hd * B * (2 * S * H + 2 * Sk * Hkv)
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    flops = 4.0 * B * H * pairs * hd
     b_ms, b_by = bound(nbytes, flops, "bf16")
-    say(f"[kernel] flash_attention zamba2 B={B} S={S} H={H} Hkv={Hkv} "
-        f"hd={hd} bf16 causal=True body=fma max_abs_err={err:.3e} (rtol "
-        f"{rtol} atol {atol}) ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s) "
-        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (kernel/SDPA "
-        f"{ms / lib_ms:.2f}x) bound_ms={b_ms:.4f} ({b_by})")
+    say(f"[kernel] flash_attention {tag} B={B} S={S} Sk={Sk} H={H} "
+        f"Hkv={Hkv} hd={hd} bf16 causal={causal} body={body} "
+        f"max_abs_err={err:.3e} (rtol {rtol} atol {atol}) ms={ms:.4f} "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (kernel/SDPA {ms / lib_ms:.2f}x) "
+        f"bound_ms={b_ms:.4f} ({b_by})")
     del q, k, v, out, ref, diff
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "body": "fma", "hd": hd}
+            "body": body, "hd": hd, "causal": causal, "B": B, "S": S,
+            "Sk": Sk, "H": H, "Hkv": Hkv}
 
 
 def _fq_row(name: str, x, s, bits: int, exact_gs: bool,
@@ -1026,6 +1087,40 @@ def check_fake_quant_ssm(*cfgs) -> dict:
                                             exact_gs=False, lib_axis=1)
             del x, s, col
             torch.cuda.empty_cache()
+    return out
+
+
+def check_fake_quant_vlm_encdec(vlm, encdec) -> dict:
+    """fake_quant at qwen2-vl-7b's embedding ``[152064, 3584]`` and
+    seamless-m4t-medium's ``[256206, 1024]`` (8 bits, the per-row scale,
+    beside the library's per-channel fake-quant on axis 0), and at
+    seamless's ``up`` ``[1024, 4096]`` with the full scale and with a
+    per-channel one beside the library's (axis 1).  Returns {view:
+    record}."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for cfg in (vlm, encdec):
+        R, C = cfg.vocab_padded, cfg.d_model
+        x = torch.randn((R, C), generator=g, device=dev) * 0.02
+        s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * (
+            3 * 0.02 / 127)
+        tag = f"{cfg.name} embed"
+        out[tag] = _fq_row(tag, x, s, 8, exact_gs=False, lib_axis=0)
+        del x, s
+        torch.cuda.empty_cache()
+    R, C = encdec.d_model, encdec.d_ff
+    tag = f"{encdec.name} up"
+    x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+    col = (torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+        3 * R ** -0.5 / 7)
+    s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * col
+    out[tag] = _fq_row(tag, x, s, 4, exact_gs=True)
+    out[f"{tag} channel"] = _fq_row(f"{tag} channel", x, col, 4,
+                                    exact_gs=False, lib_axis=1)
+    del x, s, col
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1665,7 +1760,11 @@ def _fq_per_forward(cfg) -> int:
     """fake_quant launches of one student forward that reads no head: the
     embedding, then each Mamba2 layer's in_proj and out_proj (SSM,
     hybrid) and each call of the hybrid's shared block (its seven
-    weights, every group), or each layer's linears."""
+    weights, every group), or each layer's linears (the encoder-decoder:
+    frame_proj, six in an encoder layer, ten in a decoder layer with its
+    cross attention's four)."""
+    if cfg.family == "encdec":
+        return 2 + 6 * cfg.enc_layers + 10 * cfg.n_layers
     if cfg.family == "ssm":
         return 1 + 2 * cfg.n_layers
     if cfg.family == "hybrid":
@@ -1673,14 +1772,54 @@ def _fq_per_forward(cfg) -> int:
     return 1 + _linears_per_layer(cfg) * cfg.n_layers
 
 
+def _fa_per_forward(cfg) -> int:
+    """flash_attention launches of one teacher forward: its attention
+    calls (``_attn_layer_count``), or the encoder-decoder's three a layer
+    pair: the encoder's and the decoder's causal self-attention, the
+    decoder's non-causal cross attention."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    from repro_torch.serve.engine import _attn_layer_count
+    return _attn_layer_count(cfg)
+
+
+@contextlib.contextmanager
+def _causal_flags(record: list | None):
+    """Within the block, each flash_attention call the model makes through
+    ``ops.attention_prefill`` appends its ``causal`` flag to ``record``."""
+    from repro_torch.models import attention
+    launch = attention.attention_prefill
+
+    def recorded(q, k, v, causal=True):
+        if record is not None:
+            record.append(bool(causal))
+        return launch(q, k, v, causal=causal)
+    attention.attention_prefill = recorded
+    try:
+        yield
+    finally:
+        attention.attention_prefill = launch
+
+
+def _batches(tokens, augment=None):
+    """The token batches of ``tokens`` (a CalibDataset), each through
+    ``augment`` when given."""
+    for batch in tokens:
+        yield batch if augment is None else augment(batch)
+
+
 def _parity_nodes(cfg, student, exported) -> list:
     """(name, student linear, its input stream, exported linear) for the
     export parity check: layer 0's first linear (wq; MLA's q_down; the
     Mamba2 in_proj — for the hybrid its group 0, the whole ``[6, in,
-    out]`` stack — and the tail's and the shared block's first), and a
-    MoE's up expert stack (its s_wl shared by the experts)."""
+    out]`` stack — and the tail's and the shared block's first; the
+    encoder's wq and the decoder's cross wk, whose s_wl comes from the
+    stream that also quantizes the decoder's query input), and a MoE's up
+    expert stack (its s_wl shared by the experts)."""
     from repro_torch.models.transformer import layer_slice
-    if cfg.ssm is not None:
+    if cfg.family == "encdec":
+        mods = [("enc_layers", "attn", "wq"), ("dec_layers", "cross", "wk")]
+    elif cfg.ssm is not None:
         mods = [("layers", "ssm", "in_proj")]
         if cfg.family == "hybrid":
             mods += [("tail", "ssm", "in_proj")] if "tail" in student else []
@@ -1701,10 +1840,16 @@ def _parity_nodes(cfg, student, exported) -> list:
 
 
 def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
-               microbatches: int = TRAIN_MICROBATCHES) -> dict:
+               microbatches: int = TRAIN_MICROBATCHES,
+               data_cfg: dict = TRAIN_DATA, augment=None,
+               shape: str = "") -> dict:
     """QFT at full width, ``layers`` deep: prepare, ``steps`` steps of the
-    batch in ``microbatches``, export and serve, the plain-route
-    comparison.  Returns the kernels' launch counts."""
+    batch in ``microbatches``, export and serve (the encoder-decoder: its
+    cache-mode forward, and the engine's refusal), the plain-route
+    comparison.  The batches are ``data_cfg``'s token batches, each passed
+    through ``augment`` (the VLM's patch embeddings and positions, the
+    encoder-decoder's frames) when given; ``shape`` describes them.
+    Returns the kernels' launch counts."""
     import torch
     from repro_torch.core import dof
     from repro_torch.core.qconfig import QuantConfig
@@ -1723,10 +1868,13 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     full_depth = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
     L = cfg.n_layers
-    # attention calls of a forward that the attention kernels carry (MLA
-    # and the SSM: none; MLA's attention is einsums on both routes; the
-    # hybrid: one a group)
+    # attention calls of a decode step that K2 carries (MLA and the SSM:
+    # none; MLA's attention is einsums on both routes; the hybrid: one a
+    # group), and of a teacher forward that K4 carries (the same, but the
+    # encoder-decoder's three a layer pair)
     L_attn = _attn_layer_count(cfg)
+    fa_fwd = _fa_per_forward(cfg)
+    shape = shape or f"{data_cfg['batch_size']} x {data_cfg['seq_len']}"
     # the teacher's bf16 attention: the tensor-core body at hd 64/128, the
     # FMA body otherwise (zamba2's hd 112)
     fa_body = body_for(torch.bfloat16, cfg.head_dim, "bshd")
@@ -1737,14 +1885,16 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0), cfg,
                          None, device=DEVICE)
     n_params = sum(t.numel() for _, t in tree_items(teacher))
-    data = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
-    calib = CalibDataset(CalibConfig(vocab=cfg.vocab, **TRAIN_DATA))
+    tokens = CalibDataset(CalibConfig(vocab=cfg.vocab, **data_cfg))
+    data = _batches(tokens, augment)
+    calib = _batches(CalibDataset(CalibConfig(vocab=cfg.vocab, **data_cfg)),
+                     augment)
     # the plan resolved once from the student's shapes: the trainer's grid
     # and the export's (at 2 layers qwen2-moe's 1 % rule keeps attn.wk at
     # 8 bits)
     qplan = resolve_quant_plan(cfg, qcfg)
     trainer = QFTTrainer(cfg, qcfg, teacher, QFTConfig(),
-                         steps_per_epoch=data.steps_per_epoch,
+                         steps_per_epoch=tokens.steps_per_epoch,
                          microbatches=microbatches, plan=qplan)
 
     # --- the path, with every kernel count at 0 just before it
@@ -1760,9 +1910,9 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     if _counts()["fake_quant_fwd"]:
         fail("prepare_student launched fake_quant: the teacher is FP")
     prep_fa = _counts()["flash_attention"]
-    if prep_fa != 2 * L_attn:     # the teacher over 2 calibration batches
+    if prep_fa != 2 * fa_fwd:     # the teacher over 2 calibration batches
         fail(f"calibration launched flash_attention {prep_fa} times, want "
-             f"{2 * L_attn}")
+             f"{2 * fa_fwd}")
     _teacher_on_tensor_cores(_counts(), "calibration", fa_body)
     torch.cuda.reset_peak_memory_stats()
     student, hist = trainer.run(student, data, steps=steps, log_every=1)
@@ -1774,23 +1924,23 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     per_fwd = _fq_per_forward(cfg)    # embed + the layers'; no lm_head
     want = steps * microbatches * per_fwd
     run_counts = _counts()
-    say(f"[train] {steps} steps, batch {TRAIN_DATA['batch_size']} x "
-        f"{TRAIN_DATA['seq_len']} in {microbatches} microbatches: "
+    say(f"[train] {steps} steps, batch {shape} in {microbatches} "
+        f"microbatches: "
         f"loss {', '.join(f'{x:.6f}' for x in losses)}; ms/step "
         f"{', '.join(f'{x:.1f}' for x in step_ms)} (steps 2-{steps} "
         f"mean {sum(step_ms[1:]) / (len(step_ms) - 1):.1f}); peak "
         f"{peak_run:.2f} GiB")
-    fa_want = steps * microbatches * L_attn
+    fa_want = steps * microbatches * fa_fwd
     say(f"[train] fake_quant launches forward {run_counts['fake_quant_fwd']} "
         f"backward {run_counts['fake_quant_bwd']} (= {steps} steps x "
         f"{microbatches} microbatches x {per_fwd}: 1 embed + the "
         f"linears of {L} layers"
         + (f" + 7 x {L_attn} shared-block calls" if cfg.family == "hybrid"
-           else "") + "); "
+           else " + frame_proj" if cfg.family == "encdec" else "") + "); "
         f"lm_head is not run: the backbone-L2 loss never reads it); "
         f"flash_attention (the teacher) {prep_fa} in calibration + "
         f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
-        f"{steps} x {microbatches} x {L_attn} attention calls, "
+        f"{steps} x {microbatches} x {fa_fwd} attention calls, "
         f"{fa_body} body)")
     if run_counts["flash_attention"] - prep_fa != fa_want:
         fail(f"the steps launched flash_attention "
@@ -1824,35 +1974,47 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
             parities.append(f"{lin} {tuple(w_eff.shape)} {parity:.3e}")
             del w_eff, w_dq
     check = kernel_route_check(exported, plan)
-    scfg = ServeConfig(max_slots=2, max_len=256, prefill_chunk=128)
-    rng = torch.Generator().manual_seed(8)
-    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,),
-                                         generator=rng).tolist(),
-                    max_new_tokens=NEW_TOKENS) for n in (40, 100)]
-    engine = Engine.from_artifact(cfg, plan, exported, scfg, device=DEVICE)
-    toks = engine.generate(reqs)
-    torch.cuda.synchronize()
-    counts = _counts()
-    # ---
     if not (check and check["kernel"] and check["max_err"] <= 1e-4):
         fail(f"kernel_route_check on the trained artifact: {check}")
-    for t in toks:
-        if len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t):
-            fail(f"bad output from the trained artifact: {t}")
-    if counts["decode_attention"] != L_attn * engine.decode_steps \
-            or engine.decode_steps == 0:
-        fail(f"decode_attention launched {counts['decode_attention']} times "
-             f"over {engine.decode_steps} decode steps of {L_attn} routed "
-             f"layers")
+    if cfg.family == "encdec":
+        served = encdec_cache_path(cfg, plan, exported, augment)
+        counts = _counts()
+        if counts["decode_attention"]:
+            fail(f"the encoder-decoder's decode launched decode_attention "
+                 f"{counts['decode_attention']} times (its scalar-pos "
+                 f"decode takes _sdpa)")
+        if counts["quant_matmul"] != 1:
+            fail(f"quant_matmul launched {counts['quant_matmul']} times, "
+                 f"want once (the route check)")
+    else:
+        scfg = ServeConfig(max_slots=2, max_len=256, prefill_chunk=128)
+        rng = torch.Generator().manual_seed(8)
+        reqs = [Request(prompt=torch.randint(0, cfg.vocab, (n,),
+                                             generator=rng).tolist(),
+                        max_new_tokens=NEW_TOKENS) for n in (40, 100)]
+        engine = Engine.from_artifact(cfg, plan, exported, scfg,
+                                      device=DEVICE)
+        toks = engine.generate(reqs)
+        torch.cuda.synchronize()
+        counts = _counts()
+        for t in toks:
+            if len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t):
+                fail(f"bad output from the trained artifact: {t}")
+        if counts["decode_attention"] != L_attn * engine.decode_steps \
+                or engine.decode_steps == 0:
+            fail(f"decode_attention launched {counts['decode_attention']} "
+                 f"times over {engine.decode_steps} decode steps of "
+                 f"{L_attn} routed layers")
+        served = (f"served {len(reqs)} greedy requests from the trained "
+                  f"artifact: {toks}; launches decode_attention="
+                  f"{counts['decode_attention']} (= {L_attn} x "
+                  f"{engine.decode_steps})")
+        del engine
     say(f"[train] export parity ({'; '.join(parities)}); "
         f"kernel_route_check {check['path']}: quant_matmul ran, max_err "
-        f"{check['max_err']:.3e}; served {len(reqs)} greedy requests from "
-        f"the trained artifact: {toks}; launches quant_matmul="
-        f"{counts['quant_matmul']} decode_attention="
-        f"{counts['decode_attention']} (= {L_attn} x "
-        f"{engine.decode_steps}); "
-        f"peak {_gib():.2f} GiB")
-    del engine, exported
+        f"{check['max_err']:.3e}; {served}; launches quant_matmul="
+        f"{counts['quant_matmul']}; peak {_gib():.2f} GiB")
+    del exported
     torch.cuda.empty_cache()
 
     # --- one more step's loss and gradients: kernel route (profiled) vs
@@ -1860,6 +2022,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     # compared route against route first; then both student routes take
     # the kernel route's targets, so their gap is fake_quant's alone.
     batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in next(data).items()}
+    causal_flags = []
     # a MoE teacher: the plain route's forward takes the kernel route's
     # expert choices (the same bf16 logit ties split the routes otherwise,
     # and one flipped expert moves a token's hidden state far more than
@@ -1872,15 +2035,16 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
             before = _counts()
             routes[use, pin] = []
             with _routing(record=routes[use, pin],
-                          replay=routes[True, None] if pin else None):
+                          replay=routes[True, None] if pin else None), \
+                    _causal_flags(causal_flags if use else None):
                 hidden[use, pin] = forward(teacher, cfg, None, batch,
                                            use_kernels=use, logits=False)
             now = _counts()
             delta = {k: now[k] - before[k] for k in now}
-            if delta["flash_attention"] != (L_attn if use else 0):
+            if delta["flash_attention"] != (fa_fwd if use else 0):
                 fail(f"teacher forward (use_kernels={use}) launched "
                      f"flash_attention {delta['flash_attention']} times over "
-                     f"{L_attn} routed layers")
+                     f"{fa_fwd} routed attention calls")
             _teacher_on_tensor_cores(delta, "the teacher forward", fa_body)
 
     def rel(a, b):
@@ -1898,29 +2062,39 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
                   f"{rel(hidden[True, None], hidden[False, None]):.3e}, "
                   f"{flips} of {n_dec} token-layer expert sets differ")
     what = ("the kernel route (no attention kernel: MLA's is einsums, the "
-            "SSM has none)" if L_attn == 0 else
+            "SSM has none)" if fa_fwd == 0 else
             f"flash_attention ({fa_body} body)")
     say(f"[train] teacher hidden states, {what} vs the plain route "
-        f"(bf16 compute, batch {TRAIN_DATA['batch_size']} x "
-        f"{TRAIN_DATA['seq_len']}): rel L2 {hid_rel:.3e} (bound "
+        f"(bf16 compute, batch {shape}): rel L2 {hid_rel:.3e} (bound "
         f"{TEACHER_HIDDEN_BOUND:.0e}; both round P to bf16 before P.V, the "
         f"kernel unnormalised, the plain route normalised){pinned}")
     if not hid_rel <= TEACHER_HIDDEN_BOUND:
         fail(f"teacher hidden states: kernel vs plain route rel L2 {hid_rel}")
-    if L_attn == 0 and not torch.equal(hidden[True, None]["hidden"],
+    if fa_fwd == 0 and not torch.equal(hidden[True, None]["hidden"],
                                        hidden[False, True]["hidden"]):
         fail(f"teacher hidden states: no kernel runs on either route, yet "
              f"they differ (rel L2 {hid_rel})")
+    n_causal = sum(causal_flags)
+    want_causal = fa_fwd - (cfg.n_layers if cfg.family == "encdec" else 0)
+    if (n_causal, len(causal_flags)) != (want_causal, fa_fwd):
+        fail(f"the teacher's flash_attention calls: {n_causal} causal of "
+             f"{len(causal_flags)}, want {want_causal} of {fa_fwd}")
+    if cfg.family == "encdec":
+        say(f"[train] the teacher forward's {fa_fwd} flash_attention calls: "
+            f"{n_causal} causal (encoder and decoder self-attention), "
+            f"{fa_fwd - n_causal} non-causal (cross attention, Sq "
+            f"{batch['tokens'].shape[1]} over Sk {batch['frames'].shape[1]})"
+            f", all on the {fa_body} body")
     targets = hidden[True, None]
     del hidden
     # one microbatch profiled, not the step: the profiler's processing
     # grows with the events in its window, and a whole step of mamba2's 48
     # layers in 8 microbatches launches ~200,000 kernels
-    rows = TRAIN_DATA["batch_size"] // microbatches
+    rows = data_cfg["batch_size"] // microbatches
     mb = {k: v[:rows] for k, v in batch.items()}
     vg = make_value_and_grad(cfg, qcfg, plan=qplan)
     _profile(lambda: vg(student, teacher, mb), f"microbatch forward+"
-             f"backward ({rows} x {TRAIN_DATA['seq_len']}, kernel route, "
+             f"backward ({rows} rows of the {shape} batch, kernel route, "
              f"teacher included, no optimizer)", 1, watch=("fa_", "fq_"))
     grads = {}
     for use in (True, False):
@@ -1953,6 +2127,158 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     if worst > 1e-4:
         fail(f"gradient of {worst_at}: rel L2 {worst} > 1e-4")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 19-20: the VLM's and the encoder-decoder's batches, the cache-mode
+# forward
+# ---------------------------------------------------------------------------
+
+def vlm_augment(cfg, n_img: int = VLM_PATCHES, grid: tuple = VLM_GRID):
+    """``batch -> batch`` for qwen2-vl: ``n_img`` patch embeddings (a fresh
+    draw each batch) before the tokens, and ``positions [B, 3, n_img +
+    S]`` with three different streams: the patches on a ``grid`` (t 0,
+    h the row, w the column), the text after them at max + 1 + i on all
+    three, so that M-RoPE's sections rotate by different positions."""
+    import torch
+    rows, cols = grid
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    ar = torch.arange(n_img, device=DEVICE)
+    img = torch.stack([torch.zeros_like(ar), ar // cols, ar % cols])
+
+    def augment(batch):
+        tokens = torch.as_tensor(batch["tokens"]).to(DEVICE)
+        B, S = tokens.shape
+        txt = (int(img.max()) + 1 + torch.arange(S, device=DEVICE)).expand(
+            3, S)
+        pos = torch.cat([img, txt], 1).to(torch.int32)
+        return {"tokens": tokens,
+                "patch_embeds": torch.randn(
+                    (B, n_img, cfg.d_model), generator=g,
+                    device=DEVICE).bfloat16(),
+                "positions": pos[None].expand(B, 3, n_img + S).contiguous()}
+    return augment
+
+
+def encdec_augment(cfg, n_frames: int = ENCDEC_FRAMES):
+    """``batch -> batch`` for seamless: ``n_frames`` frame embeddings (a
+    fresh draw each batch) for the encoder beside the decoder's tokens."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+
+    def augment(batch):
+        tokens = torch.as_tensor(batch["tokens"]).to(DEVICE)
+        return {"tokens": tokens,
+                "frames": torch.randn((tokens.shape[0], n_frames,
+                                       cfg.d_model), generator=g,
+                                      device=DEVICE).bfloat16()}
+    return augment
+
+
+def encdec_cache_path(cfg, plan, exported, augment) -> str:
+    """Phase 20's cache-mode forward on the trained artifact's deploy view
+    (bf16): a batch of ENCDEC_SERVE_BATCH, each a ENCDEC_PROMPT-token
+    prompt over ENCDEC_FRAMES frames, prefilled into ``init_cache(cfg, B,
+    128)`` (the encoder runs and its cross K/V are written into the
+    cache), then ENCDEC_NEW greedy decode steps that read them.  One
+    cache-free forward over the same tokens must give logits within
+    TEACHER_HIDDEN_BOUND relative L2 (the decoder's self-attention takes
+    ``_sdpa`` over the cache, K4 without one) and the same argmax at
+    every position, or there a top-2 margin within MARGIN_ULPS bf16 ulps.
+    The prefill's encoder is a cache-free forward and the cross attention
+    reads no cache of its own, so both take flash_attention; the
+    decoder's self-attention over the cache takes ``_sdpa`` (the
+    scalar-pos decode launches no decode_attention); the cache-free
+    forward sends all its attention calls through flash_attention.  Last,
+    the engine must refuse the family by name."""
+    import torch
+    from repro_torch.models import forward, init_cache
+    from repro_torch.serve.deploy import deploy_view
+    from repro_torch.serve.engine import Engine, ServeConfig
+    with torch.no_grad():
+        params = deploy_view(exported, plan)
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    B, P, N = ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_NEW
+    batch = augment({"tokens": torch.randint(0, cfg.vocab, (B, P),
+                                             generator=g, device=DEVICE)})
+    cache = init_cache(cfg, B, 128, device=DEVICE)
+    before = _counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = forward(params, cfg, None, batch, cache, use_kernels=True)
+        want = (cfg.n_layers, B, ENCDEC_FRAMES, cfg.n_kv_heads_padded,
+                cfg.head_dim)
+        if cache["cross"] is None or tuple(cache["cross"]["k"].shape) != want:
+            fail(f"prefill did not write the cross K/V {want} into the "
+                 f"cache")
+        rows = [out["logits"][:, -1].float()]
+        toks = [torch.argmax(rows[-1], -1)]
+        for _ in range(N):
+            out = forward(params, cfg, None, {"tokens": toks[-1][:, None]},
+                          cache, use_kernels=True)
+            if out["enc_out"] is not None:
+                fail("a decode step ran the encoder")
+            rows.append(out["logits"][:, -1].float())
+            toks.append(torch.argmax(rows[-1], -1))
+        torch.cuda.synchronize()
+        t_cache = time.perf_counter() - t0
+        if cache["self"]["pos"] != P + N:
+            fail(f"the cache's pos is {cache['self']['pos']}, want {P + N}")
+        mid = _counts()
+        fa_cache = mid["flash_attention"] - before["flash_attention"]
+        fa_want = cfg.enc_layers + cfg.n_layers * (1 + N)
+        if fa_cache != fa_want or (mid["decode_attention"]
+                                   != before["decode_attention"]):
+            fail(f"the cache-mode forward launched flash_attention "
+                 f"{fa_cache} times (want {fa_want}: the prefill's encoder "
+                 f"and every call's cross attention) and decode_attention "
+                 f"{mid['decode_attention'] - before['decode_attention']} "
+                 f"times (want 0)")
+        gen = torch.stack(toks, 1)                             # [B, N + 1]
+        full = forward(params, cfg, None, {
+            "tokens": torch.cat([batch["tokens"], gen[:, :N]], 1),
+            "frames": batch["frames"]}, use_kernels=True)["logits"]
+        torch.cuda.synchronize()
+    fa = _counts()["flash_attention"] - mid["flash_attention"]
+    if fa != _fa_per_forward(cfg):
+        fail(f"the cache-free forward launched flash_attention {fa} times, "
+             f"want {_fa_per_forward(cfg)}")
+    ref = full[:, P - 1:].float()                              # [B, N + 1, V]
+    got = torch.stack(rows, 1)
+    logit_rel = float((got - ref).norm() / ref.norm())
+    if not logit_rel <= TEACHER_HIDDEN_BOUND:
+        fail(f"cache-mode logits vs the cache-free forward's: rel L2 "
+             f"{logit_rel} > {TEACHER_HIDDEN_BOUND}")
+    splits = []
+    for b, i in torch.nonzero(torch.argmax(ref, -1) != gen).tolist():
+        top = torch.topk(ref[b, i], 2).values
+        margin, ulp = float(top[0] - top[1]), _ulp(float(top[0]))
+        if margin > MARGIN_ULPS * ulp:
+            fail(f"cache-mode token {i} of row {b} differs from the "
+                 f"cache-free forward's argmax at a top-2 margin of "
+                 f"{margin / ulp:.2f} bf16 ulps (limit {MARGIN_ULPS})")
+        splits.append(f"row {b} token {i} ({margin / ulp:.2f} ulps)")
+    try:
+        Engine.from_artifact(cfg, plan, exported,
+                             ServeConfig(max_slots=2, max_len=256),
+                             device=DEVICE)
+    except NotImplementedError as e:
+        if "'encdec'" not in str(e):
+            fail(f"the engine refused encdec with another message: {e}")
+        refusal = str(e).split(":")[0]
+    else:
+        fail("the engine built an enc-dec serving path")
+    del params, cache, full, got
+    return (f"cache-mode forward (batch {B}, {ENCDEC_FRAMES} frames, a "
+            f"{P}-token prompt, prefill + {N} greedy decode steps, "
+            f"{t_cache:.2f} s, flash_attention {fa_cache}: the prefill's "
+            f"encoder and every call's cross attention): logits rel L2 "
+            f"{logit_rel:.3e} from the cache-free forward's (bound "
+            f"{TEACHER_HIDDEN_BOUND:.0e}), {B * (N + 1) - len(splits)} of "
+            f"{B * (N + 1)} tokens the cache-free forward's argmax"
+            + (f", the others near-ties: {', '.join(splits)}" if splits
+               else "") + f"; tokens {gen.tolist()}; the engine: "
+            f"NotImplementedError '{refusal}'")
 
 
 # ---------------------------------------------------------------------------
@@ -2291,7 +2617,9 @@ def main() -> int:
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
+    from repro_torch.configs.qwen2_vl_7b import CONFIG as QWEN2_VL
     from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.kv_cache import resolve_kv_spec
@@ -2321,6 +2649,10 @@ def main() -> int:
         resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)),
         G=ZAMBA2.n_heads // ZAMBA2.n_kv_heads, tag=" zamba2",
         Hkv=ZAMBA2.n_kv_heads, hd=ZAMBA2.head_dim)
+    fd_vl = check_decode_attention(
+        resolve_kv_spec(QWEN2_VL, ServeConfig(**MAIN_SERVE)),
+        G=QWEN2_VL.n_heads // QWEN2_VL.n_kv_heads, tag=" qwen2-vl",
+        Hkv=QWEN2_VL.n_kv_heads)
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
     fq = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
@@ -2329,6 +2661,17 @@ def main() -> int:
     fq_ssm = check_fake_quant_ssm(MAMBA2, ZAMBA2)
     fa = check_flash_attention(CONFIG)
     fa_zamba = check_flash_attention_fma(ZAMBA2)
+    fq_vl_ed = check_fake_quant_vlm_encdec(QWEN2_VL, SEAMLESS)
+    S_ENC, S_DEC = ENCDEC_FRAMES, ENCDEC_TRAIN_DATA["seq_len"]
+    fa_vl = check_flash_attention_at(
+        "qwen2-vl", 16, 512, 512, QWEN2_VL.n_heads, QWEN2_VL.n_kv_heads,
+        QWEN2_VL.head_dim, True, "wgmma", seed=21)
+    fa_ed = {"self": check_flash_attention_at(
+        "seamless self", 16, S_ENC, S_ENC, SEAMLESS.n_heads,
+        SEAMLESS.n_kv_heads, SEAMLESS.head_dim, True, "wgmma", seed=22),
+        "cross": check_flash_attention_at(
+        "seamless cross", 16, S_DEC, S_ENC, SEAMLESS.n_heads,
+        SEAMLESS.n_kv_heads, SEAMLESS.head_dim, False, "wgmma", seed=23)}
     check_reference()
     launches = main_path(CONFIG)
     train = train_path(CONFIG)
@@ -2370,6 +2713,24 @@ def main() -> int:
                              steps=SSM_TRAIN_STEPS)
     say(f"[main] phase 17 ({ZAMBA2.name} QFT, {ZAMBA_TRAIN_LAYERS} layers) "
         f"{time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    vl = main_path(QWEN2_VL)
+    say(f"[main] phase 18 ({QWEN2_VL.name}) {time.perf_counter() - t18:.1f} s")
+    t19 = time.perf_counter()
+    vl_train = train_path(
+        QWEN2_VL, data_cfg=VLM_TRAIN_DATA, augment=vlm_augment(QWEN2_VL),
+        shape=f"{VLM_TRAIN_DATA['batch_size']} x "
+              f"({VLM_TRAIN_DATA['seq_len']} tokens + {VLM_PATCHES} patches)")
+    say(f"[main] phase 19 ({QWEN2_VL.name} QFT, {TRAIN_LAYERS} layers) "
+        f"{time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    ed_train = train_path(
+        SEAMLESS, layers=SEAMLESS.n_layers, steps=ENCDEC_TRAIN_STEPS,
+        data_cfg=ENCDEC_TRAIN_DATA, augment=encdec_augment(SEAMLESS),
+        shape=f"{ENCDEC_TRAIN_DATA['batch_size']} x ({ENCDEC_FRAMES} frames "
+              f"-> {ENCDEC_TRAIN_DATA['seq_len']} tokens)")
+    say(f"[main] phase 20 ({SEAMLESS.name} QFT, {SEAMLESS.enc_layers} + "
+        f"{SEAMLESS.n_layers} layers) {time.perf_counter() - t20:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2388,7 +2749,11 @@ def main() -> int:
                     + mamba_train["decode_attention"]},
          "zamba2": dict(fd_zamba, launches=zamba["decode_attention"],
                         launches_paged=zamba["decode_attention_paged"],
-                        launches_train=zamba_train["decode_attention"])},
+                        launches_train=zamba_train["decode_attention"]),
+         "qwen2_vl": dict(fd_vl, launches=vl["decode_attention"],
+                          launches_paged=vl["decode_attention_paged"],
+                          launches_train=vl_train["decode_attention"]),
+         "seamless_m4t": {"launches": ed_train["decode_attention"]}},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
@@ -2398,7 +2763,9 @@ def main() -> int:
          "launches_qwen2_moe": moe["quant_matmul"],
          "launches_deepseek_v2": ds["quant_matmul"],
          "launches_mamba2": mamba["quant_matmul"],
-         "launches_zamba2": zamba["quant_matmul"]},
+         "launches_zamba2": zamba["quant_matmul"],
+         "launches_qwen2_vl": vl["quant_matmul"],
+         "launches_seamless_m4t": ed_train["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
@@ -2421,7 +2788,15 @@ def main() -> int:
          "zamba2": {"launches_fwd": zamba_train["fake_quant_fwd"],
                     "launches_bwd": zamba_train["fake_quant_bwd"],
                     "views": {k: v for k, v in fq_ssm.items()
-                              if k.startswith(ZAMBA2.name)}}},
+                              if k.startswith(ZAMBA2.name)}},
+         "qwen2_vl": {"launches_fwd": vl_train["fake_quant_fwd"],
+                      "launches_bwd": vl_train["fake_quant_bwd"],
+                      "views": {k: v for k, v in fq_vl_ed.items()
+                                if k.startswith(QWEN2_VL.name)}},
+         "seamless_m4t": {"launches_fwd": ed_train["fake_quant_fwd"],
+                          "launches_bwd": ed_train["fake_quant_bwd"],
+                          "views": {k: v for k, v in fq_vl_ed.items()
+                                    if k.startswith(SEAMLESS.name)}}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:24",
@@ -2434,7 +2809,13 @@ def main() -> int:
          "mamba2": {"launches": mamba["flash_attention"]
                     + mamba_train["flash_attention"]},
          "zamba2": dict(fa_zamba, launches=zamba_train["flash_attention"],
-                        launches_fma=zamba_train["flash_attention_fma"])},
+                        launches_fma=zamba_train["flash_attention_fma"]),
+         "qwen2_vl": dict(fa_vl, launches=vl_train["flash_attention"],
+                          launches_wgmma=vl_train["flash_attention_wgmma"],
+                          launches_serve=vl["flash_attention"]),
+         "seamless_m4t": dict(fa_ed, launches=ed_train["flash_attention"],
+                              launches_wgmma=ed_train[
+                                  "flash_attention_wgmma"])},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

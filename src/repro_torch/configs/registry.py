@@ -1,11 +1,13 @@
 """Name → model configuration, for the architectures the port runs: the
 dense GQA transformers, the MoE family, DeepSeek-V2's MLA + MoE, the
-Mamba2 SSM and the Zamba2 hybrid, and the paper's CNN."""
+Mamba2 SSM, the Zamba2 hybrid, the Qwen2-VL backbone (M-RoPE), the
+SeamlessM4T encoder-decoder, and the paper's CNN."""
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "zamba2-7b": "zamba2_7b",
@@ -13,6 +15,7 @@ _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen3-8b": "qwen3_8b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "mamba2-1.3b": "mamba2_1_3b",
     "paper-cnn": "paper_cnn",
 }

@@ -1,5 +1,6 @@
-"""GQA attention (+qk-norm, RoPE) with monolithic and paged int8 KV caches,
-and DeepSeek-V2's MLA with its monolithic latent cache.
+"""GQA attention (+qk-norm, RoPE or M-RoPE, biased q/k/v) with monolithic and
+paged int8 KV caches, the encoder-decoder's cross attention, and
+DeepSeek-V2's MLA with its monolithic latent cache.
 
 Caches are dicts of tensors updated **in place** (the JAX package returns
 new caches; here the slot cache is one preallocated set of tensors the
@@ -20,7 +21,7 @@ from ..kernels.decode_attention import (decode_attention,
 from ..kernels.ops import attention_prefill
 from ..serve.kv_cache import quantize_kv
 from .config import ModelConfig
-from .layers import apply_rope, init_rmsnorm, rmsnorm, tap
+from .layers import apply_mrope, apply_rope, init_rmsnorm, rmsnorm, tap
 
 Params = dict[str, Any]
 
@@ -44,15 +45,18 @@ def decode_route(cfg: ModelConfig, max_len: int, use_kernels: bool) -> bool:
 
 def prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   use_kernels: bool) -> bool:
-    """Whether the cache-free causal attention of a full-precision model
-    (the teacher) goes through ``kernels.ops.attention_prefill`` (the
-    ``flash_attention`` kernel).
+    """Whether the cache-free attention of a full-precision model (the
+    teacher) goes through ``kernels.ops.attention_prefill`` (the
+    ``flash_attention`` kernel): the causal self-attention of a forward
+    with no cache, and the encoder-decoder's non-causal cross attention
+    (k, v over the encoder's ``Sk`` frames, in every cache mode).
 
     Only a forward that takes no gradient on the card: the kernel has no
     backward (nor has the reference's), and CPU tensors keep ``_sdpa``.
-    :func:`attention` never asks it for a quantized model: the student
-    trains on ``_sdpa`` (with a gradient), so its no-gradient forwards
-    (evaluate) stay on the route it was trained on."""
+    :func:`attention` and :func:`cross_attention` never ask it for a
+    quantized model: the student trains on ``_sdpa`` (with a gradient), so
+    its no-gradient forwards (evaluate) stay on the route it was trained
+    on."""
     return (bool(use_kernels) and q.is_cuda
             and not (q.requires_grad or k.requires_grad or v.requires_grad))
 
@@ -221,8 +225,9 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
               use_kernels: bool = False, taps: dict | None = None,
               prefix: str = "") -> torch.Tensor:
     """GQA forward; writes this step's K/V into ``cache`` (in place) when one
-    is given.  Cache modes: none (full sequence, causal); monolithic with a
-    scalar ``pos`` (batch prefill); monolithic with a per-slot ``pos [B]``
+    is given.  ``positions`` is ``[B, S]``, or ``[B, 3, S]`` under M-RoPE
+    (``cfg.mrope_sections``).  Cache modes: none (full sequence, causal);
+    monolithic with a scalar ``pos`` (batch prefill); monolithic with a per-slot ``pos [B]``
     (serving decode); paged (``"pt"`` in the cache, serving decode).
 
     ``use_kernels`` routes the per-slot decode attention through
@@ -245,8 +250,12 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
                     use_kernels=use_kernels).reshape(B, Sq, Hkv, hd)
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         # a quantized model (the student) keeps _sdpa, the route it trains on
@@ -272,6 +281,48 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     tap(taps, prefix + ".pre_o", out)
     return dof.qlinear(out, p["wo"], qcfg, stream=p.get("out_stream"),
                        bits=pv.bits("wo"), use_kernels=use_kernels)
+
+
+def cross_attention(x: torch.Tensor, enc_out: torch.Tensor | None,
+                    p: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
+                    cross_kv: tuple | None = None, plan=None,
+                    use_kernels: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decoder's cross attention over the encoder output: no RoPE, no
+    mask.  Returns ``(out, k, v)``: k, v ``[B, Sk, Hkv, hd]`` are
+    ``cross_kv`` when given (a cache's), else projected from ``enc_out``.
+    One ``in_stream`` quantizes both the query's input and the encoder
+    output, as in the JAX package (F18).
+
+    ``use_kernels`` routes the weights' fake-quant through the kernel and,
+    for a full-precision model under :func:`prefill_route`, the attention
+    through ``kernels.ops.attention_prefill`` with ``causal=False`` (it
+    reads no cache of its own, so every mode takes it); ``_sdpa`` is the
+    plain route."""
+    B, Sq, _ = x.shape
+    hd = cfg.head_dim
+    H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
+    pv = plan_view(plan)
+    ins = p.get("in_stream")
+
+    def lin(inp, name):
+        return dof.qlinear(inp, p[name], qcfg, stream=ins,
+                           bits=pv.bits(name), use_kernels=use_kernels)
+
+    q = lin(x, "wq").reshape(B, Sq, H, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        k = lin(enc_out, "wk").reshape(B, -1, Hkv, hd)
+        v = lin(enc_out, "wv").reshape(B, -1, Hkv, hd)
+    if qcfg is None and prefill_route(q, k, v, use_kernels):
+        out = attention_prefill(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, k, v, causal=False, q_offset=0)
+    out = dof.qlinear(out.reshape(B, Sq, H * hd), p["wo"], qcfg,
+                      stream=p.get("out_stream"), bits=pv.bits("wo"),
+                      use_kernels=use_kernels)
+    return out, k, v
 
 
 # --------------------------------------------------------------------------

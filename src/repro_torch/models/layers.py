@@ -6,6 +6,7 @@ package's layout; ``lead`` prepends stacked axes.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any
 
@@ -44,12 +45,10 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [B, S, H, hd]; positions: [B, S] (int)."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x ``[B, S, H, hd]`` by the angles ``[B, S,
+    hd/2]``, in f32."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, device=x.device)
-    ang = positions[..., None].to(torch.float32) * freqs      # [B, S, hd/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     xf1 = x[..., : hd // 2].to(torch.float32)
     xf2 = x[..., hd // 2:].to(torch.float32)
@@ -57,17 +56,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): x ``[B, S, H, hd]``; positions ``[B, 3, S]`` (int)
+    for (t, h, w).  ``sections`` split the ``hd / 2`` frequency bands in
+    order: band ``j`` rotates by the position stream its section names.
+    Equal streams give :func:`apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"hd / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, device=x.device)
+    pos = positions.to(torch.float32)                           # [B, 3, S]
+    ends = list(itertools.accumulate(sections))
+    # band by band from slices: no index tensor built from the host list,
+    # so a decode step stays free of host syncs
+    return _rotate(x, torch.cat(
+        [pos[:, j, :, None] * freqs[end - n:end]
+         for j, (n, end) in enumerate(zip(sections, ends))], dim=-1))
+
+
 def init_mlp(gen: torch.Generator, d: int, ff: int,
-             qcfg: QuantConfig | None, bias: bool, lead: tuple = ()) -> Params:
-    """SwiGLU MLP: up, down, gate and (student) the two stream DoF."""
+             qcfg: QuantConfig | None, bias: bool, lead: tuple = (),
+             mlp_type: str = "swiglu") -> Params:
+    """The MLP: up, down, (SwiGLU) gate and (student) the two stream DoF;
+    the GELU MLP (``mlp_type="gelu"``) has no gate."""
     p: Params = {
         "up": dof.init_qlinear(gen, d, ff, qcfg, bias=bias, name="up",
                                lead=lead),
         "down": dof.init_qlinear(gen, ff, d, qcfg, bias=bias, name="down",
                                  lead=lead),
-        "gate": dof.init_qlinear(gen, d, ff, qcfg, bias=bias, name="gate",
-                                 lead=lead),
     }
+    if mlp_type == "swiglu":
+        p["gate"] = dof.init_qlinear(gen, d, ff, qcfg, bias=bias,
+                                     name="gate", lead=lead)
     if qcfg is not None:
         p["in_stream"] = dof.init_stream(d, lead=lead, device=gen.device)
         p["act_stream"] = dof.init_stream(ff, lead=lead, device=gen.device)
@@ -76,17 +105,21 @@ def init_mlp(gen: torch.Generator, d: int, ff: int,
 
 def mlp(x: torch.Tensor, p: Params, qcfg: QuantConfig | None,
         plan=None, taps: dict | None = None, prefix: str = "",
-        use_kernels: bool = False) -> torch.Tensor:
-    """SwiGLU forward; ``plan`` (scoped to e.g. ``layers.mlp``) supplies
+        use_kernels: bool = False, mlp_type: str = "swiglu") -> torch.Tensor:
+    """SwiGLU (or ``mlp_type="gelu"``: GELU's tanh form, ``jax.nn.gelu``'s
+    default) forward; ``plan`` (scoped to e.g. ``layers.mlp``) supplies
     per-path fake-quant bits; ``taps`` records ``{prefix}.act``;
     ``use_kernels`` routes the weights' fake-quant through the kernel."""
     pv = plan_view(plan)
     ins = p.get("in_stream")
     up = dof.qlinear(x, p["up"], qcfg, stream=ins, bits=pv.bits("up"),
                      use_kernels=use_kernels)
-    gate = dof.qlinear(x, p["gate"], qcfg, stream=ins, bits=pv.bits("gate"),
-                       use_kernels=use_kernels)
-    h = torch.nn.functional.silu(gate) * up
+    if mlp_type == "swiglu":
+        gate = dof.qlinear(x, p["gate"], qcfg, stream=ins,
+                           bits=pv.bits("gate"), use_kernels=use_kernels)
+        h = torch.nn.functional.silu(gate) * up
+    else:
+        h = torch.nn.functional.gelu(up, approximate="tanh")
     tap(taps, prefix + ".act", h)
     return dof.qlinear(h, p["down"], qcfg, stream=p.get("act_stream"),
                        bits=pv.bits("down"), use_kernels=use_kernels)

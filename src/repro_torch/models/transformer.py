@@ -3,10 +3,13 @@
 Teacher (``qcfg=None``) and student run the same code.  Layer parameters
 stay stacked on a leading axis, as the JAX package's ``vmap``-stacked trees
 are, so converted trees and exports line up; the ``lax.scan`` over layers is
-a loop over that axis.  The dense GQA, MoE, MLA + MoE (DeepSeek-V2),
-Mamba2 SSM and Zamba2 hybrid families are ported.  The hybrid's Mamba2
-layers are stacked ``[G, attn_every]`` (each group followed by the one
-shared attention block), its remainder ``[r]`` under ``tail``.
+a loop over that axis.  Every family of the JAX package is ported: dense
+GQA, MoE, MLA + MoE (DeepSeek-V2), the Mamba2 SSM, the Zamba2 hybrid, the
+VLM backbone (Qwen2-VL: patch embeddings stubbed, M-RoPE positions) and
+the encoder-decoder (SeamlessM4T: the audio frontend stubbed to frame
+embeddings, stacked ``enc_layers``/``dec_layers``, cross attention).  The
+hybrid's Mamba2 layers are stacked ``[G, attn_every]`` (each group followed
+by the one shared attention block), its remainder ``[r]`` under ``tail``.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..device import resolve_device
 from ..tree import tree_from_items, tree_items
-from .attention import (attention, init_attention, init_kv_cache, init_mla,
-                        init_mla_cache, mla_attention)
+from .attention import (attention, cross_attention, init_attention,
+                        init_kv_cache, init_mla, init_mla_cache, mla_attention)
 from .config import ModelConfig
 from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, tap)
@@ -34,7 +37,9 @@ Params = dict[str, Any]
 #: (moe, mla, ssm)
 _FAMILY_BLOCKS = {"dense": (False, False, False), "moe": (True, False, False),
                   "mla_moe": (True, True, False),
-                  "ssm": (False, False, True), "hybrid": (False, False, True)}
+                  "ssm": (False, False, True), "hybrid": (False, False, True),
+                  "vlm": (False, False, False),
+                  "encdec": (False, False, False)}
 FAMILIES = tuple(_FAMILY_BLOCKS)
 
 _RUNTIME: dict[str, Any] = {}
@@ -48,13 +53,16 @@ def set_runtime(**kw) -> None:
 
 def _require_family(cfg: ModelConfig) -> None:
     blocks = (cfg.moe is not None, cfg.mla is not None, cfg.ssm is not None)
-    if (blocks != _FAMILY_BLOCKS.get(cfg.family) or cfg.mlp != "swiglu"
-            or cfg.mrope_sections
+    if (blocks != _FAMILY_BLOCKS.get(cfg.family)
+            or cfg.mlp not in (("swiglu", "gelu") if cfg.family == "encdec"
+                               else ("swiglu",))
+            or (cfg.mrope_sections and cfg.family != "vlm")
             or (cfg.family == "hybrid" and cfg.attn_every < 1)):
         raise NotImplementedError(
-            f"repro_torch ports the dense GQA, MoE, MLA + MoE, Mamba2 SSM "
-            f"and Zamba2 hybrid families (SwiGLU, RoPE); {cfg.name!r} is "
-            f"family {cfg.family!r}")
+            f"repro_torch ports the dense GQA, MoE, MLA + MoE, Mamba2 SSM, "
+            f"Zamba2 hybrid, VLM (M-RoPE) and encoder-decoder (GELU MLP) "
+            f"families, SwiGLU and RoPE elsewhere; {cfg.name!r} is family "
+            f"{cfg.family!r}")
 
 
 def _dense_view(cfg: ModelConfig) -> ModelConfig:
@@ -77,9 +85,19 @@ def _init_attn_layers(gen: torch.Generator, cfg: ModelConfig,
               "mlp": (init_moe(gen, cfg, qcfg, lead=lead)
                       if cfg.moe is not None
                       else init_mlp(gen, cfg.d_model, cfg.d_ff, qcfg,
-                                    bias=False, lead=lead))}
+                                    bias=False, lead=lead,
+                                    mlp_type=cfg.mlp))}
     # the JAX package's vmap-stacked layer tree comes back with sorted keys;
     # keeping that order keeps plan JSON and artifact walk order identical
+    return _sorted(layers)
+
+
+def _init_dec_layers(gen: torch.Generator, cfg: ModelConfig,
+                     qcfg: QuantConfig | None, lead: tuple) -> Params:
+    """A decoder layer: the dense layer plus ``norm_x`` and ``cross``."""
+    layers = _init_attn_layers(gen, cfg, qcfg, lead)
+    layers["norm_x"] = init_rmsnorm(cfg.d_model, lead, gen.device)
+    layers["cross"] = init_attention(gen, cfg, qcfg, lead=lead)
     return _sorted(layers)
 
 
@@ -110,15 +128,25 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
     elif gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device} but device {dev}")
     V, d = cfg.vocab_padded, cfg.d_model
-    params: Params = {"final_norm": init_rmsnorm(d, device=dev),
-                      "embed": init_embed(gen, V, d, qcfg)}
+    params: Params = {"final_norm": init_rmsnorm(d, device=dev)}
+    if cfg.family != "encdec":      # the encoder-decoder's comes after
+        params["embed"] = init_embed(gen, V, d, qcfg)
     if not cfg.tie_embeddings:       # a tied head reads the embedding table
         params["lm_head"] = dof.init_qlinear(
             gen, d, V, qcfg, name="lm_head",
             w_bits=None if qcfg is None else qcfg.embed_bits)
     if qcfg is not None:
         params["head_stream"] = dof.init_stream(d, device=dev)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":        # dense layers (no MoE, no MLA)
+        params["embed"] = init_embed(gen, V, d, qcfg)       # decoder tokens
+        params["frame_proj"] = dof.init_qlinear(gen, d, d, qcfg,
+                                                name="frame_proj")
+        params["enc_layers"] = _init_attn_layers(gen, cfg, qcfg,
+                                                 (cfg.enc_layers,))
+        params["dec_layers"] = _init_dec_layers(gen, cfg, qcfg,
+                                                (cfg.n_layers,))
+        params["enc_final_norm"] = init_rmsnorm(d, device=dev)
+    elif cfg.family == "ssm":
         params["layers"] = _init_ssm_layers(gen, cfg, qcfg, (cfg.n_layers,))
     elif cfg.family == "hybrid":
         G, r = divmod(cfg.n_layers, cfg.attn_every)
@@ -135,12 +163,26 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Params:
+               dtype=torch.bfloat16, device=None,
+               enc_len: int | None = None) -> Params:
     """The monolithic cache: the latent ``ckv``/``kr`` for MLA, the f32
     ``ssm_state``/``conv_state`` for the SSM, else ``k``/``v``.  The
     hybrid's is ``{"mamba": [G, attn_every, ...], "tail": [r, ...],
     "attn": {k, v [G, ...], pos}}``; only attention caches hold a
-    ``pos``."""
+    ``pos``.  The encoder-decoder's is ``{"self": {k, v, pos}, "cross":
+    None}``, its cross K/V filled at prefill; with ``enc_len`` the cross
+    slots ``k, v [L, B, enc_len, Hkv, hd]`` exist (zeros) from the start,
+    so a decode step never needs encoder frames."""
+    if cfg.family == "encdec":
+        cross = None
+        if enc_len is not None:
+            shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads_padded,
+                     cfg.head_dim)
+            cross = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"self": init_kv_cache(cfg, batch, max_len, cfg.n_layers,
+                                      dtype, device=device),
+                "cross": cross}
     if cfg.family == "ssm":
         return init_ssm_cache(cfg, batch, cfg.n_layers, device=device)
     if cfg.family == "hybrid":
@@ -206,7 +248,8 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
                       plan=pv.child("mlp"), use_kernels=use_kernels)
     else:
         m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
-                prefix=prefix + ".mlp", use_kernels=use_kernels)
+                prefix=prefix + ".mlp", use_kernels=use_kernels,
+                mlp_type=cfg.mlp)
     tap(taps, prefix + ".mlp_out", m)
     return x + m
 
@@ -259,7 +302,8 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
             compute_dtype=torch.bfloat16, plan=None,
             use_kernels: bool = False, collect_taps: bool = False,
             logits: bool = True) -> dict[str, Any]:
-    """Returns {hidden, logits, cache, taps}.
+    """Returns {hidden, logits, cache, taps} (and the encoder-decoder's
+    ``enc_out``).
 
     cache=None → full sequence (train / eval); a cache → prefill (S > 1) or
     decode (S == 1), writing K/V (and Mamba2 state) into it in place and
@@ -271,27 +315,50 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     (``core.dof.weight_fake_quant``) through the kernels.
     ``collect_taps`` records per-channel ``{min, max, mean}`` at every
     stream point as ``L{i}.attn_in`` … (the JAX package's tap names; the
-    hybrid's ``G.m{j}.ssm_in``, ``G.attn.attn_in``, ``T{i}.ssm_in`` …);
+    hybrid's ``G.m{j}.ssm_in``, ``G.attn.attn_in``, ``T{i}.ssm_in`` …;
+    the encoder-decoder taps nothing, F18);
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops
     it from a step whose loss reads only the hidden states.
+
+    The batch holds ``tokens [B, S]``, and may hold ``positions`` (``[B,
+    S]``, or ``[B, 3, S]`` under M-RoPE); the VLM's ``patch_embeds [B,
+    S_img, d]`` go before the token embeddings (``positions`` then covers
+    ``S_img + S``); the encoder-decoder's ``frames [B, S_enc, d]`` feed the
+    encoder (a cache whose ``cross`` is filled needs none).  Without
+    ``positions`` they count from the cache's ``pos`` (a scalar, or one per
+    slot), the three M-RoPE streams equal.
     """
     _require_family(cfg)
     pv = plan_view(plan)
     taps: dict | None = {} if collect_taps else None
+    if cfg.family == "encdec":
+        h, enc_out = _forward_encdec(params, cfg, qcfg, batch, cache, pv,
+                                     use_kernels, compute_dtype)
+        out = _head(params, cfg, qcfg, h, pv, use_kernels) if logits else None
+        return {"hidden": h, "logits": out, "cache": cache, "taps": taps,
+                "enc_out": enc_out}
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
                      use_kernels=use_kernels)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(compute_dtype), x], dim=1)
+    S = x.shape[1]
     base = 0
     if cache is not None and "pos" in cache:
         base = cache["pos"]
     elif cache is not None and "attn" in cache:
         base = cache["attn"]["pos"]          # hybrid: the shared-attn cache
     ar = torch.arange(S, device=tokens.device)
-    if isinstance(base, torch.Tensor) and base.ndim == 1:
-        positions = base[:, None] + ar[None, :]
+    if "positions" in batch:
+        positions = batch["positions"]
     else:
-        positions = torch.broadcast_to(base + ar[None, :], (B, S))
+        if isinstance(base, torch.Tensor) and base.ndim == 1:
+            positions = base[:, None] + ar[None, :]      # one per slot
+        else:
+            positions = torch.broadcast_to(base + ar[None, :], (B, S))
+        if cfg.mrope_sections:
+            positions = torch.broadcast_to(positions[:, None, :], (B, 3, S))
     if cfg.family == "ssm":
         x = _ssm_layers(x, params["layers"], cfg, qcfg, cache,
                         pv.child("layers"), use_kernels, taps,
@@ -312,15 +379,82 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
         if cache is not None:
             cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
-    out = None
-    if logits and cfg.tie_embeddings:
+    out = _head(params, cfg, qcfg, h, pv, use_kernels) if logits else None
+    return {"hidden": h, "logits": out, "cache": cache, "taps": taps}
+
+
+def _head(params, cfg, qcfg, h, pv, use_kernels) -> torch.Tensor:
+    if cfg.tie_embeddings:
         # the stored table (the student's FP master, the deploy view's
         # dequantized rows), unquantized, as the JAX package's tied head
-        out = h @ params["embed"]["w"].to(h.dtype).T
-    elif logits:
-        out = dof.qlinear(h, params["lm_head"], qcfg,
-                          stream=params.get("head_stream"),
-                          bits=None if qcfg is None
-                          else pv.bits("lm_head", qcfg.embed_bits),
+        return h @ params["embed"]["w"].to(h.dtype).T
+    return dof.qlinear(h, params["lm_head"], qcfg,
+                       stream=params.get("head_stream"),
+                       bits=None if qcfg is None
+                       else pv.bits("lm_head", qcfg.embed_bits),
+                       use_kernels=use_kernels)
+
+
+def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
+                    compute_dtype) -> tuple[torch.Tensor, Any]:
+    """The encoder over ``frames`` (skipped when the cache's cross K/V are
+    filled), then the decoder: causal self-attention (RoPE), cross
+    attention over the encoder output, the MLP, each pre-norm and
+    residual.  Returns the decoder's final-normed hidden states and the
+    encoder output (None when the encoder did not run).
+
+    The encoder's self-attention is causal, as in the JAX package (it
+    calls ``attention`` with no cache, F18).  A cache whose ``cross`` is
+    None gets the cross K/V computed here, ``[L, B, S_enc, Hkv, hd]``,
+    written into it (prefill); a filled one is read (decode)."""
+    epv, dpv = pv.child("enc_layers"), pv.child("dec_layers")
+    cross = None if cache is None else cache["cross"]
+    enc_out = None
+    if cross is None:
+        frames = batch["frames"].to(compute_dtype)
+        e = dof.qlinear(frames, params["frame_proj"], qcfg,
+                        bits=pv.bits("frame_proj"), use_kernels=use_kernels)
+        Be, Se = e.shape[:2]
+        epos = torch.broadcast_to(
+            torch.arange(Se, device=e.device)[None], (Be, Se))
+        for lp in unstack(params["enc_layers"]):
+            e = e + attention(rmsnorm(e, lp["norm1"]), lp["attn"], cfg,
+                              qcfg, epos, None, plan=epv.child("attn"),
+                              use_kernels=use_kernels)
+            e = e + mlp(rmsnorm(e, lp["norm2"]), lp["mlp"], qcfg,
+                        plan=epv.child("mlp"), use_kernels=use_kernels,
+                        mlp_type=cfg.mlp)
+        enc_out = rmsnorm(e, params["enc_final_norm"])
+
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
+                     use_kernels=use_kernels)
+    self_c = None if cache is None else cache["self"]
+    base = 0 if self_c is None else self_c["pos"]
+    positions = torch.broadcast_to(
+        base + torch.arange(S, device=tokens.device)[None, :], (B, S))
+    new_k, new_v = [], []
+    for i, lp in enumerate(unstack(params["dec_layers"])):
+        sc = None if self_c is None else {
+            "k": self_c["k"][i], "v": self_c["v"][i], "pos": self_c["pos"]}
+        x = x + attention(rmsnorm(x, lp["norm1"]), lp["attn"], cfg, qcfg,
+                          positions, sc, plan=dpv.child("attn"),
                           use_kernels=use_kernels)
-    return {"hidden": h, "logits": out, "cache": cache, "taps": taps}
+        a, k, v = cross_attention(
+            rmsnorm(x, lp["norm_x"]), enc_out, lp["cross"], cfg, qcfg,
+            None if cross is None else (cross["k"][i], cross["v"][i]),
+            plan=dpv.child("cross"), use_kernels=use_kernels)
+        x = x + a
+        if cache is not None and cross is None:
+            new_k.append(k)
+            new_v.append(v)
+        x = x + mlp(rmsnorm(x, lp["norm2"]), lp["mlp"], qcfg,
+                    plan=dpv.child("mlp"), use_kernels=use_kernels,
+                    mlp_type=cfg.mlp)
+    if cache is not None:
+        if cross is None:
+            cache["cross"] = {"k": torch.stack(new_k),
+                              "v": torch.stack(new_v)}
+        self_c["pos"] = self_c["pos"] + S
+    return rmsnorm(x, params["final_norm"]), enc_out

@@ -2,8 +2,8 @@
 
 The orchestrator (pipeline/runner.py) is family-agnostic; an adapter maps the
 five pipeline stages onto the family's machinery — QFTTrainer and
-serve/deploy for the transformer families (dense and MoE), the conv-specific
-calibration/export path for the paper CNN.
+serve/deploy for the transformer families (every registry entry but the
+CNN), the conv-specific calibration/export path for the paper CNN.
 """
 from __future__ import annotations
 
@@ -82,13 +82,14 @@ def _parity_parts(student: Params, artifact: Params
                   ) -> Iterator[tuple[Params, Params]]:
     """(student part, artifact part) pairs covering the whole model: each
     top-level entry with the streams it is tied to, then each layer of a
-    stack (``layers``, ``tail``) alone, as a stack of depth 1 — so the two
+    stack (``layers``, ``enc_layers``, ``dec_layers``, ``tail``) alone, as
+    a stack of depth 1 — so the two
     f32 views exist for one part at a time, never for the whole model."""
     streams = {k: student[k] for k in STREAM_KEYS & student.keys()}
     for k, v in student.items():
         if k in STREAM_KEYS:
             continue
-        if k in ("layers", "tail"):
+        if k in ("layers", "enc_layers", "dec_layers", "tail"):
             for i in range(stack_depth(v)):
                 yield tuple({k: tree_map(lambda x: x[None],
                                          layer_slice(tree, i))}
@@ -98,13 +99,13 @@ def _parity_parts(student: Params, artifact: Params
 
 
 # ---------------------------------------------------------------------------
-# Transformer families (dense, MoE, MLA + MoE, SSM, hybrid)
+# Transformer families (dense, MoE, MLA + MoE, SSM, hybrid, VLM, enc-dec)
 # ---------------------------------------------------------------------------
 
 class TransformerAdapter:
     """The transformer families the port runs (dense, MoE, MLA + MoE, the
-    Mamba2 SSM, the Zamba2 hybrid), via QFTTrainer's stage functions, on
-    ``pcfg.device``."""
+    Mamba2 SSM, the Zamba2 hybrid, the VLM backbone, the encoder-decoder),
+    via QFTTrainer's stage functions, on ``pcfg.device``."""
 
     def __init__(self, pcfg: PipelineConfig, model_cfg, qcfg: QuantConfig):
         if pcfg.smoke:
@@ -128,8 +129,29 @@ class TransformerAdapter:
 
     # ------------------------------------------------------------- fixtures
     def _augment(self, batch: dict) -> dict:
-        """Stub modality inputs for the VLM / enc-dec families, which the
-        port does not have yet: the dense family's batch is the tokens."""
+        """Stub modality inputs (the registry's precomputed-embedding
+        frontends): the VLM gets 4 ``patch_embeds`` before its tokens and
+        ``positions [B, 3, S + 4]`` counting over both, its three streams
+        equal; the encoder-decoder gets 8 ``frames``.  Both are drawn, the
+        same for every batch, from a CPU ``torch.Generator`` seeded
+        ``seed + 17`` (the JAX package draws them with ``jax.random``,
+        which is not reproduced here)."""
+        fam, d = self.cfg.family, self.cfg.d_model
+        if fam not in ("vlm", "encdec"):
+            return batch
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        B, S = batch["tokens"].shape
+        gen = torch.Generator().manual_seed(self.pcfg.seed + 17)
+        if fam == "vlm":
+            s_img = 4
+            batch["patch_embeds"] = torch.randn(
+                (B, s_img, d), generator=gen).to(torch.bfloat16)
+            batch["positions"] = torch.broadcast_to(
+                torch.arange(S + s_img, dtype=torch.int32)[None, None],
+                (B, 3, S + s_img)).contiguous()
+        else:
+            batch["frames"] = torch.randn((B, 8, d),
+                                          generator=gen).to(torch.bfloat16)
         return batch
 
     def batches(self):

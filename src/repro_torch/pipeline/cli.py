@@ -154,7 +154,11 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     print(f"pipeline: {pcfg.arch} mode={pcfg.mode} "
           f"w{qcfg.w_bits} layout={qcfg.layout} steps={pcfg.steps} "
           f"stages={' -> '.join(pcfg.stages())}")
-    result = run_pipeline(pcfg, log=lambda s: print(f"  {s}"))
+    try:
+        result = run_pipeline(pcfg, log=lambda s: print(f"  {s}"))
+    except NotImplementedError as e:   # e.g. --serve-smoke on encdec
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 1
     if result.stages_skipped:
         print(f"  skipped (resume): {', '.join(result.stages_skipped)}")
     ft = result.metrics.get("finetune")

@@ -38,8 +38,8 @@ Params = dict[str, Any]
 
 #: the layer-stacked subtrees, exported and dequantized one leading index
 #: at a time (the hybrid's ``layers`` is ``[G, attn_every, ...]``: a group
-#: at a time)
-_STACKED = ("layers", "tail")
+#: at a time; the encoder-decoder's ``enc_layers``/``dec_layers`` a layer)
+_STACKED = ("layers", "enc_layers", "dec_layers", "tail")
 
 
 # Deprecation shim only: the bare-name exemption set artifacts exported

@@ -26,6 +26,10 @@ einsums on either route: ``decode_route`` never routes it.  The Mamba2
 SSM and the Zamba2 hybrid serve their monolithic cache (f32 Mamba2 state;
 the hybrid's shared attention over bf16 KV, through the kernel) and
 prefill in exact-length chunks: a recurrent state cannot mask pad tokens.
+The VLM backbone (Qwen2-VL) serves text-only requests as the dense family
+does (paged int8 KV, bucketed prefill), its M-RoPE streams equal; the
+encoder-decoder family is refused, as the JAX package has no serving path
+for it.
 
 Sampling: per-request temperature/top_k/top_p/seed drawn on the device
 (core/sampling.py); ``temperature=0`` (the default) is exact greedy.
@@ -106,8 +110,8 @@ def _tree_bytes(tree) -> int:
 def _attn_layer_count(cfg: ModelConfig) -> int:
     """Attention invocations per slot-decode step, the denominator of the
     route counters in :meth:`Engine.stats`: one shared-attention call per
-    group of the hybrid, every layer of the dense and MoE families, none
-    for the SSM or MLA (which never routes)."""
+    group of the hybrid, every layer of the dense, MoE and VLM families,
+    none for the SSM or MLA (which never routes)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
     if cfg.family in ("dense", "moe", "vlm"):
@@ -315,6 +319,12 @@ class Engine:
 
     def _setup(self, cfg: ModelConfig, plan: DeployPlan, exported,
                scfg: ServeConfig | None, dev: torch.device) -> None:
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"the engine does not serve family 'encdec' ({cfg.name}): "
+                f"the JAX package has no encoder-decoder serving path (a "
+                f"request carries no encoder frames); run its cache-mode "
+                f"forward (models.forward with init_cache) instead")
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the port's engine serves the {', '.join(FAMILIES)} "

@@ -48,7 +48,7 @@ _TAP_TO_STREAM = {
 #: the stacked subtrees: each is walked one leading index at a time (the
 #: JAX package's ``vmap``), so the hybrid's ``[G, attn_every]`` Mamba2
 #: stack reaches the init one group ``[attn_every, ...]`` at a time
-_STACKED = ("layers", "tail")
+_STACKED = ("layers", "enc_layers", "dec_layers", "tail")
 
 
 def _device_of(tree) -> torch.device:

@@ -27,9 +27,11 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
 
     ``grads`` has the student's structure; a leaf that no gradient reaches
     (``lm_head`` and ``head_stream`` when ``ce_proportion == 0``: the head
-    is then not run at all) is ``None``.  ``microbatches`` splits the batch
-    on axis 0 and accumulates in f32 as the JAX package's ``lax.scan`` body
-    does: ``acc + g / microbatches`` and the sum of ``loss / microbatches``.
+    is then not run at all) is ``None``.  ``microbatches`` splits every
+    batch leaf on axis 0 (``tokens``, and the VLM's ``patch_embeds`` and
+    ``positions [B, 3, S]``, the encoder-decoder's ``frames``) and
+    accumulates in f32 as the JAX package's ``lax.scan`` body does:
+    ``acc + g / microbatches`` and the sum of ``loss / microbatches``.
     The teacher runs under ``torch.no_grad()``; ``use_kernels`` routes the
     student's weight fake-quant and the teacher's attention through the
     kernels on the card.  ``targets`` — the teacher's forward output

@@ -1198,3 +1198,159 @@ def test_hybrid_engine_routes_every_shared_attention_through_k2(cuda):
     assert decode_attention.launches - before == n_attn
     out = eng.generate([Request(prompt=[5, 6, 7], max_new_tokens=4)])
     assert len(out[0]) == 4 and all(0 <= t < cfg.vocab for t in out[0])
+
+
+# ---------------------------------------------------------------------------
+# the VLM (qwen2-vl-7b: GQA group 7) and encoder-decoder (seamless-m4t-medium:
+# the teacher's non-causal cross attention) shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_decode_attention_g7_at_qwen2_vl_slot_pool(cuda, kv):
+    """The slot view at qwen2-vl-7b's 4 kv heads x a group of 7, hd 128,
+    over the engine's 8 slots of 2048 rows (the int8 cache takes the
+    4-row tiles of G > 4, a group slot of the 8 idle); lengths from 1 to
+    T, against the plain version; two launches bit-identical."""
+    S, T, Hkv, G, hd = 8, 2048, 4, 7, 128
+    q = _rand((S, Hkv, G, hd), 30, cuda)
+    k = _rand((S, T, Hkv, hd), 31, cuda)
+    v = _rand((S, T, Hkv, hd), 32, cuda)
+    lengths = torch.tensor([1, 17, 130, 300, 1000, 1016, 2047, 2048],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    out = decode_attention(*args)
+    again = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("P,n_pg", [(16, 128), (48, 7)])
+def test_paged_entry_g7_against_plain(cuda, P, n_pg):
+    """The paged entry at 4 kv heads x a group of 7, hd 128: the engine's
+    page size over 2048 rows and a page size that does not divide the
+    split, against the gather + plain version."""
+    args = _paged(cuda, P, n_pg, 7, 40 + P, Hkv=4)
+    args[0] = args[0].bfloat16()
+    before = decode_attention.launches_paged
+    out = decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_paged == before + 1
+    _fd_close(out, decode_attention_paged_ref(*args))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [17, 512])
+def test_tensor_core_body_at_qwen2_vl_heads(cuda, S, causal):
+    """The tensor-core body at qwen2-vl-7b's 28 query heads over 4 kv heads
+    (a group of 7), hd 128, on strided views of a fused qkv projection,
+    against the plain version."""
+    q, k, v = _fused_qkv(2, S, 28, 4, 128, 40 + S, cuda)
+    before = _fa_counts()
+    out = attention_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(
+        out.float(), attention_prefill_ref(q, k, v, causal=causal).float(),
+        **FA_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 512), (1, 512), (300, 77)])
+def test_tensor_core_body_cross_attention(cuda, Sq, Sk):
+    """seamless-m4t-medium's cross attention: 16/16 heads, hd 64, non-causal,
+    decoder queries over encoder keys of another length (the q a view of a
+    projection, k and v views of one fused kv projection), through the
+    tensor-core body, against the plain version; two runs bit-equal."""
+    B, H, hd = 2, 16, 64
+    q = _rand((B, Sq, H * hd), 41, cuda).bfloat16().view(B, Sq, H, hd)
+    kv = _rand((B, Sk, 2 * H * hd), 42, cuda).bfloat16()
+    k = kv[..., :H * hd].view(B, Sk, H, hd)
+    v = kv[..., H * hd:].view(B, Sk, H, hd)
+    before = _fa_counts()
+    out = attention_prefill(q, k, v, causal=False)
+    again = attention_prefill(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _fa_counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out.float(), attention_prefill_ref(q, k, v, causal=False).float(),
+        **FA_TOL["bfloat16"])
+
+
+def test_encdec_teacher_forward_goes_through_flash_attention(cuda):
+    """A seamless SMOKE teacher's no-gradient forward with use_kernels runs
+    the kernel three times a layer pair — the encoder's and the decoder's
+    causal self-attention and the decoder's non-causal cross attention —
+    and stays within f32 summation order of the plain route; a cache-mode
+    prefill launches it for the encoder and the cross attention only; a
+    forward that needs a gradient launches nothing."""
+    from repro_torch.configs.seamless_m4t_medium import SMOKE
+    from repro_torch.models import forward, init_cache, init_model
+    from repro_torch.tree import tree_items
+    teacher = init_model(0, SMOKE, None, device=cuda)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, SMOKE.vocab, (2, 40))).to(cuda),
+             "frames": _rand((2, 96, SMOKE.d_model), 43, cuda)}
+    out = {}
+    for use in (True, False):
+        before = flash_attention.launches
+        with torch.no_grad():
+            out[use] = forward(teacher, SMOKE, None, batch,
+                               compute_dtype=torch.float32,
+                               use_kernels=use)["hidden"]
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == (
+            SMOKE.enc_layers + 2 * SMOKE.n_layers if use else 0)
+    torch.testing.assert_close(out[True], out[False], rtol=1e-4, atol=1e-4)
+    before = flash_attention.launches
+    with torch.no_grad():
+        forward(teacher, SMOKE, None, batch, init_cache(
+            SMOKE, 2, 64, torch.float32, device=cuda),
+            compute_dtype=torch.float32, use_kernels=True)
+    # the prefill's encoder is a cache-free forward, and the cross
+    # attention reads no cache of its own; the decoder's self-attention
+    # over the cache takes _sdpa
+    assert flash_attention.launches - before == (SMOKE.enc_layers
+                                                 + SMOKE.n_layers)
+    for _, leaf in tree_items(teacher):
+        leaf.requires_grad_()
+    before = flash_attention.launches
+    forward(teacher, SMOKE, None, batch, use_kernels=True)
+    assert flash_attention.launches == before
+
+
+def test_vlm_engine_decodes_through_k2_at_group_7(cuda):
+    """A qwen2-vl SMOKE engine narrowed to 7 query heads over one kv head:
+    ``stats()`` puts every layer on the kernel route and each decode step
+    launches the paged entry once a layer, with no host sync."""
+    from repro_torch.configs.qwen2_vl_7b import SMOKE
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(SMOKE, n_heads=7, n_kv_heads=1,
+                              n_heads_padded=7, n_kv_heads_padded=1)
+    qcfg = QuantConfig()
+    params = init_model(0, cfg, qcfg, device=cuda)
+    plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
+                            params=params, model_cfg=cfg)
+    eng = Engine.from_artifact(cfg, plan, export_for_layers(params, plan),
+                               ServeConfig(max_slots=2, max_len=64,
+                                           prefill_chunk=16))
+    assert eng._kv is not None
+    assert eng.stats()["decode_attn_kernel_layers"] == cfg.n_layers
+    eng.submit(Request(prompt=list(range(3, 40)), max_new_tokens=6))
+    eng.step()
+    before = decode_attention.launches_paged
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.cache, eng.state, _, _ = eng._decode(eng.params, eng.cache,
+                                                 eng.state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_paged - before == cfg.n_layers
+    out = eng.generate([Request(prompt=[5, 6, 7], max_new_tokens=4)])
+    assert len(out[0]) == 4 and all(0 <= t < cfg.vocab for t in out[0])

@@ -104,8 +104,8 @@ def test_serving_families_match_jax():
     assert t_kv.BUCKETED_PREFILL_FAMILIES == j_kv.BUCKETED_PREFILL_FAMILIES
     assert t_kv.PAGED_KV_FAMILIES == j_kv.PAGED_KV_FAMILIES
     assert "moe" in transformer.FAMILIES and "moe" in t_kv.PAGED_KV_FAMILIES
-    with pytest.raises(NotImplementedError, match="family 'encdec'"):
-        init_model(0, dataclasses.replace(T_SMOKE, family="encdec"), None,
+    with pytest.raises(NotImplementedError, match="family 'cnn'"):
+        init_model(0, dataclasses.replace(T_SMOKE, family="cnn"), None,
                    device="meta")
 
 

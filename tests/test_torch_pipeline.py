@@ -371,13 +371,14 @@ def test_python_m_repro_torch_lists_configs():
     assert out.stdout.split()[::2] == ["command-r-plus-104b",
                                        "deepseek-v2-236b", "mamba2-1.3b",
                                        "paper-cnn", "phi4-mini-3.8b",
-                                       "qwen2-moe-a2.7b", "qwen3-32b",
-                                       "qwen3-8b", "zamba2-7b"]
+                                       "qwen2-moe-a2.7b", "qwen2-vl-7b",
+                                       "qwen3-32b", "qwen3-8b",
+                                       "seamless-m4t-medium", "zamba2-7b"]
     assert out.stdout.split()[1::2] == [
         f"repro_torch.configs.{m}" for m in (
             "command_r_plus_104b", "deepseek_v2_236b", "mamba2_1_3b",
-            "paper_cnn", "phi4_mini_3_8b", "qwen2_moe_a2_7b", "qwen3_32b",
-            "qwen3_8b", "zamba2_7b")]
+            "paper_cnn", "phi4_mini_3_8b", "qwen2_moe_a2_7b", "qwen2_vl_7b",
+            "qwen3_32b", "qwen3_8b", "seamless_m4t_medium", "zamba2_7b")]
 
 
 # ---------------------------------------------------------------------------
@@ -623,10 +624,12 @@ def test_canonical_arch_spellings_match_jax():
                  "phi4_mini_3_8b", "phi4-mini-3.8b", "qwen3_32b",
                  "command_r_plus_104b", "qwen2_moe_a2_7b",
                  "qwen2-moe-a2.7b", "deepseek_v2_236b", "deepseek-v2-236b",
-                 "mamba2_1_3b", "mamba2-1.3b", "zamba2_7b", "zamba2-7b"):
+                 "mamba2_1_3b", "mamba2-1.3b", "zamba2_7b", "zamba2-7b",
+                 "qwen2_vl_7b", "qwen2-vl-7b", "seamless_m4t_medium",
+                 "seamless-m4t-medium"):
         assert canonical_arch(name) == j_canonical_arch(name), name
         assert _canon_arch(name) == j_canon(name), name
     assert canonical_arch("paper_cnn") == "paper-cnn"
-    for bad in ("qwen2-vl-7b", "nonexistent"):
+    for bad in ("qwen2-vl", "nonexistent"):
         with pytest.raises(KeyError):
             _canon_arch(bad)

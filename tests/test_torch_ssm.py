@@ -115,14 +115,15 @@ def test_config_values(which):
 
 def test_the_port_admits_ssm_and_refuses_it_without_its_block():
     """``FAMILIES`` holds ssm and hybrid; an ssm config without its
-    ``SSMConfig``, and an unported family, are refused by name."""
+    ``SSMConfig``, and a family the transformer does not run (the
+    CNN's), are refused by name."""
     assert {"ssm", "hybrid"} <= set(transformer.FAMILIES)
     init_model(0, T_SMOKE, None, device="meta")
     with pytest.raises(NotImplementedError, match="family 'ssm'"):
         init_model(0, dataclasses.replace(T_SMOKE, ssm=None), None,
                    device="meta")
-    with pytest.raises(NotImplementedError, match="family 'vlm'"):
-        init_model(0, dataclasses.replace(T_SMOKE, family="vlm"), None,
+    with pytest.raises(NotImplementedError, match="family 'cnn'"):
+        init_model(0, dataclasses.replace(T_SMOKE, family="cnn"), None,
                    device="meta")
 
 
