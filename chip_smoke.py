@@ -181,6 +181,31 @@ Phases, each fatal on failure:
    artifact (batch 2, 512 frames, a 16-token prompt, prefill, 16 greedy
    decode steps over the cached cross K/V) against one cache-free forward
    (argmax equal, or a near-tie), and the engine's refusal of the family.
+21. command-r-plus and qwen3-32b — phase 5's main path on
+   command-r-plus-104b at full width (d 12288, 96/8 heads: a GQA group of
+   12, ff 33792, vocab 256000, untied) on 2 of 64 layers, and on
+   qwen3-32b at full width (d 5120, 64/8 heads, qk-norm, ff 25600) on 16
+   of 64: decode_attention's paged entry in every layer of every decode
+   step (at G 12 in two query chunks of 8), tokens against the plain
+   route under phase 5's near-tie rule.  Phase 3 adds decode_attention at
+   8 kv heads x G 12 and G 16 on the slot view (bf16, int8) and the paged
+   entry, its bound counting the chunks' K/V re-reads.
+22. remat — one microbatch's loss and gradients of a 4-layer full-width
+   qwen3-8b student under the remat policies none, full and save_dots
+   (held to each other: loss 1e-6 relative, each leaf 1e-5 relative L2);
+   then the deepest full-width qwen3-8b student that trains (2 steps of
+   phase 6's batch) under full remat, deeper depths tried first.  Every
+   train phase remats as the reference's trainer does, so fake_quant's
+   forward launches a step count each layer's weights twice; phase 15
+   trains mamba2 at full depth in 4 microbatches (8 without remat).
+23. the sharded path at world size 1 — one NCCL rank on a localhost
+   store, make_elastic_mesh(1, 1): the launcher's build_step (student,
+   teacher and Adam state as DTensors) on a 2-layer full-width qwen3-8b
+   against the QFTTrainer's step (loss 1e-6 relative), a step with the
+   int8 error-feedback compressor, make_ep_moe at tp 1 on a 2-layer
+   qwen2-moe against the in-graph MoE, and the elastic runner with an
+   injected failure and a real checkpoint restore at SMOKE width (a few
+   MB written) against the run without the failure.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -190,8 +215,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -199,6 +226,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the phases allocate and free tens of GiB in turn; fixed-size segments
+# left deepseek-v2's export (phase 12, ~73 GiB at its peak) 6.6 GiB
+# reserved but unusable after the remat train phases, and it ran out of
+# memory
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and int8
 #: tensor-core operations/s
@@ -257,11 +289,11 @@ DS_TRAIN_STEPS = 3
 #: ~27 GB of f32 teacher, student, Adam state and gradients); phase 17:
 #: zamba2-7b's at 7 of 81 layers (one group of 6 and one tail layer)
 MAMBA_TRAIN_LAYERS = 48
-#: the batch (16 x 512) in 8 microbatches: in 4, the SSD scan's f32
-#: intermediates that autograd keeps ([2 sequences, 4 chunks, 128, 128, 64
-#: heads] a tensor) outgrow the card at 48 layers (measured: out of memory
-#: in the first step's forward)
-MAMBA_TRAIN_MICROBATCHES = 8
+#: the batch (16 x 512) in 4 microbatches, as phase 6's: without remat the
+#: SSD scan's f32 intermediates that autograd keeps ([4 sequences, 4
+#: chunks, 128, 128, 64 heads] a tensor) outgrew the card at 48 layers and
+#: 8 were needed; under remat only the layer boundaries are kept
+MAMBA_TRAIN_MICROBATCHES = 4
 ZAMBA_TRAIN_LAYERS = 7
 SSM_TRAIN_STEPS = 3
 # phase 19: qwen2-vl QFT at 4 layers, input_specs' train form with 1/4 of
@@ -277,6 +309,22 @@ ENCDEC_TRAIN_STEPS = 3
 ENCDEC_SERVE_BATCH = 2
 ENCDEC_PROMPT = 16
 ENCDEC_NEW = 16
+#: phase 21: command-r-plus-104b at full width on 2 of 64 layers (1.573 B
+#: parameters a layer, 6.29 B in the untied embedding and head: 9.44 B);
+#: at 3 layers (11.0 B) init + export peaked at 76.24 GiB of the card's
+#: 79.18, under the 5 GiB of headroom a phase keeps; and qwen3-32b on 16
+#: of 64 (0.488 B a layer, 1.56 B in the embedding and head: 9.37 B)
+CMDR_LAYERS = 2
+QWEN32_LAYERS = 16
+#: phase 22: the depths tried for qwen3-8b's QFT under remat, deepest
+#: first (≈ 3.6 GiB of f32 training state a layer, 23 GiB fixed in the
+#: embedding and head)
+REMAT_DEPTHS = (14, 13, 12, 11, 10)
+#: phase 23: the sharded step's depth; the elastic run at SMOKE width
+SHARDED_LAYERS = 2
+ELASTIC_STEPS = 5
+ELASTIC_CKPT_EVERY = 2
+ELASTIC_FAIL_AT = 3
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -389,6 +437,7 @@ def check_decode_attention(kv, G: int = 4, tag: str = "",
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_paged,
+                                                      query_chunks,
                                                       split_rows, tile_rows)
     from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                          decode_attention_ref)
@@ -434,20 +483,25 @@ def check_decode_attention(kv, G: int = 4, tag: str = "",
         live = int(torch.clamp(lens, max=t).sum())
         n = lens.numel()
         tile = tile_rows(args[1].dtype, hd, G)
-        nbytes = (2 * live * Hkv * hd * elt + 2 * q[:n].numel() * 2
-                  + n * 4 + extra_bytes)
-        b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd,
+        # the function reads each K/V row once; a group above 8 runs in
+        # query chunks of 8 whose blocks each read the rows again, a cost of
+        # the kernel's design that the bound does not count
+        kv_bytes = 2 * live * Hkv * hd * elt
+        rest = 2 * q[:n].numel() * 2 + n * 4 + extra_bytes
+        b_ms, b_by = bound(kv_bytes + rest, 4 * live * Hkv * G * hd,
                            "int8" if elt == 1 else "bf16")
+        kernel_bytes = kv_bytes * query_chunks(G) + rest
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
         say(f"[kernel] decode_attention{tag} {kind} S={n} Hkv={Hkv} G={G} "
-            f"hd={hd} T={t} split={split_rows(t, n * Hkv, tile)} rows "
+            f"hd={hd} T={t} split="
+            f"{split_rows(t, n * Hkv * query_chunks(G), tile)} rows "
             f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} "
             f"device_ms={dev_txt} plain_ms={plain_ms:.4f} library_ms="
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) kernel_read_bytes={kernel_bytes}")
         return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, "kernel_read_bytes": kernel_bytes}
 
     k = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
     v = torch.randn((S, T, Hkv, hd), generator=g, device=dev).bfloat16()
@@ -456,8 +510,8 @@ def check_decode_attention(kv, G: int = 4, tag: str = "",
                                                              lengths))
     ks, vs = scales(S), scales(S)
     k8, v8 = int8((S, T, Hkv, hd)), int8((S, T, Hkv, hd))
-    row("int8", decode_attention, decode_attention_ref,
-        (q, k8, v8, lengths, ks, vs), lengths, T, 1, 2 * S * Hkv * 4)
+    i8 = row("int8", decode_attention, decode_attention_ref,
+             (q, k8, v8, lengths, ks, vs), lengths, T, 1, 2 * S * Hkv * 4)
     del k, v, k8, v8
     # one long slot: split across blocks
     T1 = 2048
@@ -498,6 +552,9 @@ def check_decode_attention(kv, G: int = 4, tag: str = "",
                 bf16_ms=bf16["ms"], bf16_device_ms=bf16["device_ms"],
                 bf16_bound_ms=bf16["bound_ms"],
                 bf16_library_ms=bf16["library_ms"],
+                bf16_plain_ms=bf16["plain_ms"], int8_ms=i8["ms"],
+                int8_device_ms=i8["device_ms"], int8_bound_ms=i8["bound_ms"],
+                int8_plain_ms=i8["plain_ms"],
                 one_slot_ms=long["ms"], gather_route_ms=route_ms)
 
 
@@ -964,21 +1021,27 @@ def _fq_row(name: str, x, s, bits: int, exact_gs: bool,
             else "operations", "library_ms": lib_ms}
 
 
-def check_fake_quant(cfg) -> dict:
-    """fake_quant at the shapes the train path gives it (qwen3-8b's four
-    layer-linear shapes with a full doubly-channelwise scale, the
-    embedding with a per-row scale, the lm_head).  Returns the
-    embedding's record, the largest K3 call of the train path."""
+def check_fake_quant(cfg) -> tuple[dict, dict]:
+    """fake_quant at the shapes the train path gives it: qwen3-8b's seven
+    layer weights (wq, wk, wv, wo, gate, up, down) with a full
+    doubly-channelwise scale and each again with a per-channel scale
+    ``[1, out]`` beside the library's per-channel learnable fake-quant on
+    axis 1, the embedding with a per-row scale, the lm_head.  Returns the
+    embedding's record, the largest K3 call of the train path, and
+    {weight: record} of the layer weights (per-channel rows under
+    ``"<weight> channel"``)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     d, hq, hkv, ff, V = (cfg.d_model, cfg.n_heads * cfg.head_dim,
                          cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.vocab)
     # (name, R, C, scale: "full" = s_wl ⊗ s_wr or "row" = per row, bits)
-    cases = [("wq/wo", d, hq, "full", 4), ("wk/wv", d, hkv, "full", 4),
-             ("gate/up", d, ff, "full", 4), ("down", ff, d, "full", 4),
+    cases = [("wq", d, hq, "full", 4), ("wk", d, hkv, "full", 4),
+             ("wv", d, hkv, "full", 4), ("wo", hq, d, "full", 4),
+             ("gate", d, ff, "full", 4), ("up", d, ff, "full", 4),
+             ("down", ff, d, "full", 4),
              ("embed", V, d, "row", 8), ("lm_head", d, V, "full", 8)]
-    record = None
+    record, layers = None, {}
     for name, R, C, kind, bits in cases:
         qmax = 2 ** (bits - 1) - 1
         x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
@@ -993,9 +1056,16 @@ def check_fake_quant(cfg) -> dict:
                       lib_axis=0 if kind == "row" else None)
         if kind == "row":
             record = rec
+        elif name != "lm_head":
+            layers[name] = rec
+            col = (torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+                3 * R ** -0.5 / qmax)
+            layers[f"{name} channel"] = _fq_row(
+                f"{name} channel", x, col, bits, exact_gs=False, lib_axis=1)
+            del col
         del x, s
         torch.cuda.empty_cache()
-    return record
+    return record, layers
 
 
 def check_fake_quant_moe(cfg) -> dict:
@@ -1392,6 +1462,8 @@ def main_path(cfg, layers: int | None = None) -> dict:
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     mla = cfg.mla is not None
+    gc.collect()
+    torch.cuda.empty_cache()
     # attention calls of a decode step that decode_attention carries (MLA
     # and the SSM: none; the hybrid: one a group)
     n_routed = _attn_layer_count(cfg)
@@ -1855,6 +1927,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     from repro_torch.core.qconfig import QuantConfig
     from repro_torch.data.calib import CalibConfig, CalibDataset
     from repro_torch.models import forward, init_model
+    from repro_torch.models.transformer import remat_configured
     from repro_torch.pipeline.adapters import resolve_quant_plan
     from repro_torch.serve.deploy import (export_for_layers,
                                           kernel_route_check,
@@ -1879,6 +1952,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     # FMA body otherwise (zamba2's hd 112)
     fa_body = body_for(torch.bfloat16, cfg.head_dim, "bshd")
     qcfg = QuantConfig()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1922,6 +1996,10 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     ts = [h["t"] for h in hist]
     step_ms = [1e3 * (b - a) for a, b in zip([0.0] + ts[:-1], ts)]
     per_fwd = _fq_per_forward(cfg)    # embed + the layers'; no lm_head
+    # remat: the backward runs every layer body's forward again, its
+    # weights' fake-quant with it (not the embedding's, nor frame_proj's)
+    recomputed = (per_fwd - (2 if cfg.family == "encdec" else 1)
+                  if remat_configured(cfg) else 0)
     want = steps * microbatches * per_fwd
     run_counts = _counts()
     say(f"[train] {steps} steps, batch {shape} in {microbatches} "
@@ -1936,7 +2014,9 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
         f"{microbatches} microbatches x {per_fwd}: 1 embed + the "
         f"linears of {L} layers"
         + (f" + 7 x {L_attn} shared-block calls" if cfg.family == "hybrid"
-           else " + frame_proj" if cfg.family == "encdec" else "") + "); "
+           else " + frame_proj" if cfg.family == "encdec" else "") + "; "
+        f"the forward also {steps} x {microbatches} x {recomputed} "
+        f"recomputed by remat ({cfg.remat_policy})); "
         f"lm_head is not run: the backbone-L2 loss never reads it); "
         f"flash_attention (the teacher) {prep_fa} in calibration + "
         f"{run_counts['flash_attention'] - prep_fa} in the steps (= "
@@ -1949,10 +2029,12 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     _teacher_on_tensor_cores(run_counts, "the train steps", fa_body)
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"train losses {losses}")
+    want_fwd = want + steps * microbatches * recomputed
     if (run_counts["fake_quant_fwd"], run_counts["fake_quant_bwd"]) != (
-            want, want):
+            want_fwd, want):
         fail(f"fake_quant launched {run_counts['fake_quant_fwd']} forward / "
-             f"{run_counts['fake_quant_bwd']} backward, want {want} each")
+             f"{run_counts['fake_quant_bwd']} backward, want {want_fwd} / "
+             f"{want}")
 
     # --- export the trained student and serve it
     plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
@@ -2604,6 +2686,480 @@ def cnn_path(ccfg) -> dict:
     return first["counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 22: remat on the card
+# ---------------------------------------------------------------------------
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _grads_agree(ga, gb, what: str) -> tuple[float, str, bool]:
+    """(worst leaf relative L2, its path, all leaves bit-equal) of two
+    gradient (or parameter) trees, ``ga``'s leaves tensors or DTensors;
+    fails where one has a leaf the other lacks."""
+    from repro_torch.tree import tree_items
+    other = dict(tree_items(gb))
+    worst, at, equal = 0.0, "-", True
+    for path, g in tree_items(ga):
+        ref = other[path]
+        if g is None or ref is None:
+            if (g is None) != (ref is None):
+                fail(f"{what}: gradient of {path}: one side has none")
+            continue
+        if hasattr(g, "full_tensor"):      # a DTensor: one leaf at a time
+            g = g.full_tensor()
+        ref = ref.to(g.device)
+        equal = equal and torch_equal(g, ref)
+        r = _rel_l2(g, ref)
+        if r > worst:
+            worst, at = r, ".".join(path)
+    return worst, at, equal
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def remat_routes(cfg) -> dict:
+    """One microbatch's loss and gradients (a 4-row slice of phase 6's
+    batch) of a full-width qwen3-8b student on ``TRAIN_LAYERS`` layers
+    under the three remat policies: ``full`` and ``save_dots`` held to
+    ``none`` (loss 1e-6 relative, each leaf 1e-5 relative L2); fake_quant's
+    forward launches, ms and peak of each."""
+    import torch
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.train.steps import make_value_and_grad
+    from repro_torch.tree import tree_map
+    c = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    qcfg = QuantConfig()
+    torch.cuda.empty_cache()
+    teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0), c,
+                         None, device=DEVICE)
+    student = init_model(torch.Generator(device=DEVICE).manual_seed(1), c,
+                         qcfg, device=DEVICE)
+    rows = TRAIN_DATA["batch_size"] // TRAIN_MICROBATCHES
+    tokens = torch.randint(0, c.vocab, (rows, TRAIN_DATA["seq_len"]),
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(2), device=DEVICE)
+    batch = {"tokens": tokens}
+    make_value_and_grad(c, qcfg)(student, teacher, batch)      # warm-up
+    out, ref = {}, None
+    for pol in ("none", "full", "save_dots"):
+        vg = make_value_and_grad(dataclasses.replace(c, remat_policy=pol),
+                                 qcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _counts()
+        t0 = time.perf_counter()
+        loss, grads = vg(student, teacher, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        fq = _counts()["fake_quant_fwd"] - before["fake_quant_fwd"]
+        rec = {"loss": float(loss), "ms": ms, "peak_gib": _gib(),
+               "fake_quant_fwd": fq}
+        if ref is None:             # kept on the host: the later peaks
+            ref = (loss, tree_map(    # are the policies' own
+                lambda g: None if g is None else g.cpu(), grads))
+        else:
+            loss_rel = abs(float(loss) - float(ref[0])) / abs(float(ref[0]))
+            worst, at, equal = _grads_agree(grads, ref[1], f"remat {pol}")
+            rec.update(loss_rel=loss_rel, worst_rel_l2=worst, worst_at=at,
+                       bit_equal=equal and torch_equal(loss, ref[0]))
+            if loss_rel > 1e-6 or worst > 1e-5:
+                fail(f"remat {pol} vs none: loss rel {loss_rel}, gradient "
+                     f"{at} rel L2 {worst}")
+        del grads
+        out[pol] = rec
+        say(f"[remat] {c.name} full width, {c.n_layers} layers, one "
+            f"microbatch of {rows} x {TRAIN_DATA['seq_len']}: policy {pol}: "
+            f"loss {float(loss):.8f}, {ms:.1f} ms forward+backward, peak "
+            f"{rec['peak_gib']:.2f} GiB, fake_quant forward launches {fq}"
+            + ("" if pol == "none" else
+               f"; vs none: loss rel {rec['loss_rel']:.2e}, worst leaf "
+               f"{rec['worst_at']} rel L2 {rec['worst_rel_l2']:.2e}, "
+               f"bit-equal {rec['bit_equal']}"))
+    per_fwd = _fq_per_forward(c)
+    if out["none"]["fake_quant_fwd"] != per_fwd or any(
+            out[p]["fake_quant_fwd"] != 2 * per_fwd - 1
+            for p in ("full", "save_dots")):
+        fail(f"remat fake_quant forward launches "
+             f"{[out[p]['fake_quant_fwd'] for p in out]}, want {per_fwd} "
+             f"without remat and {2 * per_fwd - 1} with (each layer's "
+             f"weights again, the embedding once)")
+    del teacher, student
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_at(cfg, layers: int, steps: int = 2) -> dict:
+    """``steps`` QFT steps of phase 6's batch (16 x 512, 4 microbatches,
+    the paper's Adam) on a full-width student of ``layers`` layers built
+    from a seed (no calibration: the memory is the train step's)."""
+    import torch
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models import init_model
+    from repro_torch.optim.adam import paper_recipe
+    from repro_torch.train.steps import make_train_step
+    c = dataclasses.replace(cfg, n_layers=layers)
+    qcfg = QuantConfig()
+    teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0), c,
+                         None, device=DEVICE)
+    student = init_model(torch.Generator(device=DEVICE).manual_seed(1), c,
+                         qcfg, device=DEVICE)
+    opt = paper_recipe(16)
+    opt_state = opt.init(student)
+    step = make_train_step(c, qcfg, opt, microbatches=TRAIN_MICROBATCHES)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    ms, losses = [], []
+    for _ in range(steps):
+        batch = {"tokens": torch.randint(
+            0, c.vocab, (TRAIN_DATA["batch_size"], TRAIN_DATA["seq_len"]),
+            generator=g, device=DEVICE)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        student, opt_state, m = step(student, opt_state, teacher, batch)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"layers": layers, "ms": ms, "losses": losses, "peak_gib": _gib()}
+
+
+def remat_depth(cfg, depths=REMAT_DEPTHS) -> dict:
+    """The deepest full-width qwen3-8b student that trains on the card
+    under remat ``full``: each depth of ``depths`` (deepest first) is tried
+    with two steps until one fits; a depth that runs out of memory is
+    reported and the next tried."""
+    import torch
+    tried = []
+    for L in depths:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rec = _train_at(cfg, L)
+        except torch.cuda.OutOfMemoryError:
+            tried.append(L)
+            say(f"[remat] {cfg.name} full width, {L} of {cfg.n_layers} "
+                f"layers, remat {cfg.remat_policy}: out of memory in the "
+                f"first steps (peak {_gib():.2f} GiB when it ran out)")
+            rec = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rec is None:
+            continue
+        if not all(map(math.isfinite, rec["losses"])):
+            fail(f"remat depth {L}: losses {rec['losses']}")
+        say(f"[remat] {cfg.name} full width, {L} of {cfg.n_layers} layers "
+            f"fit with remat {cfg.remat_policy} (batch "
+            f"{TRAIN_DATA['batch_size']} x {TRAIN_DATA['seq_len']} in "
+            f"{TRAIN_MICROBATCHES} microbatches): peak "
+            f"{rec['peak_gib']:.2f} GiB, ms/step "
+            f"{', '.join(f'{x:.1f}' for x in rec['ms'])}, loss "
+            f"{', '.join(f'{x:.6f}' for x in rec['losses'])}; deeper "
+            f"tried: {tried or 'none'}")
+        return dict(rec, out_of_memory_at=tried)
+    fail(f"no depth of {depths} trains on the card")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the sharded path at world size 1
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| of two scalars (floats or 0-dim tensors)."""
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _host_copy(tree):
+    """A host copy of a tree's tensors."""
+    from repro_torch.tree import tree_from_items, tree_items
+    return tree_from_items((p, t.detach().to("cpu", copy=True))
+                           for p, t in tree_items(tree))
+
+
+def sharded_path(cfg, moe_cfg, smoke_cfg) -> dict:
+    """One NCCL rank on a localhost store, ``make_elastic_mesh(1, 1)``:
+    the launcher's ``build_step`` on a full-width qwen3-8b student of 2
+    layers against the QFTTrainer's step (loss 1e-6 relative, the
+    gradient's norm 1e-5, updated parameters 1e-5 relative L2), a step
+    with the int8 error-feedback compressor against the unsharded step
+    with the same hook (the same bounds, and its residual's norm 1e-5),
+    ``make_ep_moe`` at tp 1 on a
+    2-layer qwen2-moe against the in-graph MoE, and the elastic runner
+    with an injected failure restoring a real checkpoint (SMOKE width, so
+    its writes stay small) against the run without the failure."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.calib import CalibConfig, CalibDataset
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import set_runtime
+    from repro_torch.pipeline.adapters import resolve_quant_plan
+    from repro_torch.sharding.ep import make_ep_moe
+    from repro_torch.sharding.partition import ShardingPolicy
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.compression import error_feedback_hook
+    from repro_torch.train.elastic import ElasticConfig, ElasticRunner
+    from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
+    from repro_torch.train.steps import make_train_step, make_value_and_grad
+    from repro_torch.tree import tree_from_items, tree_items
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_elastic_mesh(1, 1, DEVICE)
+        pol = ShardingPolicy()
+        qcfg = QuantConfig()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the references first, each step's updated student kept on the
+        # host: the QFTTrainer's step, then the unsharded step with the
+        # int8 error-feedback hook; then the sharded path from the same
+        # student on the same two batches (one path on the card at a time)
+        c = dataclasses.replace(cfg, n_layers=SHARDED_LAYERS)
+        teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0),
+                             c, None, device=DEVICE)
+        tokens = CalibDataset(CalibConfig(vocab=c.vocab, **TRAIN_DATA))
+        qplan = resolve_quant_plan(c, qcfg)
+        trainer = QFTTrainer(c, qcfg, teacher, QFTConfig(),
+                             steps_per_epoch=tokens.steps_per_epoch,
+                             microbatches=TRAIN_MICROBATCHES, plan=qplan)
+        student = trainer.prepare_student(1, [next(tokens)])
+        batch, batch2 = next(tokens), next(tokens)
+        start = _host_copy(student)
+
+        def on_card(b):
+            return {"tokens": torch.as_tensor(b["tokens"]).to(DEVICE)}
+        opt_state = trainer.opt.init(student)
+        student, opt_state, tm = trainer.train_step(student, opt_state,
+                                                    teacher, on_card(batch))
+        ref1 = _host_copy(student)
+        p_hook = error_feedback_hook(student)
+        p_step = make_train_step(c, qcfg, trainer.opt, grad_compress=p_hook,
+                                 microbatches=TRAIN_MICROBATCHES, plan=qplan)
+        student, opt_state, pm = p_step(student, opt_state, teacher,
+                                        on_card(batch2))
+        ref2 = _host_copy(student)
+        p_ef = float(sum(float(e.float().norm()) ** 2
+                         for _, e in tree_items(p_hook.state["ef"]))) ** 0.5
+        del student, opt_state, p_hook, p_step
+        torch.cuda.empty_cache()
+
+        # --- build_step vs the QFTTrainer's step
+        state = lt.init_sharded_state(
+            tree_from_items((p, t.to(DEVICE)) for p, t in tree_items(start)),
+            trainer.opt, c, mesh, pol)
+        del start
+        step = lt.build_step(mesh, c, qcfg, trainer.opt, teacher, pol,
+                             plan=qplan, microbatches=TRAIN_MICROBATCHES)
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        s_ms = 1e3 * (time.perf_counter() - t0)
+        counts = _counts()
+        placed = {str(t.placements) for _, t in tree_items(state[0])}
+        if counts["fake_quant_fwd"] == 0 or counts["flash_attention"] == 0:
+            fail(f"the sharded step launched no fake_quant or "
+                 f"flash_attention: {counts}")
+        loss_rel = abs(float(m["loss"]) - float(tm["loss"])) / float(
+            tm["loss"])
+        # Adam's update hardly moves under a uniform scaling of the
+        # gradient; the gradient's norm shows one
+        gn_rel = _rel(m["grad_norm"], tm["grad_norm"])
+        worst, at, equal = _grads_agree(state[0], ref1,
+                                        "sharded step vs trainer")
+        out["step"] = {"loss": float(m["loss"]),
+                       "trainer_loss": float(tm["loss"]),
+                       "loss_rel": loss_rel, "ms": s_ms,
+                       "grad_norm_rel": gn_rel,
+                       "params_worst_rel_l2": worst,
+                       "params_bit_equal": equal,
+                       "fake_quant_fwd": counts["fake_quant_fwd"],
+                       "flash_attention": counts["flash_attention"]}
+        say(f"[sharded] {c.name} full width, {c.n_layers} layers, mesh "
+            f"(data 1, model 1), placements {sorted(placed)}: build_step "
+            f"loss {float(m['loss']):.8f} vs the QFTTrainer step "
+            f"{float(tm['loss']):.8f} (rel {loss_rel:.2e}); grad_norm rel "
+            f"{gn_rel:.2e}; updated parameters: worst {at} rel L2 "
+            f"{worst:.2e}, bit-equal {equal}; "
+            f"{s_ms:.1f} ms (its first step, after the references'); "
+            f"launches fake_quant {counts['fake_quant_fwd']} + "
+            f"{counts['fake_quant_bwd']}, flash_attention "
+            f"{counts['flash_attention']}")
+        if loss_rel > 1e-6 or gn_rel > 1e-5 or worst > 1e-5:
+            fail(f"sharded step vs trainer: loss {float(m['loss'])} vs "
+                 f"{float(tm['loss'])}, grad_norm rel {gn_rel}, updated "
+                 f"{at} rel L2 {worst}")
+        # --- one more step with the int8 error-feedback compressor, held
+        # against the unsharded step with the same hook
+        hook = error_feedback_hook(state[0])
+        step = lt.build_step(mesh, c, qcfg, trainer.opt, teacher, pol,
+                             plan=qplan, microbatches=TRAIN_MICROBATCHES,
+                             grad_compress=hook)
+        state, m = step(state, batch2)
+        ef = float(sum(float(e.full_tensor().float().norm()) ** 2
+                       for _, e in tree_items(hook.state["ef"]))) ** 0.5
+        loss_rel = abs(float(m["loss"]) - float(pm["loss"])) / float(
+            pm["loss"])
+        gn_rel = _rel(m["grad_norm"], pm["grad_norm"])
+        ef_rel = _rel(ef, p_ef)
+        worst, at, equal = _grads_agree(state[0], ref2,
+                                        "compressed sharded vs unsharded")
+        say(f"[sharded] a step with grad_compress (int8, error feedback): "
+            f"loss {float(m['loss']):.8f} vs the unsharded step with the "
+            f"same hook {float(pm['loss']):.8f} (rel {loss_rel:.2e}); "
+            f"grad_norm rel {gn_rel:.2e}, residual norm rel {ef_rel:.2e}; "
+            f"updated parameters: worst {at} rel L2 {worst:.2e}, bit-equal "
+            f"{equal}; grad_norm {float(m['grad_norm']):.6f}, the residual "
+            f"buffer's norm {ef:.3e} (unsharded {p_ef:.3e}); peak "
+            f"{_gib():.2f} GiB")
+        if not (math.isfinite(float(m["loss"])) and ef > 0):
+            fail(f"compressed step: loss {float(m['loss'])}, residual {ef}")
+        if loss_rel > 1e-6 or max(gn_rel, ef_rel, worst) > 1e-5:
+            fail(f"compressed sharded step vs unsharded: loss rel "
+                 f"{loss_rel}, grad_norm rel {gn_rel}, residual norm rel "
+                 f"{ef_rel}, updated {at} rel L2 {worst}")
+        out["compressed"] = {"loss": float(m["loss"]),
+                             "unsharded_loss": float(pm["loss"]),
+                             "loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+                             "ef_norm_rel": ef_rel,
+                             "params_worst_rel_l2": worst,
+                             "params_bit_equal": equal, "ef_norm": ef,
+                             "unsharded_ef_norm": p_ef}
+        del state, step, trainer, teacher, hook, ref1, ref2
+        torch.cuda.empty_cache()
+
+        # --- make_ep_moe at tp 1 vs the in-graph MoE
+        mc = dataclasses.replace(moe_cfg, n_layers=SHARDED_LAYERS)
+        teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0),
+                             mc, None, device=DEVICE)
+        student = init_model(torch.Generator(device=DEVICE).manual_seed(1),
+                             mc, qcfg, device=DEVICE)
+        mplan = resolve_quant_plan(mc, qcfg)
+        rows = TRAIN_DATA["batch_size"] // TRAIN_MICROBATCHES
+        mb = {"tokens": torch.randint(
+            0, mc.vocab, (rows, TRAIN_DATA["seq_len"]),
+            generator=torch.Generator(device=DEVICE).manual_seed(4),
+            device=DEVICE)}
+        vg = make_value_and_grad(mc, qcfg, plan=mplan)
+        base = vg(student, teacher, mb)
+        set_runtime(moe_fn=make_ep_moe(mesh, mc, qcfg, plan=mplan))
+        try:
+            ep = vg(student, teacher, mb)
+        finally:
+            set_runtime(moe_fn=None)
+        loss_rel = abs(float(ep[0]) - float(base[0])) / float(base[0])
+        worst, at, equal = _grads_agree(ep[1], base[1], "EP vs in-graph")
+        out["ep"] = {"loss_rel": loss_rel, "worst_rel_l2": worst,
+                     "bit_equal": equal and torch_equal(ep[0], base[0])}
+        say(f"[sharded] make_ep_moe at tp 1, {mc.name} full width, "
+            f"{mc.n_layers} layers, one microbatch: loss {float(ep[0]):.8f} "
+            f"vs the in-graph MoE {float(base[0]):.8f} (rel "
+            f"{loss_rel:.2e}); gradients worst {at} rel L2 {worst:.2e}; "
+            f"bit-equal {out['ep']['bit_equal']}")
+        if loss_rel > 1e-6 or worst > 1e-5:
+            fail(f"EP at tp 1 vs the in-graph MoE: loss rel {loss_rel}, "
+                 f"{at} rel L2 {worst}")
+        del teacher, student, base, ep, vg
+        torch.cuda.empty_cache()
+
+        # --- the elastic runner: a failure at step 3 restores step 2
+        out["elastic"] = _elastic_on_card(smoke_cfg, mesh, pol)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _elastic_on_card(cfg, mesh, pol) -> dict:
+    import tempfile
+    import torch
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.calib import CalibConfig, CalibDataset
+    from repro_torch.launch import train as lt
+    from repro_torch.models import init_model
+    from repro_torch.pipeline.adapters import resolve_quant_plan
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import ElasticConfig, ElasticRunner
+    from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
+    from repro_torch.tree import tree_items
+    qcfg = QuantConfig()
+    written = [0]
+    write = CheckpointManager._write
+
+    def counted(self, step, host_state):
+        write(self, step, host_state)
+        written[0] += sum(f.stat().st_size for f in
+                          (self.dir / f"step_{step:010d}").rglob("*"))
+
+    def run(workdir, inject):
+        teacher = init_model(0, cfg, None, device=DEVICE)
+        data = CalibDataset(CalibConfig(n_samples=64, seq_len=64,
+                                        batch_size=8, vocab=cfg.vocab))
+        plan = resolve_quant_plan(cfg, qcfg)
+        tr = QFTTrainer(cfg, qcfg, teacher, QFTConfig(), steps_per_epoch=8,
+                        plan=plan)
+        student = tr.prepare_student(1, [next(data)])
+        data.skip_to(0)
+        state = lt.init_sharded_state(student, tr.opt, cfg, mesh, pol)
+        runner = ElasticRunner(
+            lambda m: lt.build_step(m, cfg, qcfg, tr.opt, teacher, pol,
+                                    plan=plan, microbatches=2),
+            CheckpointManager(workdir, keep=3),
+            ElasticConfig(checkpoint_every=ELASTIC_CKPT_EVERY,
+                          model_parallel=1), device_type=DEVICE)
+        state, s = runner.run(state, data, steps=ELASTIC_STEPS,
+                              inject_failure_at=inject)
+        if s != ELASTIC_STEPS or runner.restarts != (inject is not None):
+            fail(f"elastic run: {s} steps, {runner.restarts} restarts, "
+                 f"events {runner.events}")
+        return state, runner
+
+    CheckpointManager._write = counted
+    try:
+        with tempfile.TemporaryDirectory(prefix="qft_elastic_") as d:
+            a, _ = run(f"{d}/a", None)
+            b, runner = run(f"{d}/b", ELASTIC_FAIL_AT)
+    finally:
+        CheckpointManager._write = write
+    full = [(p, t.full_tensor() if hasattr(t, "full_tensor") else t)
+            for p, t in tree_items(a)]
+    other = dict((p, t.full_tensor() if hasattr(t, "full_tensor") else t)
+                 for p, t in tree_items(b))
+    worst = max(_rel_l2(t, other[p]) for p, t in full
+                if t.is_floating_point())
+    equal = all(torch.equal(t, other[p]) for p, t in full)
+    say(f"[elastic] {cfg.name} (SMOKE width), {ELASTIC_STEPS} steps, a "
+        f"checkpoint every {ELASTIC_CKPT_EVERY}: {runner.restarts} restart "
+        f"({runner.events}), the checkpoint of step "
+        f"{ELASTIC_FAIL_AT - ELASTIC_FAIL_AT % ELASTIC_CKPT_EVERY} restored "
+        f"and the data skipped to it; the final state against the run "
+        f"without the failure: worst leaf rel L2 {worst:.2e}, bit-equal "
+        f"{equal}; checkpoint bytes written {written[0]} (both runs)")
+    if worst > 1e-5:
+        fail(f"elastic restore: final state rel L2 {worst} from the run "
+             f"without the failure")
+    return {"restarts": runner.restarts, "worst_rel_l2": worst,
+            "bit_equal": equal, "bytes_written": written[0]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2612,13 +3168,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.command_r_plus_104b import CONFIG as CMDR
     from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK
     from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2
     from repro_torch.configs.paper_cnn import CONFIG as CNN
     from repro_torch.configs.phi4_mini_3_8b import CONFIG as PHI4
     from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
     from repro_torch.configs.qwen2_vl_7b import CONFIG as QWEN2_VL
+    from repro_torch.configs.qwen3_32b import CONFIG as QWEN3_32B
     from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.configs.qwen3_8b import SMOKE
     from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS
     from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2
     from repro_torch.serve.engine import ServeConfig
@@ -2653,8 +3212,17 @@ def main() -> int:
         resolve_kv_spec(QWEN2_VL, ServeConfig(**MAIN_SERVE)),
         G=QWEN2_VL.n_heads // QWEN2_VL.n_kv_heads, tag=" qwen2-vl",
         Hkv=QWEN2_VL.n_kv_heads)
+    # command-r-plus-104b's 8 kv heads x a group of 12, and a group of 16:
+    # two query chunks of 8 (12 = 8 + 4) re-reading the K/V rows
+    fd_g12 = check_decode_attention(
+        resolve_kv_spec(CMDR, ServeConfig(**MAIN_SERVE)),
+        G=CMDR.n_heads // CMDR.n_kv_heads, tag=" command-r-plus",
+        Hkv=CMDR.n_kv_heads)
+    fd_g16 = check_decode_attention(
+        resolve_kv_spec(CMDR, ServeConfig(**MAIN_SERVE)), G=16,
+        tag=" G16", Hkv=CMDR.n_kv_heads)
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
-    fq = check_fake_quant(CONFIG)
+    fq, fq_layers = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
     fq_moe = check_fake_quant_moe(MOE)
     fq_mla = check_fake_quant_mla(DS)
@@ -2731,6 +3299,24 @@ def main() -> int:
               f"-> {ENCDEC_TRAIN_DATA['seq_len']} tokens)")
     say(f"[main] phase 20 ({SEAMLESS.name} QFT, {SEAMLESS.enc_layers} + "
         f"{SEAMLESS.n_layers} layers) {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    cmdr = main_path(CMDR, layers=CMDR_LAYERS)
+    say(f"[main] phase 21 ({CMDR.name}, {CMDR_LAYERS} layers) "
+        f"{time.perf_counter() - t21:.1f} s")
+    t21b = time.perf_counter()
+    q32 = main_path(QWEN3_32B, layers=QWEN32_LAYERS)
+    say(f"[main] phase 21 ({QWEN3_32B.name}, {QWEN32_LAYERS} layers) "
+        f"{time.perf_counter() - t21b:.1f} s")
+    t22 = time.perf_counter()
+    _zero_counts()
+    remat = remat_routes(CONFIG)
+    depth = remat_depth(CONFIG)
+    remat_counts = _counts()
+    say(f"[main] phase 22 (remat) {time.perf_counter() - t22:.1f} s")
+    t23 = time.perf_counter()
+    sharded = sharded_path(CONFIG, MOE, SMOKE)
+    say(f"[main] phase 23 (the sharded path, world size 1) "
+        f"{time.perf_counter() - t23:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2753,7 +3339,14 @@ def main() -> int:
          "qwen2_vl": dict(fd_vl, launches=vl["decode_attention"],
                           launches_paged=vl["decode_attention_paged"],
                           launches_train=vl_train["decode_attention"]),
-         "seamless_m4t": {"launches": ed_train["decode_attention"]}},
+         "seamless_m4t": {"launches": ed_train["decode_attention"]},
+         "command_r_plus": dict(fd_g12,
+                                launches=cmdr["decode_attention"],
+                                launches_paged=cmdr[
+                                    "decode_attention_paged"]),
+         "g16": fd_g16,
+         "qwen3_32b": {"launches": q32["decode_attention"],
+                       "launches_paged": q32["decode_attention_paged"]}},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
@@ -2765,13 +3358,20 @@ def main() -> int:
          "launches_mamba2": mamba["quant_matmul"],
          "launches_zamba2": zamba["quant_matmul"],
          "launches_qwen2_vl": vl["quant_matmul"],
-         "launches_seamless_m4t": ed_train["quant_matmul"]},
+         "launches_seamless_m4t": ed_train["quant_matmul"],
+         "launches_command_r_plus": cmdr["quant_matmul"],
+         "launches_qwen3_32b": q32["quant_matmul"]},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",
          "launches": train["fake_quant_fwd"] + train["fake_quant_bwd"],
          "launches_fwd": train["fake_quant_fwd"],
          "launches_bwd": train["fake_quant_bwd"], **fq,
+         "qwen3_8b_layers": fq_layers,
+         "remat": {"launches_fwd": remat_counts["fake_quant_fwd"],
+                   "launches_bwd": remat_counts["fake_quant_bwd"],
+                   "routes": remat, "depth": depth},
+         "sharded": sharded,
          "paper_cnn": {"launches_fwd": cnn["fake_quant_fwd"],
                        "launches_bwd": cnn["fake_quant_bwd"],
                        "views": fq_cnn},

@@ -256,14 +256,28 @@ def apq_init_qlinear(p: Params, cfg: QuantConfig, bits: int | None = None
 # Deployment export — the offline computation run once.
 # ---------------------------------------------------------------------------
 
+#: elements of a weight quantized at once in the export (its row blocks
+#: bound the f32 temporaries: command-r-plus's [12288, 256000] head would
+#: otherwise take several 11.7 GiB copies beside the f32 masters)
+_EXPORT_BLOCK = 1 << 26
+
+
 def export_qlinear(p: Params, cfg: QuantConfig,
                    log_sa_in: torch.Tensor | None = None,
                    pack: bool = True, bits: int | None = None) -> Params:
     """Freeze the offline subgraph: ``{q (nibble-packed uint8 | int8),
-    s_wl?, s_wr, b?}``; ``s_wr`` carries the layout in its shape."""
+    s_wl?, s_wr, b?}``; ``s_wr`` carries the layout in its shape.  The
+    integer grid is computed in blocks of rows (elementwise, so the bits
+    are the whole weight's)."""
     bits = bits or cfg.w_bits
-    s = weight_scale(p, log_sa_in)
-    q = quantize(p["w"], s, bits, signed=True).to(torch.int8)
+    w = p["w"]
+    s = torch.broadcast_to(weight_scale(p, log_sa_in), w.shape)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    rows = max(_EXPORT_BLOCK // max(w[..., :1, :].numel(), 1), 1)
+    for a in range(0, w.shape[-2], rows):
+        q[..., a:a + rows, :] = quantize(w[..., a:a + rows, :],
+                                         s[..., a:a + rows, :], bits,
+                                         signed=True).to(torch.int8)
     out: Params = {}
     if bits == 4 and pack and p["w"].shape[-2] % 2 == 0:
         out["q"] = pack_int4(q, axis=-2)

@@ -43,7 +43,12 @@
 // whose exp is 0).  The paged body reads row j of slot s at pool[pt[s, j / P],
 // j % P, h]: each block loads its own page-table entries, once for K and V, and
 // pages at or past ceil(length / P) (the trash-page padding) are never read.
-// Any page size >= 1 is taken.  Head dims 16, 32, 64, 112 and 128: at 112 a
+// Any page size >= 1 is taken.  GQA groups up to 16: a block holds at most 8
+// query heads in registers, so a group above 8 is split into query chunks of
+// 8 (G 12: 8 + 4), each its own block on the grid's y axis (kv head x query
+// chunk) that reads the split's K/V rows again; the partials of all chunks
+// land in the one [.., G, ..] scratch, and the combine pass merges any G.
+// Head dims 16, 32, 64, 112 and 128: at 112 a
 // row is 14 16-byte vectors (bf16) or 7 (int8), so its lanes are padded to the
 // next power of two (16 or 8) and the padding lanes read nothing; a warp still
 // holds 2 (bf16) or 4 (int8) rows, and 4 of its 32 lanes sit idle.
@@ -56,7 +61,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxTile = 128;     // rows of one tile, at most
-constexpr int kMaxGroup = 8;      // query heads per kv-head
+constexpr int kMaxGroup = 16;     // query heads per kv-head
+constexpr int kBlockGroup = 8;    // query heads of one block
 constexpr int kMaxHeadDim = 128;
 
 constexpr int pow2_ceil(int x) {
@@ -163,8 +169,10 @@ template <typename KT, int HD, int GM> struct Tile {
   static_assert(HD % VN == 0 && LPR >= 1 && LPRP <= 32 && U >= 1, "tile");
 };
 
-// One (chunk, kv head, slot), chunk <= Tile::ROWS rows: the chunk's
-// partial (m, l, acc) per query.  q: [S, Hkv, G, HD]; lengths: [S];
+// One (chunk, kv head x query chunk, slot), chunk <= Tile::ROWS rows: the
+// chunk's partial (m, l, acc) for the block's queries g0 .. g0 + GM - 1 (at
+// most; GM per query chunk, gridDim.y = Hkv x ceil(G / GM)).
+// q: [S, Hkv, G, HD]; lengths: [S];
 // k_scale: [S, Hkv] (QUANT only); part_acc: [S, Hkv, n_chunks, G, HD];
 // part_ml: [S, Hkv, n_chunks, G, 2].
 template <typename QT, typename KT, int HD, int GM, bool QUANT, class View>
@@ -181,9 +189,12 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   __shared__ float red_s[kWarps][GM][HD];
 
   const int c = blockIdx.x;
-  const int h = blockIdx.y;
+  const int n_qc = (G + GM - 1) / GM;   // query chunks of a kv head
+  const int h = blockIdx.y / n_qc;
+  const int g0 = (blockIdx.y % n_qc) * GM;
+  const int Gb = min(GM, G - g0);       // this block's queries
   const int s = blockIdx.z;
-  const int Hkv = gridDim.y;
+  const int Hkv = gridDim.y / n_qc;
   const int len = min(lengths[s], T);
   const int j0 = c * chunk;
   if (j0 >= len) return;                // a dead chunk: nothing is read
@@ -211,13 +222,13 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
   }
   const float qscale = QUANT ? scale * k_scale[sh] : scale;
   float qr[GM][VN];
-  const QT* qp = q + sh * G * HD;
+  const QT* qp = q + (sh * G + g0) * HD;
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int e = 0; e < VN; ++e)
-      qr[g][e] = has && g < G ? to_float(qp[g * HD + d0 + e]) * qscale
-                              : 0.f;
+      qr[g][e] = has && g < Gb ? to_float(qp[g * HD + d0 + e]) * qscale
+                               : 0.f;
 
   // scores of the live rows -> p_s
 #pragma unroll
@@ -241,12 +252,12 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
     if (sub == 0 && r < rows)
 #pragma unroll
       for (int g = 0; g < GM; ++g)
-        if (g < G) p_s[g][r] = sc[g];
+        if (g < Gb) p_s[g][r] = sc[g];
   }
   __syncthreads();
 
   // the chunk's max and sum(exp) per query; p_s becomes exp(s - m)
-  for (int g = warp; g < G; g += kWarps) {
+  for (int g = warp; g < Gb; g += kWarps) {
     float m = kNeg;
     for (int r = lane; r < rows; r += 32) m = fmaxf(m, p_s[g][r]);
     m = warp_max(m);
@@ -258,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
     }
     l = warp_sum(l);
     if (lane == 0) {
-      part_ml[(part * G + g) * 2] = m;
-      part_ml[(part * G + g) * 2 + 1] = l;
+      part_ml[(part * G + g0 + g) * 2] = m;
+      part_ml[(part * G + g0 + g) * 2 + 1] = l;
     }
   }
   __syncthreads();
@@ -278,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
       Vec16<KT>::unpack(vv[u], vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g < G) {
+        if (g < Gb) {
           const float p = p_s[g][r];
 #pragma unroll
           for (int e = 0; e < VN; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
@@ -300,8 +311,8 @@ __global__ void __launch_bounds__(kThreads) fd_split_kernel(
 #pragma unroll
       for (int e = 0; e < VN; ++e) red_s[warp][g][d0 + e] = acc[g][e];
   __syncthreads();
-  float* pa = part_acc + part * G * HD;
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+  float* pa = part_acc + (part * G + g0) * HD;
+  for (int i = threadIdx.x; i < Gb * HD; i += kThreads) {
     const int g = i / HD;
     const int d = i % HD;
     float a = red_s[0][g][d];
@@ -394,14 +405,18 @@ cudaError_t launch_split(const dim3& grid, const QT* q, const View& view,
                          const int* lengths, const float* ks,
                          float* part_acc, float* part_ml, int T, int G,
                          int chunk, float scale, cudaStream_t st) {
+  // grid.y: Hkv x query chunks of GM (one chunk unless G > kBlockGroup)
   if (G <= 4) {
     if (chunk > Tile<KT, HD, 4>::ROWS) return cudaErrorInvalidValue;
     fd_split_kernel<QT, KT, HD, 4, QUANT, View><<<grid, kThreads, 0, st>>>(
         q, view, lengths, ks, part_acc, part_ml, T, G, chunk, scale);
   } else {
-    if (chunk > Tile<KT, HD, 8>::ROWS) return cudaErrorInvalidValue;
-    fd_split_kernel<QT, KT, HD, 8, QUANT, View><<<grid, kThreads, 0, st>>>(
-        q, view, lengths, ks, part_acc, part_ml, T, G, chunk, scale);
+    if (chunk > Tile<KT, HD, kBlockGroup>::ROWS) return cudaErrorInvalidValue;
+    const dim3 g(grid.x, grid.y * ((G + kBlockGroup - 1) / kBlockGroup),
+                 grid.z);
+    fd_split_kernel<QT, KT, HD, kBlockGroup, QUANT, View>
+        <<<g, kThreads, 0, st>>>(q, view, lengths, ks, part_acc, part_ml, T,
+                                 G, chunk, scale);
   }
   return cudaGetLastError();
 }
@@ -453,8 +468,9 @@ cudaError_t launch(const void* q_, const View& view, const int* lengths,
 }
 
 bool shape_ok(int S, int T, int Hkv, int G, int chunk) {
-  return S >= 1 && S <= 65535 && T >= 1 && Hkv >= 1 && Hkv <= 65535 &&
-         G >= 1 && G <= kMaxGroup && chunk >= 1 && chunk <= kMaxTile;
+  return S >= 1 && S <= 65535 && T >= 1 && Hkv >= 1 &&
+         Hkv * ((G + kBlockGroup - 1) / kBlockGroup) <= 65535 && G >= 1 &&
+         G <= kMaxGroup && chunk >= 1 && chunk <= kMaxTile;
 }
 
 }  // namespace

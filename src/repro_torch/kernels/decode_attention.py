@@ -26,7 +26,10 @@ from .ref import decode_attention_paged_ref, decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (16, 32, 64, 112, 128)
-_MAX_GROUP = 8
+_MAX_GROUP = 16
+#: query heads one block of the split pass holds; a larger group is split
+#: into query chunks of this many, each a block that reads the K/V rows again
+_BLOCK_GROUP = 8
 _ELT = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _WARPS = 4
 _MAX_TILE = 128
@@ -36,10 +39,17 @@ _MIN_BLOCKS = 2 * 132
 
 
 def kernel_takes(G: int, hd: int) -> bool:
-    """The CUDA kernel's shape gate: query heads per kv-head and head dim.
-    Any cache depth and page size is taken (a ragged last split is
-    masked)."""
+    """The CUDA kernel's shape gate: query heads per kv-head (up to 16) and
+    head dim.  Any cache depth and page size is taken (a ragged last split
+    is masked)."""
     return 1 <= G <= _MAX_GROUP and hd in _HEAD_DIMS
+
+
+def query_chunks(G: int) -> int:
+    """Blocks of the split pass per (split, kv head): one, or for a group
+    above 8 one per chunk of 8 query heads (G 12 and 16: 2), each reading
+    the split's K and V rows."""
+    return -(-G // _BLOCK_GROUP)
 
 
 def tile_rows(kv_dtype: torch.dtype, hd: int, G: int) -> int:
@@ -47,8 +57,9 @@ def tile_rows(kv_dtype: torch.dtype, hd: int, G: int) -> int:
     ``Tile::ROWS``): a lane takes one 16-byte vector of a row (a row's
     lanes padded to a power of two: 14 → 16 for bf16 at hd 112) and 8 rows
     of K and of V, 4 where its slice of the G queries is 128 floats (int8,
-    G > 4); at most 128.  128 for the int8 cache at hd 128 and G <= 4, 64
-    for bf16."""
+    G > 4; a block holds at most 8 queries, so G 12 and 16 tile as G 8);
+    at most 128.  128 for the int8 cache at hd 128 and G <= 4, 64 for
+    bf16."""
     vn = 16 // _ELT[kv_dtype]
     lanes = 1 << (hd // vn - 1).bit_length()
     rows_per_step = _WARPS * (32 // lanes)
@@ -58,7 +69,8 @@ def tile_rows(kv_dtype: torch.dtype, hd: int, G: int) -> int:
 
 def split_rows(T: int, slot_heads: int, tile: int) -> int:
     """Rows per KV split for a view of ``T`` rows (``max_pages * P`` for the
-    paged entry), ``slot_heads = S * Hkv`` and the kernel's ``tile``: the
+    paged entry), ``slot_heads = S * Hkv * query_chunks(G)`` (the blocks of
+    one split) and the kernel's ``tile``: the
     whole tile unless fewer than two waves of blocks would result, then
     half of it, then a quarter."""
     for rows in (tile, tile // 2):
@@ -153,7 +165,8 @@ def _run(q, k, v, lengths, k_scale, v_scale) -> torch.Tensor:
     """Both passes on the slot-indexed view, on q's current stream."""
     S, Hkv, G, hd = q.shape
     T = k.shape[1]
-    rows = split_rows(T, S * Hkv, tile_rows(k.dtype, hd, G))
+    rows = split_rows(T, S * Hkv * query_chunks(G),
+                      tile_rows(k.dtype, hd, G))
     out = torch.empty_like(q)
     scratch = _scratch(q, T, rows)
     quantized = k_scale is not None
@@ -172,7 +185,8 @@ def _run_paged(q, pool_k, pool_v, pt, lengths, k_scale, v_scale
     """Both passes on the page pools, on q's current stream."""
     S, Hkv, G, hd = q.shape
     P, max_pages = pool_k.shape[1], pt.shape[1]
-    rows = split_rows(max_pages * P, S * Hkv, tile_rows(torch.int8, hd, G))
+    rows = split_rows(max_pages * P, S * Hkv * query_chunks(G),
+                      tile_rows(torch.int8, hd, G))
     out = torch.empty_like(q)
     scratch = _scratch(q, max_pages * P, rows)
     rc = _signature(_build.load("decode_attention"), paged=True)(

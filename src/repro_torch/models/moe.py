@@ -207,18 +207,25 @@ def moe_sorted(x: torch.Tensor, p: Params, cfg: ModelConfig,
 
 def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, mode: str = "sorted", plan=None,
-              use_kernels: bool = False) -> torch.Tensor:
+              use_kernels: bool = False, moe_fn=None) -> torch.Tensor:
     """``x [B, S, d]`` → routed experts + shared experts.  ``plan`` is
-    scoped to this module's path (``layers.mlp``)."""
+    scoped to this module's path (``layers.mlp``).
+
+    ``moe_fn(x, p)``: an override of the routed experts (the
+    expert-parallel path, ``sharding.ep.make_ep_moe``); it may return None
+    (a decode step) to fall back to the in-graph path."""
     B, S, d = x.shape
     pv = plan_view(plan)
-    xt = x.reshape(B * S, d)
-    if mode == "dense":
-        routed = moe_dense(xt, p, cfg, qcfg, plan=pv, use_kernels=use_kernels)
-    else:
-        routed = moe_sorted(xt, p, cfg, qcfg, plan=pv,
-                            use_kernels=use_kernels)
-    out = routed.reshape(B, S, d)
+    out = None if moe_fn is None else moe_fn(x, p)
+    if out is None:
+        xt = x.reshape(B * S, d)
+        if mode == "dense":
+            routed = moe_dense(xt, p, cfg, qcfg, plan=pv,
+                               use_kernels=use_kernels)
+        else:
+            routed = moe_sorted(xt, p, cfg, qcfg, plan=pv,
+                                use_kernels=use_kernels)
+        out = routed.reshape(B, S, d)
     if cfg.moe.n_shared:
         ins = p.get("in_stream")
         gate = dof.qlinear(x, p["shared_gate"], qcfg, stream=ins,

@@ -10,13 +10,42 @@ the encoder-decoder (SeamlessM4T: the audio frontend stubbed to frame
 embeddings, stacked ``enc_layers``/``dec_layers``, cross attention).  The
 hybrid's Mamba2 layers are stacked ``[G, attn_every]`` (each group followed
 by the one shared attention block), its remainder ``[r]`` under ``tail``.
+
+Remat (the JAX package's ``_maybe_remat``): with ``cfg.remat`` and
+``cfg.scan_layers`` each layer body — the hybrid's whole group of Mamba2
+layers and its shared-attention call — runs under
+``torch.utils.checkpoint`` (non-reentrant) wherever a gradient is taken, so
+only the layer boundaries are kept and the backward recomputes the rest.
+``remat_policy`` ``"full"`` recomputes everything; ``"save_dots"`` keeps
+the outputs of the products with no batch dimension (``aten.mm``/
+``aten.addmm``: the linears) as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does, and recomputes batched products
+(attention, the expert stacks) and elementwise work; ``"none"`` keeps
+everything.  A recompute runs the weights' fake-quant forward again.
+
+A DTensor leaf (``launch.train``'s sharded step stores the student and the
+teacher so) is gathered to its whole value where it is used: a layer's
+leaves at the start of that layer's body, inside the remat region (so
+under remat only one layer's whole weights live at a time, and the
+backward gathers them again), the embedding, head and final norms at the
+start of the forward.  The gather's backward takes the gradient as a
+partial sum over every mesh axis, which the sharded step's loss scaling
+makes the whole batch's gradient.  The batch itself is split over the
+``dp`` axes before the forward (``launch.train.local_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+# torch.utils.checkpoint imports torch._dynamo at its first call; an import
+# inside a forward leaves that forward's frames (and the tensors they hold)
+# referenced from the exceptions the import stores, for the whole process
+import torch._dynamo  # noqa: F401
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import dof
 from ..core.plan import plan_view
@@ -47,8 +76,67 @@ _RUNTIME: dict[str, Any] = {}
 
 def set_runtime(**kw) -> None:
     """Process-level runtime knobs: ``moe_mode`` (``"sorted"``, the
-    default, or ``"dense"``, the oracle)."""
+    default, or ``"dense"``, the oracle) and ``moe_fn`` (``fn(x, p) -> y``
+    or None, replacing the routed experts, e.g. ``sharding.ep.make_ep_moe``'s;
+    None from it falls back to the in-graph path)."""
     _RUNTIME.update(kw)
+
+
+def _local(tree):
+    """``tree`` with each DTensor leaf gathered to its whole value (a plain
+    tensor); its backward takes the gradient as a partial sum over every
+    mesh axis.  Plain leaves are kept."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    if not hasattr(tree, "full_tensor"):
+        return tree
+    from torch.distributed.tensor import Partial
+    if not torch.is_grad_enabled():
+        return tree.full_tensor()
+    return tree.full_tensor(
+        grad_placements=(Partial(),) * tree.device_mesh.ndim)
+
+
+#: the stacked layer trees, gathered one layer at a time
+_STACKS = ("layers", "tail", "enc_layers", "dec_layers")
+
+
+#: the products with no batch dimension (the linears): what "save_dots"
+#: keeps
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_configured(cfg: ModelConfig) -> bool:
+    """The JAX package's ``_maybe_remat`` condition: ``remat``,
+    ``scan_layers`` and a policy other than ``"none"``."""
+    return cfg.remat and cfg.scan_layers and cfg.remat_policy != "none"
+
+
+def remat_on(cfg: ModelConfig) -> bool:
+    """Whether layer bodies run under checkpoint: :func:`remat_configured`
+    and a gradient being taken."""
+    return remat_configured(cfg) and torch.is_grad_enabled()
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` itself, or ``fn`` under ``torch.utils.checkpoint`` with
+    ``cfg.remat_policy``."""
+    if not remat_on(cfg):
+        return fn
+    if cfg.remat_policy == "save_dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: full, "
+                         f"save_dots or none")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _require_family(cfg: ModelConfig) -> None:
@@ -229,6 +317,7 @@ def unstack(tree) -> list:
 
 def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
                 prefix):
+    lp = _local(lp)
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".attn_in", h)
     if cfg.mla is not None:           # taps nothing inside, as the JAX package
@@ -245,6 +334,7 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     if cfg.moe is not None:           # taps no mlp.act, as the JAX package
         m = moe_block(h, lp["mlp"], cfg, qcfg,
                       mode=_RUNTIME.get("moe_mode", "sorted"),
+                      moe_fn=_RUNTIME.get("moe_fn"),
                       plan=pv.child("mlp"), use_kernels=use_kernels)
     else:
         m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
@@ -254,18 +344,26 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     return x + m
 
 
-def _ssm_layers(x, layers, cfg, qcfg, cache, pv, use_kernels, taps, tag):
+def _ssm_layer(x, lp, cfg, qcfg, c, pv, use_kernels, taps, prefix):
+    lp = _local(lp)
+    h = rmsnorm(x, lp["norm1"])
+    tap(taps, prefix + ".ssm_in", h)
+    y = ssm_block(h, lp["ssm"], cfg, qcfg, c, taps=taps,
+                  prefix=prefix + ".ssm", plan=pv.child("ssm"),
+                  use_kernels=use_kernels)
+    tap(taps, prefix + ".ssm_out", y)
+    return x + y
+
+
+def _ssm_layers(x, layers, cfg, qcfg, cache, pv, use_kernels, taps, tag,
+                remat: bool = True):
     """The stacked Mamba2 layers (pre-norm, residual) in order; layer
-    ``i``'s taps are named ``tag(i)``."""
+    ``i``'s taps are named ``tag(i)``.  ``remat=False`` inside a body that
+    is itself rematerialized (the hybrid's group)."""
+    layer = _maybe_remat(_ssm_layer, cfg) if remat else _ssm_layer
     for i, lp in enumerate(unstack(layers)):
         c = None if cache is None else {k: v[i] for k, v in cache.items()}
-        h = rmsnorm(x, lp["norm1"])
-        tap(taps, tag(i) + ".ssm_in", h)
-        y = ssm_block(h, lp["ssm"], cfg, qcfg, c, taps=taps,
-                      prefix=tag(i) + ".ssm", plan=pv.child("ssm"),
-                      use_kernels=use_kernels)
-        tap(taps, tag(i) + ".ssm_out", y)
-        x = x + y
+        x = layer(x, lp, cfg, qcfg, c, pv, use_kernels, taps, tag(i))
     return x
 
 
@@ -277,16 +375,21 @@ def _forward_hybrid(params, x, cfg, qcfg, positions, cache, pv, use_kernels,
     package's unrolled forward writes them."""
     attn = None if cache is None else cache["attn"]
     lpv = pv.child("layers")
+
+    def group(x, gp, shared, mc, ac):
+        x = _ssm_layers(x, gp, cfg, qcfg, mc, lpv, use_kernels, taps,
+                        lambda j: f"G.m{j}", remat=False)
+        return _attn_block(x, shared, _dense_view(cfg), qcfg, positions, ac,
+                           pv.child("shared_attn"), use_kernels, taps,
+                           "G.attn")
+
+    group = _maybe_remat(group, cfg)
     for gi, gp in enumerate(unstack(params["layers"])):
         mc = None if cache is None else {
             k: v[gi] for k, v in cache["mamba"].items()}
-        x = _ssm_layers(x, gp, cfg, qcfg, mc, lpv, use_kernels, taps,
-                        lambda j: f"G.m{j}")
         ac = None if attn is None else {
             "k": attn["k"][gi], "v": attn["v"][gi], "pos": attn["pos"]}
-        x = _attn_block(x, params["shared_attn"], _dense_view(cfg), qcfg,
-                        positions, ac, pv.child("shared_attn"), use_kernels,
-                        taps, "G.attn")
+        x = group(x, gp, params["shared_attn"], mc, ac)
     if "tail" in params:
         x = _ssm_layers(x, params["tail"], cfg, qcfg,
                         None if cache is None else cache["tail"],
@@ -329,6 +432,9 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     slot), the three M-RoPE streams equal.
     """
     _require_family(cfg)
+    params = {k: v if k in _STACKS
+              or (not logits and k in ("lm_head", "head_stream"))
+              else _local(v) for k, v in params.items()}
     pv = plan_view(plan)
     taps: dict | None = {} if collect_taps else None
     if cfg.family == "encdec":
@@ -370,12 +476,13 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
         lpv = pv.child("layers")
         shared = {} if cache is None else {
             k: cache[k] for k in ("pos", "pt") if k in cache}
+        block = _maybe_remat(_attn_block, cfg)
         for i, lp in enumerate(unstack(params["layers"])):
             c = None if cache is None else {
                 **{k: v[i] for k, v in cache.items()
                    if k not in ("pos", "pt")}, **shared}
-            x = _attn_block(x, lp, cfg, qcfg, positions, c, lpv,
-                            use_kernels, taps, f"L{i}")
+            x = block(x, lp, cfg, qcfg, positions, c, lpv, use_kernels, taps,
+                      f"L{i}")
         if cache is not None:
             cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
@@ -417,13 +524,19 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
         Be, Se = e.shape[:2]
         epos = torch.broadcast_to(
             torch.arange(Se, device=e.device)[None], (Be, Se))
-        for lp in unstack(params["enc_layers"]):
+
+        def enc_layer(e, lp):
+            lp = _local(lp)
             e = e + attention(rmsnorm(e, lp["norm1"]), lp["attn"], cfg,
                               qcfg, epos, None, plan=epv.child("attn"),
                               use_kernels=use_kernels)
-            e = e + mlp(rmsnorm(e, lp["norm2"]), lp["mlp"], qcfg,
-                        plan=epv.child("mlp"), use_kernels=use_kernels,
-                        mlp_type=cfg.mlp)
+            return e + mlp(rmsnorm(e, lp["norm2"]), lp["mlp"], qcfg,
+                           plan=epv.child("mlp"), use_kernels=use_kernels,
+                           mlp_type=cfg.mlp)
+
+        enc_layer = _maybe_remat(enc_layer, cfg)
+        for lp in unstack(params["enc_layers"]):
+            e = enc_layer(e, lp)
         enc_out = rmsnorm(e, params["enc_final_norm"])
 
     tokens = batch["tokens"]
@@ -435,23 +548,30 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
     positions = torch.broadcast_to(
         base + torch.arange(S, device=tokens.device)[None, :], (B, S))
     new_k, new_v = [], []
-    for i, lp in enumerate(unstack(params["dec_layers"])):
-        sc = None if self_c is None else {
-            "k": self_c["k"][i], "v": self_c["v"][i], "pos": self_c["pos"]}
+
+    def dec_layer(x, lp, sc, kv):
+        lp = _local(lp)
         x = x + attention(rmsnorm(x, lp["norm1"]), lp["attn"], cfg, qcfg,
                           positions, sc, plan=dpv.child("attn"),
                           use_kernels=use_kernels)
         a, k, v = cross_attention(
-            rmsnorm(x, lp["norm_x"]), enc_out, lp["cross"], cfg, qcfg,
-            None if cross is None else (cross["k"][i], cross["v"][i]),
+            rmsnorm(x, lp["norm_x"]), enc_out, lp["cross"], cfg, qcfg, kv,
             plan=dpv.child("cross"), use_kernels=use_kernels)
         x = x + a
-        if cache is not None and cross is None:
-            new_k.append(k)
-            new_v.append(v)
         x = x + mlp(rmsnorm(x, lp["norm2"]), lp["mlp"], qcfg,
                     plan=dpv.child("mlp"), use_kernels=use_kernels,
                     mlp_type=cfg.mlp)
+        return x, k, v
+
+    dec_layer = _maybe_remat(dec_layer, cfg)
+    for i, lp in enumerate(unstack(params["dec_layers"])):
+        sc = None if self_c is None else {
+            "k": self_c["k"][i], "v": self_c["v"][i], "pos": self_c["pos"]}
+        x, k, v = dec_layer(x, lp, sc, None if cross is None
+                            else (cross["k"][i], cross["v"][i]))
+        if cache is not None and cross is None:
+            new_k.append(k)
+            new_v.append(v)
     if cache is not None:
         if cross is None:
             cache["cross"] = {"k": torch.stack(new_k),

@@ -10,6 +10,9 @@
   (the trainer updates its tensors in place right after) and writes the
   files from a worker thread.
 - keep-K garbage collection + ``latest_step`` discovery for auto-resume.
+- A DTensor leaf (the sharded train step's) is saved whole
+  (``full_tensor``, a collective every rank joins) and restored onto the
+  like leaf's mesh and placements.
 """
 from __future__ import annotations
 
@@ -50,8 +53,14 @@ def _unflatten(like, leaves: dict[str, Any], prefix: str = ""):
     return leaves[prefix]
 
 
+def _is_dtensor(leaf) -> bool:
+    return hasattr(leaf, "full_tensor") and hasattr(leaf, "placements")
+
+
 def _to_host(leaf) -> np.ndarray:
     """A host copy that later in-place updates of ``leaf`` cannot reach."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("a bfloat16 leaf has no numpy dtype to save as")
@@ -126,7 +135,12 @@ class CheckpointManager:
             if arr.shape != tuple(np.shape(leaf_like)):
                 raise ValueError(f"{name}: checkpoint shape {arr.shape}, "
                                  f"expected {tuple(np.shape(leaf_like))}")
-            if isinstance(leaf_like, torch.Tensor):
+            if _is_dtensor(leaf_like):
+                from torch.distributed.tensor import distribute_tensor
+                arr = distribute_tensor(
+                    torch.from_numpy(arr).to(leaf_like.device),
+                    leaf_like.device_mesh, leaf_like.placements)
+            elif isinstance(leaf_like, torch.Tensor):
                 arr = torch.from_numpy(arr).to(
                     leaf_like.device if device is None else device)
             leaves[name] = arr

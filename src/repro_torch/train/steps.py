@@ -86,22 +86,31 @@ def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
 
 
 def make_train_step(cfg: ModelConfig, qcfg: QuantConfig | None, opt: Adam,
-                    ce_proportion: float = 0.0, grad_mask=None,
-                    microbatches: int = 1, plan=None,
-                    compute_dtype=torch.bfloat16, use_kernels: bool = True):
+                    ce_proportion: float = 0.0, grad_compress=None,
+                    grad_mask=None, microbatches: int = 1, plan=None,
+                    compute_dtype=torch.bfloat16, use_kernels: bool = True,
+                    value_and_grad=None):
     """train_step(student, opt_state, teacher, batch) -> (student, opt_state,
     {"loss", "grad_norm"}).
 
+    ``grad_compress``: optional ``fn(grads, opt_state) -> (grads,
+    opt_state)``, called after ``grad_mask`` and before the update, as in
+    the JAX package (``train.compression.error_feedback_hook``: int8 with
+    error feedback).
     ``grad_mask``: optional ``fn(path, g) -> g`` (``path`` a tuple of keys)
     — zero out DoF subsets for the paper's frozen-scales ablations.
     ``plan``: the resolved ``core.plan.QuantPlan`` — the student forward
     fake-quants each tensor at its plan bits.  ``use_kernels`` as in
     :func:`make_value_and_grad`.  The student's tensors and the optimizer
     state are updated in place (``optim.adam.Adam.update``).
+    ``value_and_grad``: replaces :func:`make_value_and_grad`'s (the sharded
+    step's, ``launch.train.build_step``).
     """
-    value_and_grad = make_value_and_grad(
-        cfg, qcfg, ce_proportion=ce_proportion, microbatches=microbatches,
-        plan=plan, compute_dtype=compute_dtype, use_kernels=use_kernels)
+    if value_and_grad is None:
+        value_and_grad = make_value_and_grad(
+            cfg, qcfg, ce_proportion=ce_proportion,
+            microbatches=microbatches, plan=plan,
+            compute_dtype=compute_dtype, use_kernels=use_kernels)
 
     def train_step(student, opt_state, teacher, batch):
         loss, grads = value_and_grad(student, teacher, batch)
@@ -109,6 +118,8 @@ def make_train_step(cfg: ModelConfig, qcfg: QuantConfig | None, opt: Adam,
             grads = tree_from_items(
                 (path, None if g is None else grad_mask(path, g))
                 for path, g in tree_items(grads))
+        if grad_compress is not None:
+            grads, opt_state = grad_compress(grads, opt_state)
         student, opt_state = opt.update(grads, opt_state, student)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                for _, g in tree_items(grads)

@@ -1354,3 +1354,75 @@ def test_vlm_engine_decodes_through_k2_at_group_7(cuda):
     assert decode_attention.launches_paged - before == cfg.n_layers
     out = eng.generate([Request(prompt=[5, 6, 7], max_new_tokens=4)])
     assert len(out[0]) == 4 and all(0 <= t < cfg.vocab for t in out[0])
+
+
+# ---------------------------------------------------------------------------
+# GQA groups above 8 (command-r-plus-104b: 96/8 heads, G 12): the split pass
+# takes the group in query chunks of 8, each a block re-reading the K/V rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("G", [12, 16])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_decode_attention_g12_g16_slot_view(cuda, G, kv, hd):
+    """The slot view at 8 kv heads x a group of 12 and of 16 over the
+    engine's 8 slots of 2048 rows (lengths 1 .. T, one past T), against
+    the plain version; two launches bit-identical."""
+    S, T, Hkv = 8, 2048, 8
+    q = _rand((S, Hkv, G, hd), 50 + G, cuda)
+    k = _rand((S, T, Hkv, hd), 51, cuda)
+    v = _rand((S, T, Hkv, hd), 52, cuda)
+    lengths = torch.tensor([1, 17, 130, 300, 1000, 1016, 2047, 2100],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args(kv, q, k, v, lengths, S, Hkv)
+    before = decode_attention.launches
+    out = decode_attention(*args)
+    again = decode_attention(*args)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("G", [12, 16])
+@pytest.mark.parametrize("part", [1, 4])
+def test_split_body_g12_g16_at_split_edges(cuda, monkeypatch, G, part):
+    """Splits of the whole tile and a quarter at G 12 and 16 (int8, hd 128):
+    lengths 1, rows - 1, rows, rows + 1 and T = 300."""
+    rows = max(fd.tile_rows(torch.int8, 128, G) // part, 2)
+    monkeypatch.setattr(fd, "split_rows", lambda T, slot_heads, tile: rows)
+    S, T, Hkv = 5, 300, 2
+    q = _rand((S, Hkv, G, 128), 60, cuda)
+    k = _rand((S, T, Hkv, 128), 61, cuda)
+    v = _rand((S, T, Hkv, 128), 62, cuda)
+    lengths = torch.tensor([1, rows - 1, rows, rows + 1, T],
+                           dtype=torch.int32, device=cuda)
+    args = _fd_args("int8", q, k, v, lengths, S, Hkv)
+    _fd_close(decode_attention(*args), decode_attention_ref(*args))
+
+
+@pytest.mark.parametrize("G", [12, 16])
+@pytest.mark.parametrize("P,n_pg", [(16, 128), (48, 7)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_entry_g12_g16_against_plain(cuda, G, P, n_pg, dtype):
+    """The paged entry at 8 kv heads x a group of 12 and of 16, hd 128: the
+    engine's page size over 2048 rows and a page size that does not divide
+    the split, against the gather + plain version; both counts move."""
+    args = _paged(cuda, P, n_pg, G, 70 + P + G, Hkv=8)
+    args[0] = args[0].to(getattr(torch, dtype))
+    before = (decode_attention.launches, decode_attention.launches_paged)
+    out = decode_attention_paged(*args)
+    again = decode_attention_paged(*args)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches - before[0],
+            decode_attention.launches_paged - before[1]) == (2, 2)
+    assert torch.equal(out, again)
+    _fd_close(out, decode_attention_paged_ref(*args))
+
+
+def test_decode_attention_refuses_g_above_16(cuda):
+    q = torch.zeros((2, 1, 17, 128), device=cuda)
+    kv = torch.zeros((2, 8, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        decode_attention(q, kv, kv, torch.ones(2, dtype=torch.int32,
+                                               device=cuda))
