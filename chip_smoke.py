@@ -207,6 +207,22 @@ Phases, each fatal on failure:
    injected failure and a real checkpoint restore at SMOKE width (a few
    MB written) against the run without the failure.
 
+24. the launcher and the analyzer — `python -m repro_torch.launch.serve
+   --arch qwen3-8b --full --use-kernels --show-plan` at full width and
+   depth (calibrate, init and export on the card, the plan table, the
+   route check through quant_matmul, 2 greedy requests with
+   decode_attention's paged entry in every layer of every decode step),
+   its tokens against the same artifact on the plain route under phase
+   5's rule; a SMOKE `--ckpt-dir` restore from a SMOKE pipeline workdir;
+   `python -m repro_torch check --config qwen3-8b` with the card present,
+   its kernel-route prediction held against the decode_attention launches
+   of one real SMOKE decode step.  Phase 3 adds quant_matmul's int8 entry
+   (K1 on unpacked int8 weights) at deepseek-v2's k_up, kv_down and
+   q_down and the CNN fc, M 4 and 8, f32 and bf16, beside the deploy
+   view's bf16 torch.matmul, and the operator layer's host cost a call of
+   decode_attention's paged entry; phase 8's route check on the CNN's
+   int8 fc launches the int8 entry.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
 CUDA device or without the repository beside this file.
@@ -787,6 +803,147 @@ def check_quant_matmul(cfg) -> tuple[dict, dict]:
         f"{per_body['dequant']}")
     torch.cuda.empty_cache()
     return records["int8dot"], records["dequant"]
+
+
+def check_quant_matmul_int8(ds_cfg, cnn_cfg) -> dict:
+    """K1's int8 entry (the unpacked int8 weights the plan keeps at 8 bits)
+    against its plain version at deepseek-v2-236b's MLA k_up, kv_down and
+    q_down and the paper CNN's fc, M 4 and 8, f32 (the route check's type)
+    and bf16, the channel layout the plan gives them: the error (f32 1e-5,
+    bf16 2^-7 of max|ref|), two launches' bits, the event and profiler
+    device time, the plain version, the deploy view's bf16 torch.matmul at
+    the same shape (the yardstick) and the bound: the int8 weight read,
+    x, the scales and y once, 2 M K N operations on CUDA cores (x widened
+    to f32).  Returns the record of the CNN fc's route-check shape (f32,
+    M 4)."""
+    import torch
+    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_int8
+    from repro_torch.kernels.ref import quant_matmul_int8_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    m = ds_cfg.mla
+    H = ds_cfg.n_heads_padded
+    shapes = {"k_up": (m.kv_lora, H * m.d_nope),
+              "kv_down": (ds_cfg.d_model, m.kv_lora + m.d_rope),
+              "q_down": (ds_cfg.d_model, m.q_lora),
+              "cnn_fc": (cnn_cfg.channels[-1], cnn_cfg.n_classes)}
+    names = ("qmm_i8",)
+    record = {}
+    before = quant_matmul.launches_int8
+    for name, (K, N) in shapes.items():
+        q = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        s_wl = torch.rand((K,), generator=g, device=dev) + 0.5
+        s_wr = (torch.rand((N,), generator=g, device=dev) + 0.5) * 0.01
+        for M in (4, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=g, device=dev).to(dt)
+                args = (x, q, s_wl, s_wr)
+                y = quant_matmul_int8(*args)
+                again = quant_matmul_int8(*args)
+                torch.cuda.synchronize()
+                ref = quant_matmul_int8_ref(*args).float()
+                scale = float(ref.abs().max())
+                err = float((y.float() - ref).abs().max())
+                tol = (1e-5 if dt == torch.float32 else 2 ** -7) * scale
+                kind = str(dt).split(".")[-1]
+                if not math.isfinite(err) or err > tol:
+                    fail(f"quant_matmul int8 {name} M={M} {kind}: "
+                         f"max_abs_err {err} > {tol}")
+                if not torch.equal(y, again):
+                    fail(f"quant_matmul int8 {name} M={M} {kind}: two "
+                         f"launches differ")
+                run = lambda a=args: quant_matmul_int8(*a)     # noqa: E731
+                ms = time_ms(run)
+                dev_ms = device_ms(run, names)
+                plain_ms = time_ms(lambda a=args: quant_matmul_int8_ref(*a),
+                                   iters=10)
+                w = (q.float() * s_wl[:, None] * s_wr[None, :]).to(
+                    torch.bfloat16)
+                xb = x.to(torch.bfloat16)
+                gemm = lambda xb=xb, w=w: torch.matmul(xb, w)  # noqa: E731
+                lib_ms = time_ms(gemm)
+                lib_dev = device_ms(gemm, ("",))
+                nbytes = (x.numel() * x.element_size() + K * N + 4 * K
+                          + 4 * N + M * N * x.element_size())
+                b_ms, b_by = bound(nbytes, 2.0 * M * K * N, "f32")
+                say(f"[kernel] quant_matmul int8 {name} M={M} K={K} N={N} "
+                    f"channel {kind} max_abs_err={err:.3e} (tol {tol:.3e}) "
+                    f"bits=identical ms={ms:.4f} device_ms="
+                    f"{'null' if dev_ms is None else f'{dev_ms:.4f}'} "
+                    f"plain_ms={plain_ms:.4f} bf16_matmul_ms={lib_ms:.4f} "
+                    f"bf16_matmul_device_ms="
+                    f"{'null' if lib_dev is None else f'{lib_dev:.4f}'} "
+                    f"bound_ms={b_ms:.4f} ({b_by})"
+                    + ("" if dev_ms is None else
+                       f" device/bound={dev_ms / b_ms:.1f}x"))
+                if name == "cnn_fc" and M == 4 and dt == torch.float32:
+                    record = {"max_abs_err": err, "ms": ms,
+                              "device_ms": dev_ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": lib_ms, "body": "fma"}
+                del w
+    say(f"[kernel] quant_matmul int8 entry launched "
+        f"{quant_matmul.launches_int8 - before} times in phase 3; the int4 "
+        f"counters untouched")
+    return record
+
+
+def op_dispatch_overhead(kv) -> dict:
+    """What the torch.library operator layer adds to a kernel call: host
+    microseconds a call of decode_attention's paged entry through its
+    operator (``repro_torch::decode_attention_paged``) against its CUDA
+    implementation called directly, and through the whole wrapper (its
+    argument checks, then the operator), at the engine's paged cache
+    (qwen3-8b: 8 kv heads x G 4, hd 128); 400 calls a run, runs in the
+    order wrapper, op, direct, direct, op, wrapper, each ended by a
+    synchronize (the calls are host-bound at this size)."""
+    import torch
+    from repro_torch.kernels import decode_attention as fd
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    S, Hkv, G, hd = 8, 8, 4, 128
+    P, n_pg = kv.page_size, kv.max_pages_per_slot
+    q = torch.randn((S, Hkv, G, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    pool_k = torch.randint(-127, 128, (S * n_pg + 1, P, Hkv, hd),
+                           generator=g, device=dev, dtype=torch.int8)
+    pool_v = torch.randint_like(pool_k, -127, 128)
+    pt = torch.randperm(S * n_pg, generator=g, device=dev).to(
+        torch.int32).reshape(S, n_pg)
+    lengths = torch.full((S,), n_pg * P, dtype=torch.int32, device=dev)
+    ks = torch.rand((S, Hkv), generator=g, device=dev) * 0.01
+    vs = torch.rand((S, Hkv), generator=g, device=dev) * 0.01
+    args = (q, pool_k, pool_v, pt, lengths, ks, vs)
+    ways = {"wrapper": lambda: fd.decode_attention_paged(*args),
+            "op": lambda: fd._OP_PAGED(*args),
+            "direct": lambda: fd._run_paged(*args)}
+    if not (torch.equal(ways["op"](), ways["direct"]())
+            and torch.equal(ways["wrapper"](), ways["direct"]())):
+        fail("decode_attention_paged: the wrapper, the operator and the "
+             "direct call differ")
+    n = 400
+    us: dict = {k: [] for k in ways}
+    for way in ("wrapper", "op", "direct", "direct", "op", "wrapper"):
+        for _ in range(20):
+            ways[way]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ways[way]()
+        torch.cuda.synchronize()
+        us[way].append((time.perf_counter() - t0) / n * 1e6)
+    mean = {k: sum(v) / len(v) for k, v in us.items()}
+    out = {"wrapper_us": mean["wrapper"], "op_us": mean["op"],
+           "direct_us": mean["direct"],
+           "operator_added_us": mean["op"] - mean["direct"],
+           "checks_added_us": mean["wrapper"] - mean["op"], "runs_us": us}
+    say(f"[kernel] operator layer: decode_attention_paged host us a call: "
+        f"wrapper {mean['wrapper']:.2f}, operator {mean['op']:.2f}, direct "
+        f"{mean['direct']:.2f} (runs {us}): the operator adds "
+        f"{out['operator_added_us']:+.2f} us, the wrapper's checks "
+        f"{out['checks_added_us']:+.2f} us")
+    return out
 
 
 def check_flash_attention(cfg) -> dict:
@@ -1752,6 +1909,7 @@ def _counters() -> dict:
             "fake_quant_bwd": (fake_quant_kernel, "launches_bwd"),
             "quant_matmul": (quant_matmul, "launches"),
             "quant_matmul_dequant": (quant_matmul, "launches_dequant"),
+            "quant_matmul_int8": (quant_matmul, "launches_int8"),
             "quant_matmul_mma": (quant_matmul, "launches_mma"),
             "quant_matmul_mma_wide": (quant_matmul, "launches_mma_wide"),
             "quant_matmul_fma": (quant_matmul, "launches_fma"),
@@ -2596,8 +2754,13 @@ def cnn_path(ccfg) -> dict:
     kr = ev1.get("kernel_route") or {}
     if kr.get("path") != "fc" or kr.get("kernel") is not False \
             or not kr.get("max_err", 1.0) <= 1e-4:
-        fail(f"cnn kernel_route {kr}: want the int8 fc on the reference "
-             f"branch within 1e-4")
+        fail(f"cnn kernel_route {kr}: want the int8 fc off the int4 kernel "
+             f"within 1e-4")
+    ev_counts = first["per_stage"]["evaluate"]
+    if ev_counts["quant_matmul_int8"] < 1 or ev_counts["quant_matmul"]:
+        fail(f"cnn evaluate: the route check on the int8 fc launched the "
+             f"int8 entry {ev_counts['quant_matmul_int8']} times and the "
+             f"int4 kernel {ev_counts['quant_matmul']}")
     if second["skipped"] != ["calibrate", "init", "finetune"]:
         fail(f"cnn run 2 skipped {second['skipped']}")
     if ev2 != ev1:
@@ -2666,7 +2829,9 @@ def cnn_path(ccfg) -> dict:
         f"{', '.join(f'{h['step']}:{h['loss']:.6f}' for h in first['history'])}")
     say(f"[cnn] run 1 fake_quant launches (forward, backward): finetune "
         f"{_fq_counts(ft)} = {n_w} x {steps} steps each; evaluate "
-        f"{_fq_counts(first['per_stage']['evaluate'])}")
+        f"{_fq_counts(first['per_stage']['evaluate'])}; quant_matmul's int8 "
+        f"entry (the route check on the fc) "
+        f"{first['per_stage']['evaluate']['quant_matmul_int8']}")
     for tag, run in (("run 1 (QFT)", first), ("run 2 (resume)", second),
                      ("w4chw, no finetune", chw),
                      ("w4a8, no finetune (pre-QFT)", pre)):
@@ -2684,6 +2849,194 @@ def cnn_path(ccfg) -> dict:
     if worst > 1e-4:
         fail(f"cnn gradient of {worst_at}: rel L2 {worst} > 1e-4")
     return first["counts"]
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the serving launcher and the analyzer
+# ---------------------------------------------------------------------------
+
+def _launch(argv: list[str], engines: list) -> tuple[str, float]:
+    """``python -m repro_torch.launch.serve`` in this process, its stdout
+    captured and each engine it builds kept in ``engines`` (the launcher
+    itself keeps none)."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Engine
+    orig = Engine.from_artifact.__func__
+
+    def capture(cls, *args, **kwargs):
+        engines.append(orig(cls, *args, **kwargs))
+        return engines[-1]
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    Engine.from_artifact = classmethod(capture)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+    finally:
+        Engine.from_artifact = classmethod(orig)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"launch.serve {' '.join(argv)} exited {rc}:\n{out[-2000:]}")
+    return out, wall
+
+
+def _req_tokens(out: str) -> list[list[int]]:
+    import re
+    return [[int(t) for t in m.group(1).split(",") if t.strip()]
+            for m in re.finditer(r"^req\d+: \[([\d, ]*)\]$", out, re.M)]
+
+
+def launch_path(cfg, smoke_cfg, full: bool = True) -> dict:
+    """Phase 24: ``python -m repro_torch.launch.serve --arch qwen3-8b
+    --full --use-kernels --show-plan`` at full width and depth (the
+    pipeline's calibrate → init → export on the card, then the engine):
+    every count at 0 just before it, quant_matmul launched by the route
+    check, decode_attention's paged entry layers x decode steps; its
+    tokens against the same artifact on the plain route under phase 5's
+    near-tie rule.  Then a SMOKE ``--ckpt-dir`` restore from a SMOKE
+    pipeline workdir (a few MB written), and ``python -m repro_torch check
+    --config qwen3-8b`` with the card present, its kernel-route
+    prediction (decode_attention nodes a decode step) held against the
+    launches of one real SMOKE decode step at the analyzer's serving
+    geometry.  Returns the full-size run's launch counts."""
+    import tempfile
+    import torch
+    from repro_torch.analysis.graph_checks import ANALYZER_SCFG
+    from repro_torch.pipeline import PipelineConfig, run_pipeline
+    from repro_torch.serve.engine import (Engine, Request, ServeConfig,
+                                          _attn_layer_count)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engines: list = []
+    _zero_counts()
+    out, wall = _launch(["--arch", cfg.name, "--use-kernels", "--show-plan",
+                         "--device", DEVICE] + (["--full"] if full else []),
+                        engines)
+    torch.cuda.synchronize()
+    counts = _counts()
+    engine = engines[-1]
+    steps = engine.decode_steps
+    layers = _attn_layer_count(engine.cfg)
+    toks = _req_tokens(out)
+    route = next((ln for ln in out.splitlines()
+                  if ln.startswith("kernel route:")), "")
+    if "'kernel': True" not in route:
+        fail(f"launch.serve --use-kernels: the route check did not run "
+             f"quant_matmul: {route}")
+    if counts["quant_matmul"] < 1:
+        fail(f"launch.serve: quant_matmul launched {counts['quant_matmul']}"
+             f" times")
+    if steps == 0 or counts["decode_attention_paged"] != layers * steps \
+            or counts["decode_attention"] != layers * steps:
+        fail(f"launch.serve: decode_attention launched "
+             f"{counts['decode_attention']} times (paged "
+             f"{counts['decode_attention_paged']}) over {steps} decode "
+             f"steps of {layers} layers")
+    if "# " not in out or "layers.mlp.down" not in out:
+        fail("launch.serve --show-plan printed no plan table")
+    if len(toks) != 2 or not all(len(t) == 8 and all(
+            0 <= x < cfg.vocab for x in t) for t in toks):
+        fail(f"launch.serve: bad tokens {toks}")
+    peak = _gib()
+    say(f"[launch] launch.serve --arch {cfg.name}"
+        f"{' --full' if full else ''} --use-kernels --show-plan: "
+        f"{wall:.1f} s, peak {peak:.2f} GiB; {route}; "
+        f"tokens {toks}; {steps} decode steps; launches quant_matmul="
+        f"{counts['quant_matmul']} decode_attention="
+        f"{counts['decode_attention']} (paged "
+        f"{counts['decode_attention_paged']} = {layers} x {steps})")
+
+    # --- the same artifact on the plain route, under phase 5's rule
+    plain = _engine_as(engine, engine.cfg, use_kernels=False)
+    before = _counts()
+    ptoks = plain.generate([Request(prompt=[1, 2, 3], max_new_tokens=8),
+                            Request(prompt=[4, 5], max_new_tokens=8)])
+    if _counts()["decode_attention"] != before["decode_attention"]:
+        fail("the plain route launched decode_attention")
+    for p, a, b in zip(([1, 2, 3], [4, 5]), toks, ptoks):
+        if a != b:
+            where = _first_split(engine.cfg, p,
+                                 ("plain", plain, False, b),
+                                 ("kernel", plain, True, a))
+            say(f"[launch]   {a} vs {b}: the routes first split at {where}")
+    same = sum(a == b for a, b in zip(toks, ptoks))
+    say(f"[launch] plain route: {same}/2 requests token-identical")
+    del plain, engine, engines[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- a SMOKE --ckpt-dir restore from a SMOKE pipeline workdir
+    with tempfile.TemporaryDirectory(prefix="qft_launch_") as wd:
+        run_pipeline(PipelineConfig(
+            arch=smoke_cfg.name, smoke=True, steps=2, calib_samples=64,
+            calib_seq_len=16, calib_batch_size=8, calib_batches=2,
+            eval_batches=1, stop_after="finetune", workdir=wd,
+            device=DEVICE))
+        mb = sum(f.stat().st_size for f in Path(wd).rglob("*")
+                 if f.is_file()) / 2**20
+        sout, swall = _launch(["--arch", smoke_cfg.name, "--ckpt-dir", wd,
+                               "--use-kernels", "--device", DEVICE], engines)
+    if "restored trained student from" not in sout:
+        fail(f"launch.serve --ckpt-dir restored nothing:\n{sout[-1500:]}")
+    stoks = _req_tokens(sout)
+    if len(stoks) != 2 or not all(len(t) == 8 for t in stoks):
+        fail(f"launch.serve --ckpt-dir: bad tokens {stoks}")
+    say(f"[launch] SMOKE --ckpt-dir restore ({mb:.2f} MB written): "
+        f"{swall:.1f} s, tokens {stoks}")
+    del engines[:]
+
+    # --- the analyzer with the card present, against a real decode step
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="qft_check_") as td:
+        rep_path = Path(td) / "report.json"
+        chk = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "check", "--config",
+             smoke_cfg.name, "--json", str(rep_path)], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(SRC)),
+            capture_output=True, text=True, timeout=600)
+        if chk.returncode != 0:
+            fail(f"python -m repro_torch check exited {chk.returncode}:\n"
+                 f"{chk.stdout[-2000:]}{chk.stderr[-2000:]}")
+        report = json.loads(rep_path.read_text())
+    check_s = time.perf_counter() - t0
+    route_diag = next(d for d in report["diagnostics"]
+                      if d["check"] == "trace.kernel-route")
+    predicted = route_diag["value"]["decode_attention_nodes"]
+    from repro_torch.models import init_model
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
+    qcfg = QuantConfig()
+    params = init_model(0, smoke_cfg, qcfg, device=DEVICE)
+    plan = make_deploy_plan(qcfg, arch=smoke_cfg.name,
+                            family=smoke_cfg.family, params=params,
+                            model_cfg=smoke_cfg)
+    with torch.no_grad():
+        ex = export_for_layers(params, plan, device=DEVICE)
+    eng = Engine.from_artifact(smoke_cfg, plan, ex,
+                               ServeConfig(**ANALYZER_SCFG), device=DEVICE)
+    _zero_counts()
+    eng.generate([Request(prompt=[1, 2, 3], max_new_tokens=4)])
+    torch.cuda.synchronize()
+    real = _counts()["decode_attention"] / max(eng.decode_steps, 1)
+    if real != predicted or predicted != _attn_layer_count(smoke_cfg):
+        fail(f"check predicts {predicted} decode_attention node(s) a decode "
+             f"step; one real SMOKE step launched {real}")
+    s = report["summary"]
+    say(f"[launch] python -m repro_torch check --config {smoke_cfg.name} "
+        f"(card present): exit 0 in {check_s:.1f} s, {s['errors']} errors, "
+        f"{s['infos']} infos, {s['skips']} skips; kernel-route predicts "
+        f"{predicted} decode_attention node(s) a decode step, a real SMOKE "
+        f"decode step launched {real:g} ({eng.decode_steps} steps)")
+    return {"quant_matmul": counts["quant_matmul"],
+            "decode_attention": counts["decode_attention"],
+            "decode_attention_paged": counts["decode_attention_paged"],
+            "decode_steps": steps, "wall_s": wall, "peak_gib": peak,
+            "check_s": check_s, "check_predicted": predicted,
+            "check_real": real}
 
 
 # ---------------------------------------------------------------------------
@@ -3222,6 +3575,9 @@ def main() -> int:
         resolve_kv_spec(CMDR, ServeConfig(**MAIN_SERVE)), G=16,
         tag=" G16", Hkv=CMDR.n_kv_heads)
     qmm, qmm_dequant = check_quant_matmul(CONFIG)
+    qmm_i8 = check_quant_matmul_int8(DEEPSEEK, CNN)
+    dispatch = op_dispatch_overhead(
+        resolve_kv_spec(CONFIG, ServeConfig(**MAIN_SERVE)))
     fq, fq_layers = check_fake_quant(CONFIG)
     fq_cnn = check_fake_quant_cnn(CNN)
     fq_moe = check_fake_quant_moe(MOE)
@@ -3317,6 +3673,10 @@ def main() -> int:
     sharded = sharded_path(CONFIG, MOE, SMOKE)
     say(f"[main] phase 23 (the sharded path, world size 1) "
         f"{time.perf_counter() - t23:.1f} s")
+    t24 = time.perf_counter()
+    launch = launch_path(CONFIG, SMOKE)
+    say(f"[main] phase 24 (launch.serve, check) "
+        f"{time.perf_counter() - t24:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -3346,7 +3706,14 @@ def main() -> int:
                                     "decode_attention_paged"]),
          "g16": fd_g16,
          "qwen3_32b": {"launches": q32["decode_attention"],
-                       "launches_paged": q32["decode_attention_paged"]}},
+                       "launches_paged": q32["decode_attention_paged"]},
+         "launch_serve": {"launches": launch["decode_attention"],
+                          "launches_paged": launch["decode_attention_paged"],
+                          "decode_steps": launch["decode_steps"],
+                          "check_predicted_per_step":
+                              launch["check_predicted"],
+                          "real_per_step": launch["check_real"]},
+         "operator_layer": dispatch},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",
@@ -3360,7 +3727,12 @@ def main() -> int:
          "launches_qwen2_vl": vl["quant_matmul"],
          "launches_seamless_m4t": ed_train["quant_matmul"],
          "launches_command_r_plus": cmdr["quant_matmul"],
-         "launches_qwen3_32b": q32["quant_matmul"]},
+         "launches_qwen3_32b": q32["quant_matmul"],
+         "launches_launch_serve": launch["quant_matmul"]},
+        {"name": "quant_matmul_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/ops.py:58",
+         "launches": cnn["quant_matmul_int8"], **qmm_i8},
         {"name": "fake_quant", "route": "cuda",
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/fake_quant.py:24",

@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from ..kernels._library import on_card
 from ..kernels.fake_quant import fake_quant_kernel
 from .fakequant import (expand_group_scale, fake_quant, fake_quant_act,
                         pack_int4, quantize, unpack_int4)
@@ -128,7 +129,7 @@ def weight_fake_quant(w: torch.Tensor, s: torch.Tensor, bits: int,
     in one launch, as the ``[prod(...)·in, out]`` view with its scale
     broadcast to the weight's shape; anything else through the plain
     composition.  The forward is the same bits either way."""
-    if not (use_kernels and w.is_cuda):
+    if not (use_kernels and on_card(w)):
         return fake_quant(w, s, bits, signed=True)
     if w.ndim == 2:
         return fake_quant_kernel(w, s, bits, rule="ste")

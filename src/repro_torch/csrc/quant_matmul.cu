@@ -85,6 +85,18 @@
 // N and K must tile by 64, a group must be a multiple of 16 that divides or
 // is divided by 64, any M >= 1 (rows past M are masked); the 128-column
 // tile of the wide body masks whole warps past N.
+//
+// A third entry, `qft_quant_matmul_i8`, takes the unpacked int8 weights of
+// the linears the plan keeps at 8 bits (q [K, N] int8; the reference's
+// qlinear_deployed feeds them to dot_general as the integer operand):
+//     y = sum_g s_wr[g] * ((x * s_wl)[:, g] @ q[g]).
+// It runs the fma body's split-K pipeline for both x types, with a byte
+// load where the packed bodies unpack nibbles: 64-row stages of 64 int8
+// columns (4 KB, 4 stages), x * s_wl in f32 in shared memory (bf16 x is
+// widened there), one column a thread, the group partial scaled by s_wr
+// where a row opens a new group, the same ordered split combine.  Any
+// shape is taken: columns past N and rows past K are masked (the paper
+// CNN's fc is N 10, a router N 60).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -323,6 +335,52 @@ struct W64Copy {
   }
 };
 
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// block_store one element at a time, for an N that is not a multiple of 4.
+template <typename T>
+__device__ void block_store_scalar(const float* tile, int ld,
+                                   int part_stride, int parts, int bm, int bn,
+                                   int m0, int n0, int M, int N, T* y,
+                                   float* ws, int* counter, int split,
+                                   int splits) {
+  __shared__ int s_last1;
+  for (int i = threadIdx.x; i < bm * bn; i += blockDim.x) {
+    const int r = i / bn;
+    const int c = i % bn;
+    const int m = m0 + r;
+    const int n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float v = tile[r * ld + c];
+    for (int q = 1; q < parts; ++q) v += tile[r * ld + c + q * part_stride];
+    if (splits == 1)
+      store1(y + static_cast<size_t>(m) * N + n, v);
+    else
+      ws[(static_cast<size_t>(split) * M + m) * N + n] = v;
+  }
+  if (splits == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last1 = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!s_last1) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < bm * bn; i += blockDim.x) {
+    const int m = m0 + i / bn;
+    const int n = n0 + i % bn;
+    if (m >= M || n >= N) continue;
+    const size_t mn = static_cast<size_t>(m) * N + n;
+    const size_t step = static_cast<size_t>(M) * N;
+    float v = __ldcg(ws + mn);
+    for (int s = 1; s < splits; ++s) v += __ldcg(ws + s * step + mn);
+    store1(y + mn, v);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 // The block's f32 result: `parts` tiles [bm][ld] at `tile`, `part_stride`
 // floats apart, summed in order.  One split: y directly.  Several: the sum
 // goes to ws[split]; the block that arrives last at this output tile sums
@@ -333,6 +391,11 @@ __device__ void block_store(const float* tile, int ld, int part_stride,
                             int N, T* y, float* ws, int* counter, int split,
                             int splits) {
   __shared__ int s_last;
+  if (N & 3) {                          // the int8 entry's ragged N
+    block_store_scalar(tile, ld, part_stride, parts, bm, bn, m0, n0, M, N,
+                       y, ws, counter, split, splits);
+    return;
+  }
   const int nv = bn / 4;
   for (int i = threadIdx.x; i < bm * nv; i += blockDim.x) {
     const int r = i / nv;
@@ -1017,6 +1080,150 @@ __global__ void __launch_bounds__(128) qmm_fma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// The int8 entry: unpacked int8 weights through the fma body's pipeline
+// ---------------------------------------------------------------------------
+
+constexpr int kI8Stages = 4;
+constexpr int kI8StageBytes = kChunk * kBN;     // 64 rows x 64 int8 columns
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One thread's share of each 64-row chunk of q (rows p and p + 32, 16
+// columns at 16 j; 128 threads): 16-byte cp.async copies where N allows
+// them (zero-filled past N and past the split), byte loads elsewhere.
+// Chunk c goes to stage c mod kI8Stages, row r at byte 64 r.
+struct I8Copy {
+  const int8_t* q;
+  uint8_t* ring;
+  int N, k_begin, k_end, col, p, j16;
+  bool vec;
+  __device__ I8Copy(const int8_t* q_, uint8_t* ring_, int N_, int k_begin_,
+                    int k_end_, int n0, bool vec_)
+      : q(q_), ring(ring_), N(N_), k_begin(k_begin_), k_end(k_end_),
+        col(n0 + 16 * (threadIdx.x & 3)), p(threadIdx.x >> 2),
+        j16(16 * (threadIdx.x & 3)), vec(vec_) {}
+  __device__ void issue(int c) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = p + 32 * h;
+      const int k = k_begin + c * kChunk + r;
+      uint8_t* dst = ring + (c % kI8Stages) * kI8StageBytes + r * kBN + j16;
+      const bool row_ok = k < k_end;
+      if (vec) {
+        const bool ok = row_ok && col < N;
+        const int8_t* src = ok ? q + static_cast<size_t>(k) * N + col : q;
+        cp_async16_zfill(smem_u32(dst), src, ok);
+      } else {
+        const int8_t* src = q + static_cast<size_t>(row_ok ? k : 0) * N;
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          dst[b] = row_ok && col + b < N
+                       ? static_cast<uint8_t>(src[col + b]) : 0;
+      }
+    }
+  }
+};
+
+template <typename XT, bool kTwoAcc>
+__global__ void __launch_bounds__(128) qmm_i8_kernel(
+    const XT* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ s_wl, const float* __restrict__ s_wr,
+    XT* __restrict__ y, float* __restrict__ ws, int* __restrict__ counters,
+    int M, int N, int K, int group, int ks, bool vec, int m_tiles) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int BM = 8;
+  uint8_t* ring = smem;
+  float* xk = reinterpret_cast<float*>(smem + kI8Stages * kI8StageBytes);
+  const Split sp = block_split(m_tiles, BM, kBN, ks, K);
+  const int klen = sp.k_end - sp.k_begin;
+  const int n_chunks = (klen + kChunk - 1) / kChunk;
+
+  const I8Copy wcopy(q, ring, N, sp.k_begin, sp.k_end, sp.n0, vec);
+#pragma unroll
+  for (int c = 0; c < kI8Stages - 1; ++c) {
+    if (c < n_chunks) wcopy.issue(c);
+    cp_commit();
+  }
+  // x * s_wl in f32, k-major: xk[k][token]; rows past the split are zero
+  const int kpad = n_chunks * kChunk;
+  for (int i = threadIdx.x; i < BM * kpad; i += blockDim.x) {
+    const int r = i / kpad;
+    const int k = i % kpad;
+    const int m = sp.m0 + r;
+    float v = 0.f;
+    if (m < M && k < klen)
+      v = widen(x[static_cast<size_t>(m) * K + sp.k_begin + k]) *
+          s_wl[sp.k_begin + k];
+    xk[k * BM + r] = v;
+  }
+
+  const int n_loc = threadIdx.x & 63;
+  const int half = threadIdx.x >> 6;
+  const int n = sp.n0 + n_loc;
+  const bool live = n < N;
+  float part[BM], acc[BM];
+#pragma unroll
+  for (int t = 0; t < BM; ++t) { part[t] = 0.f; acc[t] = 0.f; }
+  float sr = 0.f;                       // s_wr of the current group
+  int sr_group = -1;
+  GroupPos gp(sp.k_begin + 32 * half, group);   // this thread's next row
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_wait<kI8Stages - 2>();
+    __syncthreads();
+    if (c + kI8Stages - 1 < n_chunks) wcopy.issue(c + kI8Stages - 1);
+    cp_commit();
+    const uint8_t* st = ring + (c % kI8Stages) * kI8StageBytes;
+    const int rows = min(32, klen - (c * kChunk + 32 * half));
+    for (int rr = 0; rr < rows; ++rr) {
+      const int kloc = c * kChunk + 32 * half + rr;
+      if (kTwoAcc && gp.g != sr_group) {   // the row opens a new group
+        if (sr_group >= 0) {
+#pragma unroll
+          for (int t = 0; t < BM; ++t) {
+            acc[t] += part[t] * sr;
+            part[t] = 0.f;
+          }
+        }
+        sr_group = gp.g;
+        sr = live ? s_wr[static_cast<size_t>(sr_group) * N + n] : 0.f;
+      }
+      const float qv = static_cast<float>(
+          static_cast<int8_t>(st[(32 * half + rr) * kBN + n_loc]));
+      const float4* xr = reinterpret_cast<const float4*>(xk + kloc * BM);
+      const float4 u = xr[0], v = xr[1];
+      const float a[BM] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int t = 0; t < BM; ++t) part[t] = fmaf(a[t], qv, part[t]);
+      gp.advance(1);
+    }
+    gp.advance(32);                     // the other half's rows
+  }
+  if (kTwoAcc) {
+    if (sr_group >= 0) {
+#pragma unroll
+      for (int t = 0; t < BM; ++t) acc[t] += part[t] * sr;
+    }
+  } else {                              // one group: the channel layout
+    const float scale = live ? s_wr[n] : 0.f;
+#pragma unroll
+    for (int t = 0; t < BM; ++t) acc[t] = part[t] * scale;
+  }
+  cp_wait<0>();
+  __syncthreads();
+  float* tiles = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int t = 0; t < BM; ++t)
+    tiles[half * BM * kTileLd + t * kTileLd + n_loc] = acc[t];
+  __syncthreads();
+  block_store(tiles, kTileLd, BM * kTileLd, 2, BM, kBN, sp.m0, sp.n0, M, N, y,
+              ws, counters + blockIdx.x, sp.split, gridDim.y);
+}
+
+// ---------------------------------------------------------------------------
 // Host side: the gate, the plan's checks and the launches
 // ---------------------------------------------------------------------------
 
@@ -1148,6 +1355,54 @@ int launch(bool dequant, const void* x, const void* qw, const void* s_wl,
   return static_cast<int>(rc);
 }
 
+// The int8 entry: any M, N, K >= 1 and a group that divides K; ks: rows per
+// split, a multiple of 64; ws and counters as `launch` above.
+int launch_i8(const void* x, const void* q, const void* s_wl,
+              const void* s_wr, void* y, int M, int N, int K, int group,
+              int x_dtype, int ks, void* ws, void* counters, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || group < 1 || K % group || ks < kChunk ||
+      ks % kChunk || (x_dtype != kF32 && x_dtype != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kI8Stages * kI8StageBytes + 8 * ks * 4;
+  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = cdiv(K, ks);
+  if (splits > 1 && (ws == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const bool two_acc = group < K;
+  const auto* qi = static_cast<const int8_t*>(q);
+  const auto* wl = static_cast<const float*>(s_wl);
+  const auto* wr = static_cast<const float*>(s_wr);
+  auto* w = static_cast<float*>(ws);
+  auto* cnt = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mt = cdiv(M, 8), nt = cdiv(N, kBN);
+  using bf16 = __nv_bfloat16;
+  cudaError_t rc;
+  if (x_dtype == kF32) {
+    const float* xf = static_cast<const float*>(x);
+    float* yf = static_cast<float*>(y);
+    rc = two_acc
+        ? go<qmm_i8_kernel<float, true>>(mt, nt, splits, 128, smem, st, xf,
+                                         qi, wl, wr, yf, w, cnt, M, N, K,
+                                         group, ks, vec)
+        : go<qmm_i8_kernel<float, false>>(mt, nt, splits, 128, smem, st, xf,
+                                          qi, wl, wr, yf, w, cnt, M, N, K,
+                                          group, ks, vec);
+  } else {
+    const bf16* xb = static_cast<const bf16*>(x);
+    bf16* yb = static_cast<bf16*>(y);
+    rc = two_acc
+        ? go<qmm_i8_kernel<bf16, true>>(mt, nt, splits, 128, smem, st, xb,
+                                        qi, wl, wr, yb, w, cnt, M, N, K,
+                                        group, ks, vec)
+        : go<qmm_i8_kernel<bf16, false>>(mt, nt, splits, 128, smem, st, xb,
+                                         qi, wl, wr, yb, w, cnt, M, N, K,
+                                         group, ks, vec);
+  }
+  return static_cast<int>(rc);
+}
+
 }  // namespace
 
 // Both return a cudaError_t: 0 on a clean launch.  x_dtype: 0 f32, 1 bf16;
@@ -1169,4 +1424,15 @@ extern "C" int qft_quant_matmul_dequant(const void* x, const void* qw,
                                         void* counters, void* stream) {
   return launch(true, x, qw, s_wl, s_wr, y, M, N, K, group, x_dtype, body,
                 ks, ws, xs, counters, stream);
+}
+
+// y = sum_g s_wr[g] * ((x * s_wl)[:, g] @ q[g]) for int8 q [K, N]; x_dtype
+// 0 f32, 1 bf16; ks, ws and counters from the wrapper's plan_int8.
+extern "C" int qft_quant_matmul_i8(const void* x, const void* q,
+                                   const void* s_wl, const void* s_wr,
+                                   void* y, int M, int N, int K, int group,
+                                   int x_dtype, int ks, void* ws,
+                                   void* counters, void* stream) {
+  return launch_i8(x, q, s_wl, s_wr, y, M, N, K, group, x_dtype, ks, ws,
+                   counters, stream);
 }

@@ -13,7 +13,9 @@ entries share one kernel body:
   itself (the serving engine's paged cache), with the same scales.
 
 Both count into ``decode_attention.launches``; the paged entry also into
-``decode_attention.launches_paged``.
+``decode_attention.launches_paged``.  Each entry is a ``torch.library``
+operator (``repro_torch::decode_attention``, ``::decode_attention_paged``),
+so a trace over fake tensors records it as one node.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._library import define, on_card
 from .ref import decode_attention_paged_ref, decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -132,7 +135,7 @@ def _on_cpu(what: str, q: torch.Tensor, tensors) -> bool:
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return True
-    if len(devices) != 1 or q.device.type != "cuda":
+    if len(devices) != 1 or not on_card(q):
         raise RuntimeError(f"{what} runs on one CUDA device or on the CPU; "
                            f"got tensors on {sorted(map(str, devices))}")
     return False
@@ -149,6 +152,9 @@ def _check_kernel(what: str, q, tensors, kv) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous tensors")
+
+
+def _aligned(what: str, *kv: torch.Tensor) -> None:
     if any(t.data_ptr() % 16 for t in kv):
         raise ValueError(f"{what}: k/v must be 16-byte aligned")
 
@@ -162,7 +168,9 @@ def _scratch(q: torch.Tensor, T: int, rows: int) -> torch.Tensor:
 
 
 def _run(q, k, v, lengths, k_scale, v_scale) -> torch.Tensor:
-    """Both passes on the slot-indexed view, on q's current stream."""
+    """Both passes on the slot-indexed view, on q's current stream (the
+    operator's CUDA implementation)."""
+    _aligned("decode_attention", k, v)
     S, Hkv, G, hd = q.shape
     T = k.shape[1]
     rows = split_rows(T, S * Hkv * query_chunks(G),
@@ -177,12 +185,15 @@ def _run(q, k, v, lengths, k_scale, v_scale) -> torch.Tensor:
         scratch.data_ptr(), S, T, Hkv, G, hd, _DTYPES[q.dtype],
         _DTYPES[k.dtype], rows, hd ** -0.5, _build.stream_ptr(q))
     _build.check(rc, "decode_attention")
+    decode_attention.launches += 1
     return out
 
 
 def _run_paged(q, pool_k, pool_v, pt, lengths, k_scale, v_scale
                ) -> torch.Tensor:
-    """Both passes on the page pools, on q's current stream."""
+    """Both passes on the page pools, on q's current stream (the
+    operator's CUDA implementation)."""
+    _aligned("decode_attention_paged", pool_k, pool_v)
     S, Hkv, G, hd = q.shape
     P, max_pages = pool_k.shape[1], pt.shape[1]
     rows = split_rows(max_pages * P, S * Hkv * query_chunks(G),
@@ -195,7 +206,20 @@ def _run_paged(q, pool_k, pool_v, pt, lengths, k_scale, v_scale
         out.data_ptr(), scratch.data_ptr(), S, P, max_pages, Hkv, G, hd,
         _DTYPES[q.dtype], rows, hd ** -0.5, _build.stream_ptr(q))
     _build.check(rc, "decode_attention_paged")
+    decode_attention.launches += 1
+    decode_attention.launches_paged += 1
     return out
+
+
+_OP = define("decode_attention",
+             "(Tensor q, Tensor k, Tensor v, Tensor lengths, Tensor? k_scale,"
+             " Tensor? v_scale) -> Tensor", _run,
+             lambda q, *_: torch.empty_like(q), "decode_attention")
+_OP_PAGED = define("decode_attention_paged",
+                   "(Tensor q, Tensor pool_k, Tensor pool_v, Tensor pt, "
+                   "Tensor lengths, Tensor k_scale, Tensor v_scale) -> Tensor",
+                   _run_paged, lambda q, *_: torch.empty_like(q),
+                   "decode_attention")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -212,9 +236,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel("decode_attention", q, args, (k, v))
     if k.dtype != torch.int8 and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError("the CUDA kernel takes float k/v in q's dtype")
-    out = _run(q, k, v, lengths, k_scale, v_scale)
-    decode_attention.launches += 1
-    return out
+    return _OP(q, k, v, lengths, k_scale, v_scale)
 
 
 def decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
@@ -230,10 +252,7 @@ def decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
         return decode_attention_paged_ref(q, pool_k, pool_v, pt, lengths,
                                           k_scale, v_scale)
     _check_kernel("decode_attention_paged", q, args, (pool_k, pool_v))
-    out = _run_paged(q, pool_k, pool_v, pt, lengths, k_scale, v_scale)
-    decode_attention.launches += 1
-    decode_attention.launches_paged += 1
-    return out
+    return _OP_PAGED(q, pool_k, pool_v, pt, lengths, k_scale, v_scale)
 
 
 decode_attention.launches = 0

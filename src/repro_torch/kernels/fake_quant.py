@@ -8,6 +8,9 @@ broadcast it to ``[R, C]`` first).  The backward is a kernel too, under one
 of two rules (``kernels.ref.fake_quant_grad_ref``): ``"kernel"`` is the
 reference kernel's VJP, ``"ste"`` the gradient of the plain composition
 ``core.fakequant.fake_quant`` — the one the QFT trainer differentiates.
+Both kernels are ``torch.library`` operators (``repro_torch::fake_quant_fwd``,
+``::fake_quant_bwd``), so a trace over fake tensors records each as one
+node.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._library import define, on_card
 from .ref import _RULES, fake_quant_grad_ref, fake_quant_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,7 +57,7 @@ def _scale_layout(s: torch.Tensor) -> tuple[int, int, int]:
 def fake_quant_fwd(x: torch.Tensor, s: torch.Tensor,
                    bits: int) -> torch.Tensor:
     """Launch the forward kernel: CUDA ``x [R, C]``, 2-D f32 scale ``s``
-    (``[R|1, C|1]``)."""
+    (``[R|1, C|1]``) (the forward operator's CUDA implementation)."""
     R, C = x.shape
     _, rs, cs = _scale_layout(s)
     y = torch.empty_like(x)
@@ -68,7 +72,8 @@ def fake_quant_fwd(x: torch.Tensor, s: torch.Tensor,
 def fake_quant_bwd(g: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
                    bits: int, rule: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel → ``(gx, gs)``, ``gs`` at ``s``'s 2-D
-    shape in f32."""
+    shape in f32 (the backward operator's CUDA implementation, which
+    takes the rule as its index in ``_RULES``)."""
     R, C = x.shape
     mode, rs, cs = _scale_layout(s)
     g = g.to(x.dtype).contiguous()
@@ -88,6 +93,20 @@ def fake_quant_bwd(g: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
     return gx, gs
 
 
+_FWD = define("fake_quant_fwd", "(Tensor x, Tensor s, int bits) -> Tensor",
+              fake_quant_fwd, lambda x, s, bits: torch.empty_like(x),
+              "fake_quant")
+_BWD = define("fake_quant_bwd",
+              "(Tensor g, Tensor x, Tensor s, int bits, int rule) -> "
+              "(Tensor, Tensor)",
+              lambda g, x, s, bits, rule: fake_quant_bwd(g, x, s, bits,
+                                                         _RULES[rule]),
+              lambda g, x, s, bits, rule: (
+                  torch.empty_like(x),
+                  x.new_empty(s.shape, dtype=torch.float32)),
+              "fake_quant")
+
+
 class _FakeQuant(torch.autograd.Function):
     """Forward and backward on the card; the plain versions for CPU
     tensors.  Saves ``x`` itself (no copy) and the scale."""
@@ -98,7 +117,7 @@ class _FakeQuant(torch.autograd.Function):
         ctx.bits, ctx.rule = bits, rule
         if x.device.type == "cpu":
             return fake_quant_ref(x, s, bits)
-        return fake_quant_fwd(x, s, bits)
+        return _FWD(x, s, bits)
 
     @staticmethod
     def backward(ctx, g):
@@ -106,7 +125,7 @@ class _FakeQuant(torch.autograd.Function):
         if x.device.type == "cpu":
             gx, gs = fake_quant_grad_ref(g, x, s, ctx.bits, ctx.rule)
         else:
-            gx, gs = fake_quant_bwd(g, x, s, ctx.bits, ctx.rule)
+            gx, gs = _BWD(g, x, s, ctx.bits, _RULES.index(ctx.rule))
         return gx, gs, None, None
 
 
@@ -129,7 +148,7 @@ def fake_quant_kernel(x: torch.Tensor, scale: torch.Tensor, bits: int = 4,
                          f"x {tuple(x.shape)}")
     devices = {x.device, s.device}
     if devices != {torch.device("cpu")}:
-        if len(devices) != 1 or x.device.type != "cuda":
+        if len(devices) != 1 or not on_card(x):
             raise RuntimeError(
                 f"fake_quant_kernel runs on one CUDA device or on the CPU; "
                 f"got tensors on {sorted(map(str, devices))}")

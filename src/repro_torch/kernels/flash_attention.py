@@ -16,7 +16,9 @@ products); f32, other head dims and the ``[BH, S, hd]`` signature run the
 FMA body (``qft_flash_attention``).  The tensor-core body's TMA loads need
 16-byte-aligned bases and strides (:func:`tma_misalignment`); a view that
 fails raises.  ``flash_attention.launches`` counts every launch,
-``launches_wgmma`` and ``launches_fma`` each body's.
+``launches_wgmma`` and ``launches_fma`` each body's.  The launch is a
+``torch.library`` operator (``repro_torch::flash_attention``), so a trace
+over fake tensors records it as one node.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._library import define, on_card
 from .ref import attention_prefill_ref, flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,19 +85,14 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     devices = {t.device for t in ts}
     if devices == {torch.device("cpu")}:
         return True
-    if len(devices) != 1 or ts[0].device.type != "cuda":
+    if len(devices) != 1 or not on_card(ts[0]):
         raise RuntimeError(f"flash_attention runs on one CUDA device or on "
                            f"the CPU; got tensors on {sorted(map(str, devices))}")
     return False
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, layout: str) -> torch.Tensor:
-    """The kernel over ``q [B, S, H, hd]``, ``k, v [B, Sk, Hkv, hd]`` views
-    → a contiguous ``[B, S, H, hd]`` output, through the body
-    :func:`body_for` names."""
-    B, S, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    hd = q.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the CUDA kernel takes f32 or bf16 q, k and v of "
                          f"one type; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -104,6 +102,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("flash_attention needs the head dim contiguous")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, layout: str) -> torch.Tensor:
+    """The kernel over ``q [B, S, H, hd]``, ``k, v [B, Sk, Hkv, hd]`` views
+    → a contiguous ``[B, S, H, hd]`` output, through the body
+    :func:`body_for` names (the operator's CUDA implementation)."""
+    B, S, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     body = body_for(q.dtype, hd, layout)
     if body == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -127,6 +134,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+_OP = define("flash_attention",
+             "(Tensor q, Tensor k, Tensor v, bool causal, str layout) -> "
+             "Tensor", _launch,
+             lambda q, k, v, causal, layout: q.new_empty(q.shape),
+             "flash_attention")
+
+
+def _run(q, k, v, causal: bool, layout: str) -> torch.Tensor:
+    _check(q, k, v)
+    return _OP(q, k, v, causal, layout)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v ``[BH, S, hd]`` (k, v ``[BH, Sk, hd]``) → ``[BH, S, hd]``:
@@ -138,8 +157,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if _on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal)
-    return _launch(q[:, :, None], k[:, :, None], v[:, :, None], causal,
-                   "bsd")[:, :, 0]
+    return _run(q[:, :, None], k[:, :, None], v[:, :, None], causal,
+                "bsd")[:, :, 0]
 
 
 def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,7 +176,7 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}")
     if _on_cpu(q, k, v):
         return attention_prefill_ref(q, k, v, causal=causal)
-    return _launch(q, k, v, causal, "bshd")
+    return _run(q, k, v, causal, "bshd")
 
 
 flash_attention.launches = 0

@@ -5,10 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from ..core.fakequant import unpack_int4
 from . import ref
+from ._library import on_card
 from .fake_quant import fake_quant_kernel
 from .flash_attention import attention_prefill
-from .quant_matmul import quant_matmul, tiles_ok as kernel_tiles_ok
+from .quant_matmul import (quant_matmul, quant_matmul_int8,
+                           tiles_ok as kernel_tiles_ok)
 
 __all__ = ["attention_prefill", "fused_fake_quant", "kernel_tiles_ok",
            "qlinear_deployed"]
@@ -21,10 +24,13 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
 
     ``plan`` (a ``serve.deploy.DeployPlan``) overrides ``use_kernels``.  A
     packed int4 leaf whose shape passes :func:`kernel_tiles_ok` goes through
-    ``quant_matmul`` (the CUDA kernel for CUDA tensors); other shapes take
-    the plain version.  int8 (exempt, unpacked) leaves keep the integer
-    weights as the dot operand with per-group partial sums, as the JAX
-    package does.
+    ``quant_matmul`` (the CUDA kernel for CUDA tensors); on the card another
+    shape goes through the int8 entry, its nibbles unpacked to int8; CPU
+    tensors take the plain version.  An int8 (exempt, unpacked) leaf goes through
+    ``quant_matmul_int8``: the integer weight is the kernel's operand, with
+    per-group partial sums and the scales hoisted, as the JAX package's
+    integer ``dot_general`` (for CPU tensors, and on the plain route, the
+    plain version, which widens the weight).
     """
     if plan is not None:
         use_kernels = plan.use_kernels
@@ -43,19 +49,16 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
         if use_kernels and kernel_tiles_ok(x2.shape[0], q.shape[-1],
                                            x2.shape[-1], n_groups):
             y = quant_matmul(x2, q, s_wl, s_wr)
+        elif use_kernels and on_card(x2):
+            # a shape the int4 kernel does not tile: the nibbles unpacked
+            # to int8 (integer to integer) through the int8 entry
+            y = quant_matmul_int8(x2, unpack_int4(q, axis=0), s_wl, s_wr)
         else:
             y = ref.quant_matmul_ref(x2, q, s_wl, s_wr)
+    elif use_kernels:
+        y = quant_matmul_int8(x2, q, s_wl, s_wr)
     else:
-        xs = x2.to(torch.float32) * s_wl[None, :]
-        qf = q.to(torch.float32)
-        K, N = q.shape
-        if n_groups is not None:
-            g = K // n_groups
-            p = torch.einsum("bgk,gkn->gbn", xs.reshape(-1, n_groups, g),
-                             qf.reshape(n_groups, g, N))
-            y = torch.sum(p * s_wr[:, None, :], dim=0).to(x.dtype)
-        else:
-            y = (xs @ qf * s_wr[None, :]).to(x.dtype)
+        y = ref.quant_matmul_int8_ref(x2, q, s_wl, s_wr)
     if "b" in export:
         y = y + export["b"].to(y.dtype)
     return y.reshape(*lead, -1)

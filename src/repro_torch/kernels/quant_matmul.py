@@ -26,6 +26,16 @@ launch, and the K-split that fills the card:
 Every split lies in one K-group or is a union of whole groups, the splits'
 f32 partials go to a workspace and the last block of each output tile sums
 them in split order: no float atomics, two launches give identical bits.
+
+:func:`quant_matmul_int8` is the entry for the unpacked int8 weights the
+plan keeps at 8 bits (``q [K, N]`` int8, the reference's integer
+``dot_general`` operand): the ``fma`` body's pipeline with a byte load in
+place of the nibble unpack, for f32 and bf16 x and any shape
+(:func:`plan_int8`), counted on ``quant_matmul.launches_int8`` alone.
+
+Each entry is a ``torch.library`` operator (``repro_torch::quant_matmul``,
+``::quant_matmul_dequant``, ``::quant_matmul_i8``; ``_library.py``), so a
+trace over fake tensors records it as one node.
 """
 from __future__ import annotations
 
@@ -37,10 +47,12 @@ import math
 import torch
 
 from . import _build
-from .ref import quant_matmul_ref
+from ._library import define, on_card
+from .ref import quant_matmul_int8_ref, quant_matmul_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ENTRY = {"int8dot": "qft_quant_matmul", "dequant": "qft_quant_matmul_dequant"}
+_ENTRY = {"int8dot": "qft_quant_matmul", "dequant": "qft_quant_matmul_dequant",
+          "int8": "qft_quant_matmul_i8"}
 BODIES = ("fma", "mma", "mma_wide")
 TILE_N = 64
 TILE_K = 64
@@ -146,10 +158,38 @@ def plan(M: int, N: int, K: int, group: int, dtype: torch.dtype) -> Plan:
 
 
 @functools.lru_cache(maxsize=None)
+def plan_int8(M: int, N: int, K: int) -> Plan:
+    """The launch plan of the int8 entry: the ``fma`` body's 8 x 64
+    blocks for both x types, the K-split a multiple of 64 rows (at most
+    1024, x of a split is kept in shared memory) and the fewest splits, at
+    most ``MAX_SPLITS``, that launch two blocks an SM.  A split need not
+    nest with the groups: a row that opens a group flushes the partial."""
+    bm, bn, cap, target = _BLOCK["fma"]
+    tiles = math.ceil(M / bm) * math.ceil(N / bn)
+    ksplit = min(cap, math.ceil(K / TILE_K) * TILE_K)
+    for n in range(1, MAX_SPLITS + 1):
+        ks = math.ceil(math.ceil(K / n) / TILE_K) * TILE_K
+        if ks > cap:
+            continue
+        ksplit = ks
+        if tiles * math.ceil(K / ks) >= target:
+            break
+    splits = math.ceil(K / ksplit)
+    return Plan(body="fma", block_m=bm, block_n=bn, ksplit=ksplit,
+                splits=splits, tiles=tiles,
+                workspace=(splits, M, N) if splits > 1 else None,
+                staged_x=False)
+
+
+@functools.lru_cache(maxsize=None)
 def _signature(lib: ctypes.CDLL, variant: str):
     fn = getattr(lib, _ENTRY[variant])
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 4)
+    if variant == "int8":
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 3)
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
 
@@ -168,44 +208,19 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def quant_matmul(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
-                 s_wr: torch.Tensor, variant: str = "int8dot") -> torch.Tensor:
-    """The W4 matmul on the card; the plain version for CPU tensors (both
-    variants compute ``quant_matmul_ref``'s function).  Launches count on
-    ``quant_matmul.launches`` (int8dot) and ``.launches_dequant``, and per
-    body on ``.launches_mma``, ``.launches_mma_wide`` and
-    ``.launches_fma`` (both variants)."""
-    if variant not in _ENTRY:
-        raise ValueError(f"unknown quant_matmul variant {variant!r}")
-    if x.ndim != 2 or qw.ndim != 2 or qw.dtype != torch.uint8:
-        raise ValueError("quant_matmul takes x [M, K] and uint8 qw [K/2, N]")
+def _aligned(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("x, q, s_wl and s_wr must be 16-byte aligned")
+
+
+def _launch(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
+            s_wr: torch.Tensor, variant: str) -> torch.Tensor:
+    """The packed entries' launch (the operators' CUDA implementation)."""
+    _aligned(x, qw, s_wl, s_wr)
     M, K = x.shape
     N = qw.shape[1]
-    if qw.shape[0] * 2 != K or s_wl.shape != (K,):
-        raise ValueError(f"qw {tuple(qw.shape)} / s_wl {tuple(s_wl.shape)} "
-                         f"do not fit x {tuple(x.shape)}")
-    if s_wr.shape != (N,) and not (s_wr.ndim == 2 and s_wr.shape[1] == N):
-        raise ValueError(f"s_wr must be [N] or [K/g, N], got "
-                         f"{tuple(s_wr.shape)}")
-    devices = {t.device for t in (x, qw, s_wl, s_wr)}
-    if devices == {torch.device("cpu")}:
-        return quant_matmul_ref(x, qw, s_wl, s_wr)
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise RuntimeError(f"quant_matmul runs on one CUDA device or on the "
-                           f"CPU; got tensors on {sorted(map(str, devices))}")
-    n_groups = s_wr.shape[0] if s_wr.ndim == 2 else None
-    if x.dtype not in _DTYPES or not tiles_ok(M, N, K, n_groups):
-        raise ValueError(f"the CUDA kernel takes f32/bf16 x and shapes that "
-                         f"pass tiles_ok; got {x.dtype}, M={M} N={N} K={K} "
-                         f"groups={n_groups}")
-    if s_wl.dtype != torch.float32 or s_wr.dtype != torch.float32:
-        raise ValueError("s_wl/s_wr must be f32")
-    for t in (x, qw, s_wl, s_wr):
-        if not t.is_contiguous():
-            raise ValueError("quant_matmul needs contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("x, qw, s_wl and s_wr must be 16-byte aligned")
-    group = K if n_groups is None else K // n_groups
+    group = K if s_wr.ndim == 1 else K // s_wr.shape[0]
     p = plan(M, N, K, group, x.dtype)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ws = (torch.empty(p.workspace, dtype=torch.float32, device=x.device)
@@ -232,8 +247,133 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
     return y
 
 
+def _launch_int8(x: torch.Tensor, q: torch.Tensor, s_wl: torch.Tensor,
+                 s_wr: torch.Tensor) -> torch.Tensor:
+    """The int8 entry's launch (its operator's CUDA implementation)."""
+    _aligned(x, s_wl, s_wr)
+    M, K = x.shape
+    N = q.shape[1]
+    group = K if s_wr.ndim == 1 else K // s_wr.shape[0]
+    p = plan_int8(M, N, K)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = (torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+          if p.workspace else None)
+    stream = _build.stream_ptr(x)
+    counters = (_counters(x.device, stream, p.tiles) if p.splits > 1
+                else None)
+    fn = _signature(_build.load("quant_matmul"), "int8")
+    rc = fn(x.data_ptr(), q.data_ptr(), s_wl.data_ptr(), s_wr.data_ptr(),
+            y.data_ptr(), M, N, K, group, _DTYPES[x.dtype], p.ksplit,
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream)
+    _build.check(rc, "quant_matmul (int8)")
+    quant_matmul.launches_int8 += 1
+    return y
+
+
+def _fake_out(x, qw, s_wl, s_wr):
+    return x.new_empty((x.shape[0], qw.shape[1]))
+
+
+_SCHEMA = "(Tensor x, Tensor q, Tensor s_wl, Tensor s_wr) -> Tensor"
+_OPS = {
+    "int8dot": define("quant_matmul", _SCHEMA,
+                      lambda x, q, a, b: _launch(x, q, a, b, "int8dot"),
+                      _fake_out, "quant_matmul"),
+    "dequant": define("quant_matmul_dequant", _SCHEMA,
+                      lambda x, q, a, b: _launch(x, q, a, b, "dequant"),
+                      _fake_out, "quant_matmul"),
+    "int8": define("quant_matmul_i8", _SCHEMA, _launch_int8, _fake_out,
+                   "quant_matmul"),
+}
+
+
+def _check_devices(what: str, ts) -> bool:
+    """True for all-CPU tensors (the plain version); raises unless they all
+    lie on one CUDA device."""
+    devices = {t.device for t in ts}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or not on_card(ts[0]):
+        raise RuntimeError(f"{what} runs on one CUDA device or on the CPU; "
+                           f"got tensors on {sorted(map(str, devices))}")
+    return False
+
+
+def _check_scales(what: str, K: int, N: int, s_wl, s_wr) -> None:
+    if s_wl.shape != (K,):
+        raise ValueError(f"{what}: s_wl {tuple(s_wl.shape)} does not fit "
+                         f"K={K}")
+    if s_wr.shape != (N,) and not (s_wr.ndim == 2 and s_wr.shape[1] == N):
+        raise ValueError(f"s_wr must be [N] or [K/g, N], got "
+                         f"{tuple(s_wr.shape)}")
+
+
+def quant_matmul(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
+                 s_wr: torch.Tensor, variant: str = "int8dot") -> torch.Tensor:
+    """The W4 matmul on the card; the plain version for CPU tensors (both
+    variants compute ``quant_matmul_ref``'s function).  Launches count on
+    ``quant_matmul.launches`` (int8dot) and ``.launches_dequant``, and per
+    body on ``.launches_mma``, ``.launches_mma_wide`` and
+    ``.launches_fma`` (both variants)."""
+    if variant not in ("int8dot", "dequant"):
+        raise ValueError(f"unknown quant_matmul variant {variant!r}")
+    if x.ndim != 2 or qw.ndim != 2 or qw.dtype != torch.uint8:
+        raise ValueError("quant_matmul takes x [M, K] and uint8 qw [K/2, N]")
+    M, K = x.shape
+    N = qw.shape[1]
+    if qw.shape[0] * 2 != K:
+        raise ValueError(f"qw {tuple(qw.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    _check_scales("quant_matmul", K, N, s_wl, s_wr)
+    if _check_devices("quant_matmul", (x, qw, s_wl, s_wr)):
+        return quant_matmul_ref(x, qw, s_wl, s_wr)
+    n_groups = s_wr.shape[0] if s_wr.ndim == 2 else None
+    if x.dtype not in _DTYPES or not tiles_ok(M, N, K, n_groups):
+        raise ValueError(f"the CUDA kernel takes f32/bf16 x and shapes that "
+                         f"pass tiles_ok; got {x.dtype}, M={M} N={N} K={K} "
+                         f"groups={n_groups}")
+    if s_wl.dtype != torch.float32 or s_wr.dtype != torch.float32:
+        raise ValueError("s_wl/s_wr must be f32")
+    for t in (x, qw, s_wl, s_wr):
+        if not t.is_contiguous():
+            raise ValueError("quant_matmul needs contiguous tensors")
+    return _OPS[variant](x, qw, s_wl, s_wr)
+
+
+def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, s_wl: torch.Tensor,
+                      s_wr: torch.Tensor) -> torch.Tensor:
+    """``Σ_g s_wr[g] · ((x·s_wl)[:, g] @ q[g])`` for an unpacked int8
+    weight ``q [K, N]``: the kernel on the card, the plain version
+    (``ref.quant_matmul_int8_ref``) for CPU tensors.  x ``[M, K]`` f32 or
+    bf16; s_wr ``[N]`` or ``[K/g, N]``.  Any M, N, K.  Launches count on
+    ``quant_matmul.launches_int8``."""
+    if x.ndim != 2 or q.ndim != 2 or q.dtype != torch.int8:
+        raise ValueError("quant_matmul_int8 takes x [M, K] and int8 q "
+                         "[K, N]")
+    M, K = x.shape
+    N = q.shape[1]
+    if q.shape[0] != K:
+        raise ValueError(f"q {tuple(q.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    _check_scales("quant_matmul_int8", K, N, s_wl, s_wr)
+    if s_wr.ndim == 2 and K % s_wr.shape[0]:
+        raise ValueError(f"{s_wr.shape[0]} groups do not divide K={K}")
+    if _check_devices("quant_matmul_int8", (x, q, s_wl, s_wr)):
+        return quant_matmul_int8_ref(x, q, s_wl, s_wr)
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes f32/bf16 x, got {x.dtype}")
+    if s_wl.dtype != torch.float32 or s_wr.dtype != torch.float32:
+        raise ValueError("s_wl/s_wr must be f32")
+    for t in (x, q, s_wl, s_wr):
+        if not t.is_contiguous():
+            raise ValueError("quant_matmul_int8 needs contiguous tensors")
+    return _OPS["int8"](x, q, s_wl, s_wr)
+
+
 quant_matmul.launches = 0
 quant_matmul.launches_dequant = 0
+quant_matmul.launches_int8 = 0
 quant_matmul.launches_mma = 0
 quant_matmul.launches_mma_wide = 0
 quant_matmul.launches_fma = 0

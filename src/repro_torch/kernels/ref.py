@@ -20,6 +20,24 @@ def quant_matmul_ref(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
     return (x.to(torch.float32) @ w).to(x.dtype)
 
 
+def quant_matmul_int8_ref(x: torch.Tensor, q: torch.Tensor,
+                          s_wl: torch.Tensor,
+                          s_wr: torch.Tensor) -> torch.Tensor:
+    """``Σ_g s_wr[g] · ((x·s_wl)[:, g] @ q[g])`` in f32 for an int8
+    ``q [K, N]`` (the JAX package's int8 branch of ``qlinear_deployed``);
+    s_wr ``[N]`` or ``[K/g, N]``; output in x's type."""
+    xs = x.to(torch.float32) * s_wl[None, :]
+    qf = q.to(torch.float32)
+    K, N = q.shape
+    if s_wr.ndim == 2:
+        n_groups = s_wr.shape[0]
+        g = K // n_groups
+        p = torch.einsum("bgk,gkn->gbn", xs.reshape(-1, n_groups, g),
+                         qf.reshape(n_groups, g, N))
+        return torch.sum(p * s_wr[:, None, :], dim=0).to(x.dtype)
+    return (xs @ qf * s_wr[None, :]).to(x.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor,
                          k_scale: torch.Tensor | None = None,

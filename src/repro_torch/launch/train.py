@@ -170,13 +170,16 @@ def init_sharded_state(student, opt, cfg, mesh, pol: ShardingPolicy):
 
 def build_step(mesh, cfg, qcfg, opt, teacher,
                pol: ShardingPolicy = ShardingPolicy(), plan=None,
-               microbatches: int = 1, grad_compress=None) -> Callable:
+               microbatches: int = 1, grad_compress=None,
+               device=None) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for ``mesh``: the
     sharded QFT step, ``state = (student, opt_state)``.  The state and the
     teacher are (re)placed on ``mesh`` first, so the same call serves the
     launcher's first mesh and an elastic remesh.  ``batch`` is the whole
-    batch (numpy or tensors); each rank takes its rows."""
-    dev = torch.device(mesh.device_type)
+    batch (numpy or tensors); each rank takes its rows, on ``device``
+    (``None``: the mesh's device type; the dry-run's shape-only state lies
+    on the meta device)."""
+    dev = torch.device(mesh.device_type if device is None else device)
     specs = params_shardings(teacher, cfg, mesh,
                              pol if pol.fsdp_teacher
                              else dataclasses.replace(pol, fsdp=None))

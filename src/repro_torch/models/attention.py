@@ -18,6 +18,7 @@ from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..kernels.decode_attention import (decode_attention,
                                         decode_attention_paged, kernel_takes)
+from ..kernels._library import on_card
 from ..kernels.ops import attention_prefill
 from ..serve.kv_cache import quantize_kv
 from .config import ModelConfig
@@ -57,7 +58,7 @@ def prefill_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     quantized model: the student trains on ``_sdpa`` (with a gradient), so
     its no-gradient forwards (evaluate) stay on the route it was trained
     on."""
-    return (bool(use_kernels) and q.is_cuda
+    return (bool(use_kernels) and on_card(q)
             and not (q.requires_grad or k.requires_grad or v.requires_grad))
 
 

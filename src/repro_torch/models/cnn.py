@@ -24,6 +24,7 @@ from ..core.mmse import apq_scales, ppq_scale
 from ..core.plan import PLAN_KEY, plan_to_array
 from ..core.qconfig import QuantConfig
 from ..device import resolve_device
+from ..kernels._library import on_card
 from ..kernels.fake_quant import fake_quant_kernel
 from .layers import tap
 from .transformer import _ShapeOnly
@@ -120,7 +121,7 @@ def qconv(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
     if cfg is not None:
         s = conv_weight_scale(p, log_sa, log_sa_out)
         w = (conv_fake_quant_kernel(w, s, bits or cfg.w_bits)
-             if use_kernels and w.is_cuda
+             if use_kernels and on_card(w)
              else fake_quant(w, s, bits or cfg.w_bits))
     y = conv2d_same(x, w.to(x.dtype), stride)
     return y + p["b"].to(y.dtype)

@@ -4,6 +4,7 @@
     python -m repro_torch quantize --config qwen3_8b --device cpu --steps 2
     python -m repro_torch plan --config qwen3_8b --w-layout group:128
     python -m repro_torch list-configs
+    python -m repro_torch check [--config qwen3-8b] [--json report.json]
 
 ``quantize`` resolves a model of the port's registry (module or registry
 spelling) and runs the full calibrate → MMSE/APQ init → QFT finetune →
@@ -15,7 +16,11 @@ above 1e-3), 2 (unknown config or bad override).
 ``plan`` prints the resolved QuantPlan — the per-tensor
 bits/layout/stream/packing table every pipeline stage consumes — without
 running anything (shapes come from a meta-device skeleton, so full-size
-entries resolve at once).  ``check`` (the static analyzer) is not ported.
+entries resolve at once).  ``check`` runs the static analyzer
+(``repro_torch.analysis``): the QFT lint rules over ``src/repro_torch`` and
+the trace checks over every registry config (or ``--config``), exit 0
+clean, 1 on an error diagnostic, 2 on a usage error; ``--json`` writes the
+report.
 """
 from __future__ import annotations
 
@@ -95,8 +100,30 @@ def build_parser() -> argparse.ArgumentParser:
     _add_plan_knobs(p)
 
     sub.add_parser("list-configs", help="print every registry entry")
-    sub.add_parser("check", help="static invariant analyzer (not ported: "
-                                 "it waits for the port's analysis/)")
+
+    c = sub.add_parser(
+        "check", help="static invariant analyzer + QFT lint "
+                      "(repro_torch.analysis)")
+    c.add_argument("--config", action="append", default=[],
+                   help="registry entry to trace-check; repeatable "
+                        "(default with --all-configs: every entry)")
+    c.add_argument("--all-configs", action="store_true",
+                   help="trace-check every registry config")
+    c.add_argument("--lint-only", action="store_true",
+                   help="skip the graph layer (fast, no tracing)")
+    c.add_argument("--trace-only", action="store_true",
+                   help="skip the AST lint layer")
+    c.add_argument("--paths", nargs="*", default=None,
+                   help="files/dirs to lint, repo-root-relative "
+                        "(default: src/repro_torch)")
+    c.add_argument("--prefill-budget", type=int, default=None,
+                   help="fail if a config's prefill recompile surface "
+                        "exceeds this many distinct programs")
+    c.add_argument("--json", default=None, metavar="PATH",
+                   help="write the machine-readable report "
+                        "(benchmarks/check_results.py --analysis)")
+    c.add_argument("-v", "--verbose", action="store_true",
+                   help="print info/skip diagnostics, not just problems")
     return ap
 
 
@@ -224,11 +251,28 @@ def cmd_list_configs() -> int:
     return 0
 
 
-def cmd_check() -> int:
-    print("check: the static analyzer is not ported yet (it waits for "
-          "repro_torch's analysis/); run `python -m repro check` on the "
-          "JAX package", file=sys.stderr)
-    return 2
+def cmd_check(args: argparse.Namespace) -> int:
+    from ..analysis import run_check
+    if args.lint_only and args.trace_only:
+        print("check: --lint-only and --trace-only are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    configs = None
+    if not args.all_configs and args.config:
+        try:
+            configs = [_canon_arch(c) for c in args.config]
+        except KeyError as e:
+            print(f"check: unknown config {e.args[0]!r}", file=sys.stderr)
+            return 2
+    report = run_check(configs=configs,
+                       lint_paths_arg=args.paths,
+                       trace=not args.lint_only,
+                       lint=not args.trace_only,
+                       prefill_budget=args.prefill_budget)
+    if args.json:
+        report.write_json(args.json)
+    print(report.format(verbose=args.verbose))
+    return 0 if report.ok() else 1
 
 
 def _canon_arch(name: str) -> str:
@@ -250,7 +294,7 @@ def main(argv=None) -> int:
     if args.command == "list-configs":
         return cmd_list_configs()
     if args.command == "check":
-        return cmd_check()
+        return cmd_check(args)
     return 2
 
 

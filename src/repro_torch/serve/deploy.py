@@ -364,6 +364,26 @@ def effective_view(params: Params, plan_or_qcfg,
     return out
 
 
+def abstract_deploy_surfaces(cfg, qcfg: QuantConfig,
+                             use_kernels: bool = True):
+    """The whole init → export → deploy_view chain on the meta device
+    (shapes only, nothing allocated; any size) for the static analyzer.
+
+    Returns ``(plan, exported, deployed)``: ``plan`` is the DeployPlan
+    with a QuantPlan resolved over the shape-only init tree, the same
+    resolution the Engine's constructor makes over real parameters.
+    """
+    from ..models import init_model
+    params = init_model(0, cfg, qcfg, device="meta")
+    plan = make_deploy_plan(qcfg, arch=getattr(cfg, "name", ""),
+                            family=cfg.family, use_kernels=use_kernels,
+                            params=params, model_cfg=cfg)
+    with torch.no_grad():
+        exported = export_for_layers(params, plan, device="meta")
+        deployed = deploy_view(exported, plan)
+    return plan, exported, deployed
+
+
 def find_exported_linears(tree, prefix: tuple = ()) -> list[tuple]:
     """Paths of every exported linear ({q, s_wr} with a matmul-shaped q)."""
     out: list[tuple] = []

@@ -107,6 +107,31 @@ def _tree_bytes(tree) -> int:
     return 0
 
 
+def serve_trace_surfaces(cfg: ModelConfig, plan: DeployPlan | None = None,
+                         scfg: ServeConfig | None = None) -> dict:
+    """Shape-only serving surfaces for the static analyzer
+    (``repro_torch.analysis``): the step functions the Engine runs
+    (``make_slot_decode_step`` under the plan's ``use_kernels``, the
+    exact-length and the bucketed prefill step) and meta-device stand-ins
+    for their inputs (the slot cache in the layout the Engine would choose
+    and the decode state), built by the same initialisers, so a trace can
+    check one-transfer and kernel routing for any registry config without
+    an Engine, an allocation or a card."""
+    scfg = scfg if scfg is not None else ServeConfig()
+    use_kernels = bool(plan.use_kernels) if plan is not None else False
+    S = scfg.max_slots
+    qcfg = plan.qcfg if plan is not None else None
+    kv = resolve_kv_spec(cfg, scfg, getattr(qcfg, "kv_bits", 8))
+    return {"decode_fn": make_slot_decode_step(cfg, None,
+                                               use_kernels=use_kernels),
+            "prefill_fn": make_prefill_step(cfg, None),
+            "prefill_bucketed_fn": make_bucketed_prefill_step(cfg, None),
+            "cache": init_slot_cache(cfg, S, scfg.max_len, kv=kv,
+                                     device="meta"),
+            "state": init_slot_state(S, device="meta"),
+            "scfg": scfg, "kv": kv}
+
+
 def _attn_layer_count(cfg: ModelConfig) -> int:
     """Attention invocations per slot-decode step, the denominator of the
     route counters in :meth:`Engine.stats`: one shared-attention call per
@@ -580,10 +605,12 @@ class Engine:
             self.cache, self.state, emitted, emit = self._decode(
                 self.params, self.cache, self.state)
             self.decode_steps += 1
-            host = torch.stack([emitted.to(torch.int64),
-                                emit.to(torch.int64),
-                                self.state["done"].to(torch.int64)]).cpu()
-            toks_h, emit_h, done_h = host.tolist()   # the step's ONE sync
+            # the step's ONE device→host transfer (the budget QFT003
+            # audits), then its list on the host
+            host = torch.stack([  # qft: noqa[QFT003]
+                emitted.to(torch.int64), emit.to(torch.int64),
+                self.state["done"].to(torch.int64)]).cpu()
+            toks_h, emit_h, done_h = host.tolist()  # qft: noqa[QFT003]
             for slot in sorted(self._alive):
                 rid = self.sched.running[slot]
                 if emit_h[slot]:

@@ -122,7 +122,8 @@ class _ScaleGrad(torch.autograd.Function):
 
 
 def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
-                dp_axes=("data",), tp_axis: str = "model", plan=None):
+                dp_axes=("data",), tp_axis: str = "model", plan=None,
+                use_kernels: bool = True):
     """Returns ``moe_fn(x [B, S, d], layer_params) -> y [B, S, d]`` (or
     None); register it with ``models.transformer.set_runtime(moe_fn=)`` to
     replace the routed-experts path.
@@ -132,8 +133,8 @@ def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
     ``plan``: the resolved QuantPlan — the expert and router bits are
     looked up at ``layers.mlp``, as the in-graph path does.  A layer whose
     experts carry no quant DoF (the FP teacher) runs with ``qcfg`` None.
-    The experts' fake-quant takes the kernel route (``fake_quant`` for
-    CUDA tensors, its plain version on the CPU).
+    ``use_kernels``: the experts' fake-quant takes the kernel route
+    (``fake_quant`` for CUDA tensors, its plain version on the CPU).
     """
     pv = plan_view(plan).child("layers", "mlp")
     e = cfg.moe
@@ -166,13 +167,13 @@ def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
         def expert_fn(buf):
             h = _Exchange.apply(buf, group, tp, True) if tp > 1 else buf
             y = moe_lib._expert_ffn(h, shard, cfg, q, plan=pv,
-                                    use_kernels=True)
+                                    use_kernels=use_kernels)
             return _Exchange.apply(y, group, tp, False) if tp > 1 else y
 
         Bl, Sl, _ = x.shape
         y = moe_lib.moe_sorted(x.reshape(Bl * Sl, d), ep, cfg, q,
                                expert_fn=expert_fn, plan=pv,
-                               use_kernels=True).reshape(Bl, Sl, d)
+                               use_kernels=use_kernels).reshape(Bl, Sl, d)
         return _GatherSeq.apply(y, group, tp, rank) if tp > 1 else y
 
     return moe_fn

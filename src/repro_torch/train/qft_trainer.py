@@ -29,7 +29,7 @@ from ..models import forward, init_model
 from ..models.config import ModelConfig
 from ..models.transformer import unstack
 from ..optim.adam import paper_recipe
-from ..tree import tree_items, tree_map
+from ..tree import tree_from_items, tree_items, tree_map
 from .checkpoint import CheckpointManager
 from .steps import make_train_step
 
@@ -59,9 +59,22 @@ def _device_of(tree) -> torch.device:
 
 def _per_layer(stacked: Params, fn) -> Params:
     """Apply ``fn`` to each layer slice of a stacked tree and stack the
-    results (the JAX package's ``jax.vmap(fn)``)."""
-    outs = [fn(lp) for lp in unstack(stacked)]
-    return tree_map(lambda *leaves: torch.stack(leaves), *outs)
+    results (the JAX package's ``jax.vmap(fn)``).  A leaf ``fn`` returns
+    untouched in every layer (the layer slice itself, e.g. a weight whose
+    scales the init fits) is the stacked input leaf, not a stacked copy:
+    a full-width model's weights are not held twice."""
+    layers = unstack(stacked)
+    outs = [dict(tree_items(fn(lp))) for lp in layers]
+    ins = [dict(tree_items(lp)) for lp in layers]
+    whole = dict(tree_items(stacked))
+
+    def leaf(path):
+        if path in whole and all(o[path] is i.get(path)
+                                 for o, i in zip(outs, ins)):
+            return whole[path]
+        return torch.stack([o[path] for o in outs])
+
+    return tree_from_items((path, leaf(path)) for path in outs[0])
 
 
 def _init_scales_tree(tree: Params, qcfg: QuantConfig,

@@ -2,7 +2,8 @@
 
 train_step = teacher forward (FP, no grad) + student forward (fake-quant,
              offline subgraph inside) + backbone-L2 distillation + Adam.
-prefill / slot decode = the deployed inference graph (serve/).
+prefill / decode / slot decode = the deployed inference graph (serve/,
+             and the dry-run's inference cells).
 """
 from __future__ import annotations
 
@@ -13,10 +14,19 @@ import torch
 from ..core.distill import qft_loss
 from ..core.qconfig import QuantConfig
 from ..core.sampling import sample_tokens
-from ..models import forward
+from ..models import forward, init_model
 from ..models.config import ModelConfig
 from ..optim.adam import Adam
 from ..tree import tree_from_items, tree_items
+
+
+def abstract_train_state(cfg: ModelConfig, qcfg: QuantConfig | None,
+                         opt: Adam):
+    """Shape-only ``(student, opt_state)`` on the meta device: what the
+    static analyzer traces ``make_train_step`` against.  The teacher tree
+    shares the student's shapes.  Nothing is allocated."""
+    student = init_model(0, cfg, qcfg, device="meta")
+    return student, opt.init(student)
 
 
 def make_value_and_grad(cfg: ModelConfig, qcfg: QuantConfig | None,
@@ -138,6 +148,18 @@ def make_prefill_step(cfg: ModelConfig, qcfg: QuantConfig | None, plan=None):
         return out["logits"][:, -1], out["cache"]
 
     return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, qcfg: QuantConfig | None, plan=None):
+    """decode_step(params, cache, batch{tokens: [B, 1]}) -> (logits, cache):
+    one greedy token over a monolithic cache (the dry-run's decode cells;
+    the engine decodes through :func:`make_slot_decode_step`)."""
+
+    def decode_step(params, cache, batch):
+        out = forward(params, cfg, qcfg, batch, cache=cache, plan=plan)
+        return out["logits"][:, -1], out["cache"]
+
+    return decode_step
 
 
 def make_bucketed_prefill_step(cfg: ModelConfig, qcfg: QuantConfig | None,

@@ -19,12 +19,14 @@ from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_prefill, flash_attention)
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
-from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    quant_matmul, quant_matmul_int8)
 from repro_torch.kernels.ref import (attention_prefill_ref,  # noqa: E402
                                      decode_attention_paged_ref,
                                      decode_attention_ref,
                                      fake_quant_grad_ref, fake_quant_ref,
-                                     flash_attention_ref, quant_matmul_ref)
+                                     flash_attention_ref,
+                                     quant_matmul_int8_ref, quant_matmul_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -252,6 +254,53 @@ def test_quant_matmul_dequant_kernel(cuda, layout, M):
             before[0], before[1] + 1)
         torch.testing.assert_close(y.float(), quant_matmul_ref(*args).float(),
                                    rtol=tol, atol=tol)
+
+
+#: the int8 (exempt) leaves the plan keeps at 8 bits, as [K, N]:
+#: deepseek-v2-236b's MLA k_up, kv_down and q_down, the paper CNN's fc, a
+#: router (qwen2-moe-a2.7b: N 60) and ragged edges
+_INT8_SHAPES = {"k_up": (512, 16384), "kv_down": (5120, 576),
+                "q_down": (5120, 1536), "cnn_fc": (64, 10),
+                "router": (2048, 60), "ragged": (200, 70)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 33])
+@pytest.mark.parametrize("layout", ["channel", "group"])
+@pytest.mark.parametrize("name", sorted(_INT8_SHAPES))
+def test_quant_matmul_int8_kernel(cuda, name, layout, M, dtype):
+    """K1's int8 entry against its plain version at the int8 leaves'
+    shapes, channel and grouped (group 128 where it divides K, else 8):
+    f32 within 1e-5 of max|ref|, bf16 within one bf16 rounding (2^-7 of
+    max|ref|); two launches bit-identical; counted on launches_int8 only."""
+    K, N = _INT8_SHAPES[name]
+    group = 128 if K % 128 == 0 else 8
+    rng = np.random.default_rng(K + N + M)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        dt).to(cuda)
+    q = torch.from_numpy(rng.integers(-128, 128, size=(K, N)).astype(
+        np.int8)).to(cuda)
+    s_wl = torch.from_numpy(np.exp(rng.normal(size=K) * 0.2).astype(
+        np.float32) * 0.05).to(cuda)
+    shape = (N,) if layout == "channel" else (K // group, N)
+    s_wr = torch.from_numpy(np.exp(rng.normal(size=shape) * 0.2).astype(
+        np.float32) * 0.01).to(cuda)
+    counts = (quant_matmul.launches, quant_matmul.launches_dequant,
+              quant_matmul.launches_int8, quant_matmul.launches_fma)
+    y = quant_matmul_int8(x, q, s_wl, s_wr)
+    again = quant_matmul_int8(x, q, s_wl, s_wr)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches, quant_matmul.launches_dequant,
+            quant_matmul.launches_int8, quant_matmul.launches_fma) == (
+        counts[0], counts[1], counts[2] + 2, counts[3])
+    assert y.dtype == dt and y.shape == (M, N)
+    assert torch.equal(y, again)
+    ref = quant_matmul_int8_ref(x, q, s_wl, s_wr).float()
+    err = (y.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= (1e-5 if dtype == "float32" else 2 ** -7) * scale, (
+        err, scale)
 
 
 def _qmm_args(M, K, N, group, seed, dt, device):

@@ -276,6 +276,30 @@ def test_quant_matmul_plan_fills_the_card(case):
     assert p.staged_x == (p.body == "mma_wide")
 
 
+@pytest.mark.parametrize("M", [1, 4, 8, 33])
+@pytest.mark.parametrize("K,N", [(512, 16384), (5120, 576), (5120, 1536),
+                                 (64, 10), (2048, 60), (200, 70), (16, 8),
+                                 (102400, 64)])
+def test_quant_matmul_int8_plan_covers_k_once(M, K, N):
+    """K1's int8 entry (deepseek-v2's k_up/kv_down/q_down, the CNN fc, a
+    router, ragged and tiny shapes, a K past 64 splits of 1024 rows): the
+    fma body's 8 x 64 tiles, splits of whole 64-row chunks within the
+    1024-row cap that cover K once, the fewest that reach two blocks an SM
+    where the splits allow it."""
+    p = t_qmm.plan_int8(M, N, K)
+    assert (p.body, p.block_m, p.block_n, p.staged_x) == ("fma", 8, 64,
+                                                         False)
+    assert p.ksplit % 64 == 0 and p.ksplit <= 1024
+    assert (p.splits - 1) * p.ksplit < K <= p.splits * p.ksplit
+    assert p.tiles == -(-M // 8) * -(-N // 64)
+    assert p.workspace == ((p.splits, M, N) if p.splits > 1 else None)
+    if p.blocks < 2 * t_qmm.SMS:          # the split count could not grow
+        assert p.ksplit == 64 or p.splits >= t_qmm.MAX_SPLITS
+    elif p.splits > 1:                    # one split fewer would not do
+        fewer = -(-(-(-K // (p.splits - 1))) // 64) * 64
+        assert fewer > 1024 or p.tiles * -(-K // fewer) < 2 * t_qmm.SMS
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 64, 130])
 @pytest.mark.parametrize("K,N,group", [

@@ -350,8 +350,8 @@ def test_cli_quantize_cpu_and_exit_codes(capsys):
     assert "unknown config" in err and "qwen3-8b" in err
     assert cli_main(["quantize", "--config", "qwen3_8b", "--bits-override",
                      "nope"]) == 2
-    assert cli_main(["check"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert cli_main(["check", "--config", "nonexistent_model"]) == 2
+    assert "unknown config" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("extra", [[], ["--full"],
