@@ -809,15 +809,24 @@ def check_quant_matmul_int8(ds_cfg, cnn_cfg) -> dict:
     """K1's int8 entry (the unpacked int8 weights the plan keeps at 8 bits)
     against its plain version at deepseek-v2-236b's MLA k_up, kv_down and
     q_down and the paper CNN's fc, M 4 and 8, f32 (the route check's type)
-    and bf16, the channel layout the plan gives them: the error (f32 1e-5,
-    bf16 2^-7 of max|ref|), two launches' bits, the event and profiler
-    device time, the plain version, the deploy view's bf16 torch.matmul at
-    the same shape (the yardstick) and the bound: the int8 weight read,
-    x, the scales and y once, 2 M K N operations on CUDA cores (x widened
-    to f32).  Returns the record of the CNN fc's route-check shape (f32,
-    M 4)."""
+    and bf16, the channel layout the plan gives them; then, through
+    ``qlinear_deployed``, two int4 shapes the int4 entry does not tile
+    (SMOKE width's wk, N 32; a router's N 60), whose packed nibbles the
+    entry reads in place (each call must add one launch of the int8 entry
+    and none of the int4 one).  Each row: the error (f32 1e-5, bf16 2^-7
+    of max|ref|), two launches' bits, the event and profiler device time,
+    the plain version, the deploy view's bf16 torch.matmul at the same
+    shape (the yardstick) and the bound: the weight read, x, the scales
+    and y once, 2 M K N operations at the peak of the body's operands
+    (``plan_int8``: the ``mma`` body's bf16 tensor cores for bf16 x on a
+    tiled shape, else f32 CUDA cores).  Returns the record of the CNN
+    fc's route-check shape (f32, M 4), with q_down's bf16 M 8 (the
+    ``mma`` body) under ``mma`` and SMOKE wk's f32 M 4 under ``packed``."""
     import torch
-    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_int8
+    from repro_torch.core.fakequant import pack_int4
+    from repro_torch.kernels.ops import qlinear_deployed
+    from repro_torch.kernels.quant_matmul import (plan_int8, quant_matmul,
+                                                  quant_matmul_int8)
     from repro_torch.kernels.ref import quant_matmul_int8_ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(28)
@@ -826,49 +835,68 @@ def check_quant_matmul_int8(ds_cfg, cnn_cfg) -> dict:
     shapes = {"k_up": (m.kv_lora, H * m.d_nope),
               "kv_down": (ds_cfg.d_model, m.kv_lora + m.d_rope),
               "q_down": (ds_cfg.d_model, m.q_lora),
-              "cnn_fc": (cnn_cfg.channels[-1], cnn_cfg.n_classes)}
-    names = ("qmm_i8",)
-    record = {}
+              "cnn_fc": (cnn_cfg.channels[-1], cnn_cfg.n_classes),
+              "smoke_wk_int4": (64, 32), "router_int4": (2048, 60)}
+    names = ("qmm_i8", "qmm_mma")
+    records = {}
     before = quant_matmul.launches_int8
     for name, (K, N) in shapes.items():
-        q = torch.randint(-128, 128, (K, N), generator=g, device=dev,
-                          dtype=torch.int8)
+        packed = name.endswith("_int4")
+        q = torch.randint(-8 if packed else -128, 8 if packed else 128,
+                          (K, N), generator=g, device=dev, dtype=torch.int8)
         s_wl = torch.rand((K,), generator=g, device=dev) + 0.5
         s_wr = (torch.rand((N,), generator=g, device=dev) + 0.5) * 0.01
+        if packed:
+            ex = {"q": pack_int4(q, axis=0), "s_wl": s_wl, "s_wr": s_wr}
+            call = lambda x, ex=ex: qlinear_deployed(x, ex)  # noqa: E731
+        else:
+            call = lambda x, q=q, s_wl=s_wl, s_wr=s_wr: (  # noqa: E731
+                quant_matmul_int8(x, q, s_wl, s_wr))
         for M in (4, 8):
             for dt in (torch.float32, torch.bfloat16):
                 x = torch.randn((M, K), generator=g, device=dev).to(dt)
-                args = (x, q, s_wl, s_wr)
-                y = quant_matmul_int8(*args)
-                again = quant_matmul_int8(*args)
+                body = plan_int8(M, N, K, None, dt, packed).body
+                n0 = (quant_matmul.launches, quant_matmul.launches_int8)
+                y = call(x)
+                again = call(x)
                 torch.cuda.synchronize()
-                ref = quant_matmul_int8_ref(*args).float()
+                kind = str(dt).split(".")[-1]
+                tag = f"quant_matmul int8 {name} M={M} {kind}"
+                if (quant_matmul.launches, quant_matmul.launches_int8) != (
+                        n0[0], n0[1] + 2):
+                    fail(f"{tag}: two calls launched the int4 entry "
+                         f"{quant_matmul.launches - n0[0]} and the int8 "
+                         f"entry {quant_matmul.launches_int8 - n0[1]} "
+                         f"times, want 0 and 2")
+                ref = quant_matmul_int8_ref(x, q, s_wl, s_wr).float()
                 scale = float(ref.abs().max())
                 err = float((y.float() - ref).abs().max())
                 tol = (1e-5 if dt == torch.float32 else 2 ** -7) * scale
-                kind = str(dt).split(".")[-1]
                 if not math.isfinite(err) or err > tol:
-                    fail(f"quant_matmul int8 {name} M={M} {kind}: "
-                         f"max_abs_err {err} > {tol}")
+                    fail(f"{tag}: max_abs_err {err} > {tol}")
                 if not torch.equal(y, again):
-                    fail(f"quant_matmul int8 {name} M={M} {kind}: two "
-                         f"launches differ")
-                run = lambda a=args: quant_matmul_int8(*a)     # noqa: E731
+                    fail(f"{tag}: two launches differ")
+                run = lambda x=x: call(x)                     # noqa: E731
                 ms = time_ms(run)
                 dev_ms = device_ms(run, names)
-                plain_ms = time_ms(lambda a=args: quant_matmul_int8_ref(*a),
-                                   iters=10)
+                plain_ms = time_ms(
+                    lambda x=x: quant_matmul_int8_ref(x, q, s_wl, s_wr),
+                    iters=10)
                 w = (q.float() * s_wl[:, None] * s_wr[None, :]).to(
                     torch.bfloat16)
                 xb = x.to(torch.bfloat16)
                 gemm = lambda xb=xb, w=w: torch.matmul(xb, w)  # noqa: E731
                 lib_ms = time_ms(gemm)
                 lib_dev = device_ms(gemm, ("",))
-                nbytes = (x.numel() * x.element_size() + K * N + 4 * K
+                nbytes = (x.numel() * x.element_size()
+                          + (K * N // 2 if packed else K * N) + 4 * K
                           + 4 * N + M * N * x.element_size())
-                b_ms, b_by = bound(nbytes, 2.0 * M * K * N, "f32")
+                b_ms, b_by = bound(nbytes, 2.0 * M * K * N,
+                                   "bf16" if body == "mma" else "f32")
                 say(f"[kernel] quant_matmul int8 {name} M={M} K={K} N={N} "
-                    f"channel {kind} max_abs_err={err:.3e} (tol {tol:.3e}) "
+                    f"channel {kind} body={body}"
+                    + (" packed, via qlinear_deployed" if packed else "")
+                    + f" max_abs_err={err:.3e} (tol {tol:.3e}) "
                     f"bits=identical ms={ms:.4f} device_ms="
                     f"{'null' if dev_ms is None else f'{dev_ms:.4f}'} "
                     f"plain_ms={plain_ms:.4f} bf16_matmul_ms={lib_ms:.4f} "
@@ -877,16 +905,20 @@ def check_quant_matmul_int8(ds_cfg, cnn_cfg) -> dict:
                     f"bound_ms={b_ms:.4f} ({b_by})"
                     + ("" if dev_ms is None else
                        f" device/bound={dev_ms / b_ms:.1f}x"))
-                if name == "cnn_fc" and M == 4 and dt == torch.float32:
-                    record = {"max_abs_err": err, "ms": ms,
-                              "device_ms": dev_ms, "plain_ms": plain_ms,
-                              "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": lib_ms, "body": "fma"}
+                records[(name, M, kind)] = {
+                    "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "library_device_ms": lib_dev,
+                    "body": body}
                 del w
     say(f"[kernel] quant_matmul int8 entry launched "
         f"{quant_matmul.launches_int8 - before} times in phase 3; the int4 "
-        f"counters untouched")
-    return record
+        f"entry's counts untouched")
+    return {**records[("cnn_fc", 4, "float32")],
+            "mma": {"shape": "q_down M 8 bf16",
+                    **records[("q_down", 8, "bfloat16")]},
+            "packed": {"shape": "smoke_wk_int4 M 4 f32",
+                       **records[("smoke_wk_int4", 4, "float32")]}}
 
 
 def op_dispatch_overhead(kv) -> dict:

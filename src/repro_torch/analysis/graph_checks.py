@@ -33,7 +33,10 @@ int8dot          On the serve path the integer weight is the product's
                  through ``kernels.ops.qlinear_deployed`` (the int4 kernel
                  and K1's int8 entry are nodes with integer operands).  An
                  int4 shape the kernel does not tile takes the plain
-                 version, reported as a skip, never silently passed.
+                 version, reported as a skip, never silently passed.  The
+                 plain route of an int8 leaf (``use_kernels`` False, and
+                 CPU tensors) widens the weight to f32 and is not held
+                 here: see check_int8dot.
 prefill-recompile  Attention families pad prompt chunks to a fixed menu
                  (serve/kv_cache.prefill_buckets): the program surface is
                  ``len(menu)``; SSM families keep exact-length chunks and
@@ -551,7 +554,7 @@ def pallas_tiles_ok(M: int, N: int, K: int,
     """The JAX package's routing predicate for its int4 Pallas kernel
     (blocks 128 x 128 x 256, each clamped to its dim, whole groups a
     K-block).  The port's kernel route takes every shape (the int4 kernel
-    where it tiles, K1's int8 entry on the unpacked nibbles elsewhere); the
+    where it tiles, K1's int8 entry on the packed nibbles elsewhere); the
     int8dot check skips what the JAX package skips, so that the two
     reports hold the same checks."""
     bm, bn, bk = min(128, M), min(128, N), min(256, K)
@@ -583,7 +586,16 @@ def _linear_signatures(exported) -> dict[tuple, tuple]:
 
 def check_int8dot(arch: str, exported, plan) -> list[Diagnostic]:
     """Trace qlinear_deployed per distinct weight signature and prove no
-    float weight materialisation feeds a product."""
+    float weight materialisation feeds a product.
+
+    Each leaf is traced on the plan's route.  With ``plan.use_kernels`` an
+    int8 leaf is K1's int8 entry, one node with the integer operand, and
+    the info message describes that route.  The port's plain route for an
+    int8 leaf (``ref.quant_matmul_int8_ref``: the CPU, or ``use_kernels``
+    False on the card) still widens the weight to f32, so
+    ``analyze_config(arch, use_kernels=False)`` reports an error on each
+    int8 leaf where the JAX package, whose one int8 route is the integer
+    ``dot_general``, reports info."""
     diags = []
     checked = 0
     for (packed, k_st, n, n_groups), path in \

@@ -90,13 +90,27 @@
 // the linears the plan keeps at 8 bits (q [K, N] int8; the reference's
 // qlinear_deployed feeds them to dot_general as the integer operand):
 //     y = sum_g s_wr[g] * ((x * s_wl)[:, g] @ q[g]).
-// It runs the fma body's split-K pipeline for both x types, with a byte
-// load where the packed bodies unpack nibbles: 64-row stages of 64 int8
-// columns (4 KB, 4 stages), x * s_wl in f32 in shared memory (bf16 x is
-// widened there), one column a thread, the group partial scaled by s_wr
-// where a row opens a new group, the same ordered split combine.  Any
-// shape is taken: columns past N and rows past K are masked (the paper
-// CNN's fc is N 10, a router N 60).
+// Two bodies, chosen by the wrapper's plan_int8:
+// - `mma` (bf16 x, M <= 16, a shape the packed bodies tile): the `mma`
+//   body above with the int8 weight as the A operand.  The loader copies
+//   64 rows x 64 columns a stage (4 KB, 8 stages, the same swizzle); a
+//   fragment register takes two bytes of one column from two rows and
+//   widens them to bf16 exactly (i8pair4).  The two rows of a register
+//   are 4 apart (rows tq and tq + 4 of the k16 step), so the 4 rows a
+//   load instruction reads fall in distinct banks; the staged x * s_wl is
+//   permuted the same way within each 8 rows (scale_split8<true>), so the
+//   product is the same sum over K.  The same split plan, group flush and
+//   ordered split combine as the int4 entry.
+// - `fma` (f32 x, and every other shape): the fma body's split-K pipeline
+//   with a byte load where the packed bodies unpack nibbles: 64-row stages
+//   of 64 int8 columns (4 KB, 4 stages), x * s_wl in f32 in shared memory
+//   (bf16 x is widened there), one column a thread, the group partial
+//   scaled by s_wr where a row opens a new group, the same ordered split
+//   combine.  Any shape is taken: columns past N and rows past K are
+//   masked (the paper CNN's fc is N 10, a router N 60).  It also takes the
+//   int4 entry's nibble-packed weight (`packed`), for the int4 shapes the
+//   packed bodies do not tile: a stage holds 32 packed rows and a row's
+//   value is the low or high nibble of its byte, read in place.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -202,6 +216,26 @@ __device__ __forceinline__ void unpack4(uint32_t w, uint32_t (&r)[4]) {
   }
 }
 
+// Two int8 words (4 columns at rows r0 and r1) -> 4 bf16x2 registers;
+// register j holds column j's (row r0, row r1) as (low half, high half).
+// Offset binary q + 128 in the low byte of the f32 2^23 is 2^23 + q + 128;
+// subtracting 2^23 + 128 leaves q, exact, and its upper 16 bits are its
+// bf16 (|q| <= 128 needs 8 significant bits).
+__device__ __forceinline__ void i8pair4(uint32_t w0, uint32_t w1,
+                                        uint32_t (&r)[4]) {
+  const uint32_t u0 = w0 ^ 0x80808080u, u1 = w1 ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float a =
+        __uint_as_float(__byte_perm(u0, 0x4b000000u, 0x7650u + j)) -
+        8388736.f;
+    const float b =
+        __uint_as_float(__byte_perm(u1, 0x4b000000u, 0x7650u + j)) -
+        8388736.f;
+    r[j] = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632u);
+  }
+}
+
 // Two f32 values as a bf16x2 pair hi + lo: hi = bf16(v), lo = bf16(v - hi)
 // (the difference is exact), so hi + lo carries v to 2^-16 and two exact
 // bf16 products with f32 accumulation stand in for one f32 product.
@@ -255,6 +289,28 @@ __device__ __forceinline__ void a_frags(uint2 wa, uint2 wb, float2 la,
   }
 }
 
+// a_frags for the int8 weight: rows r0 .. r3 are the k16 step's rows tq,
+// tq + 4, tq + 8 and tq + 12 (8 bytes, columns nw .. nw + 7).  K-slots
+// (2tq, 2tq + 1) of the mma take rows (tq, tq + 4), slots (2tq + 8,
+// 2tq + 9) rows (tq + 8, tq + 12); the columns as in a_frags.
+__device__ __forceinline__ void a_frags_i8(uint2 r0, uint2 r1, uint2 r2,
+                                           uint2 r3, uint32_t (&A)[4][4]) {
+  uint32_t ra[4], rb[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    i8pair4(i ? r0.y : r0.x, i ? r1.y : r1.x, ra);
+    i8pair4(i ? r2.y : r2.x, i ? r3.y : r3.x, rb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t(&a)[4] = A[2 * i + h];
+      a[0] = ra[2 * h];
+      a[1] = ra[2 * h + 1];
+      a[2] = rb[2 * h];
+      a[3] = rb[2 * h + 1];
+    }
+  }
+}
+
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 u = reinterpret_cast<const float4*>(p)[0];
   const float4 w = reinterpret_cast<const float4*>(p)[1];
@@ -263,14 +319,22 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 }
 
 // 8 bf16 of x (one uint4) times s_wl[k .. k+7] in f32, as hi and lo parts.
+// kPerm (the int8 weight's K-slot order): word t holds rows (t, t + 4).
+template <bool kPerm>
 __device__ __forceinline__ void scale_split8(uint4 raw, const float* wl,
                                              uint4& hi, uint4& lo) {
   float s[8];
   load8(wl, s);
-  split2(bf16_lo(raw.x) * s[0], bf16_hi(raw.x) * s[1], hi.x, lo.x);
-  split2(bf16_lo(raw.y) * s[2], bf16_hi(raw.y) * s[3], hi.y, lo.y);
-  split2(bf16_lo(raw.z) * s[4], bf16_hi(raw.z) * s[5], hi.z, lo.z);
-  split2(bf16_lo(raw.w) * s[6], bf16_hi(raw.w) * s[7], hi.w, lo.w);
+  const float v[8] = {bf16_lo(raw.x) * s[0], bf16_hi(raw.x) * s[1],
+                      bf16_lo(raw.y) * s[2], bf16_hi(raw.y) * s[3],
+                      bf16_lo(raw.z) * s[4], bf16_hi(raw.z) * s[5],
+                      bf16_lo(raw.w) * s[6], bf16_hi(raw.w) * s[7]};
+  const int d = kPerm ? 4 : 1;
+  const int t = kPerm ? 1 : 2;
+  split2(v[0], v[d], hi.x, lo.x);
+  split2(v[t], v[t + d], hi.y, lo.y);
+  split2(v[2 * t], v[2 * t + d], hi.z, lo.z);
+  split2(v[3 * t], v[3 * t + d], hi.w, lo.w);
 }
 
 __device__ __forceinline__ float nibble(uint32_t b) {
@@ -315,23 +379,30 @@ __device__ __forceinline__ int stage_off(int p, int n) {
   return p * kBN + ((((n >> 3) ^ (((p >> 1) & 1) << 2))) << 3) + (n & 7);
 }
 
-// One thread's share of each 64-K-row chunk of the packed weight (32 rows
-// x 64 columns, 128 threads, one 16-byte copy each), addressed once; chunk
-// c goes to ring stage c mod kStages.
+// One thread's share of each 64-K-row chunk of the weight, addressed
+// once: packed, 32 rows x 64 columns, one 16-byte copy each of 128
+// threads; int8 (kI8), 64 rows, two copies (rows p and p + 32, the same
+// swizzle).  Chunk c goes to ring stage c mod kStages.
+template <bool kI8>
 struct W64Copy {
+  static constexpr int kRows = kI8 ? kChunk : kPairs;
+  static constexpr int kBytes = kRows * kBN;      // a stage
   const uint8_t* src;
   uint32_t dst;
-  size_t step;
-  __device__ W64Copy(const uint8_t* qw, int N, int pair0, int n0,
+  size_t step, second;
+  __device__ W64Copy(const uint8_t* qw, int N, int row0, int n0,
                      uint32_t ring) {
     const int p = threadIdx.x >> 2;
     const int j = threadIdx.x & 3;
-    src = qw + static_cast<size_t>(pair0 + p) * N + n0 + 16 * j;
+    src = qw + static_cast<size_t>(row0 + p) * N + n0 + 16 * j;
     dst = ring + stage_off(p, 16 * j);
-    step = static_cast<size_t>(kPairs) * N;
+    step = static_cast<size_t>(kRows) * N;
+    second = static_cast<size_t>(32) * N;
   }
   __device__ void issue(int c) const {
-    cp_async16(dst + (c % kStages) * kStageBytes, src + c * step);
+    const uint32_t d = dst + (c % kStages) * kBytes;
+    cp_async16(d, src + c * step);
+    if (kI8) cp_async16(d + 32 * kBN, src + c * step + second);
   }
 };
 
@@ -464,7 +535,8 @@ __device__ __forceinline__ Split block_split(int m_tiles, int bm, int bn,
 // Body `mma`: bf16, M <= 16, split-K, W as the A operand
 // ---------------------------------------------------------------------------
 
-template <int MT, bool kDequant, bool kTwoAcc>
+// kI8: the int8 entry's weight, q [K, N] int8 (see the header).
+template <int MT, bool kDequant, bool kTwoAcc, bool kI8 = false>
 __global__ void __launch_bounds__(128) qmm_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
     const float* __restrict__ s_wl, const float* __restrict__ s_wr,
@@ -473,17 +545,18 @@ __global__ void __launch_bounds__(128) qmm_mma_kernel(
     int m_tiles) {
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int BM = 8 * MT;
+  using Copy = W64Copy<kI8>;
   uint8_t* ring = smem;
   // x of the block's rows and split: raw for dequant; x * s_wl as hi, lo
   __nv_bfloat16* xhi =
-      reinterpret_cast<__nv_bfloat16*>(smem + kStages * kStageBytes);
+      reinterpret_cast<__nv_bfloat16*>(smem + kStages * Copy::kBytes);
   const int xld = ks + 8;       // (ks + 8) / 2 words = 4 mod 32: no conflicts
   __nv_bfloat16* xlo = xhi + BM * xld;
   const Split sp = block_split(m_tiles, BM, kBN, ks, K);
   const int n_chunks = (sp.k_end - sp.k_begin) / kChunk;
-  const int pair0 = sp.k_begin / 2;
+  const int row0 = kI8 ? sp.k_begin : sp.k_begin / 2;
 
-  const W64Copy wcopy(qw, N, pair0, sp.n0, smem_u32(ring));
+  const Copy wcopy(qw, N, row0, sp.n0, smem_u32(ring));
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < n_chunks) wcopy.issue(c);
@@ -500,7 +573,7 @@ __global__ void __launch_bounds__(128) qmm_mma_kernel(
       const uint4 raw = *reinterpret_cast<const uint4*>(
           x + static_cast<size_t>(m) * K + sp.k_begin + k);
       if (kDequant) hi = raw;
-      else scale_split8(raw, s_wl + sp.k_begin + k, hi, lo);
+      else scale_split8<kI8>(raw, s_wl + sp.k_begin + k, hi, lo);
     }
     *reinterpret_cast<uint4*>(xhi + r * xld + k) = hi;
     if (!kDequant) *reinterpret_cast<uint4*>(xlo + r * xld + k) = lo;
@@ -510,8 +583,9 @@ __global__ void __launch_bounds__(128) qmm_mma_kernel(
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  // the fragment's packed rows 8 warp + tq and + 4 (256 bytes on)
-  const int a_off = stage_off(8 * warp + tq, 8 * g);
+  // the fragment's packed rows 8 warp + tq and + 4 (256 bytes on); int8:
+  // rows 16 warp + tq, + 4, + 8, + 12
+  const int a_off = stage_off((kI8 ? 16 : 8) * warp + tq, 8 * g);
   const int nw = sp.n0 + 8 * g;        // this thread's 8 columns
 
   // [token tile][A tile][fragment]: see a_frags for the columns
@@ -543,11 +617,15 @@ __global__ void __launch_bounds__(128) qmm_mma_kernel(
     __syncthreads();
     if (c + kStages - 1 < n_chunks) wcopy.issue(c + kStages - 1);
     cp_commit();
-    const uint8_t* st = ring + (c % kStages) * kStageBytes;
+    const uint8_t* st = ring + (c % kStages) * Copy::kBytes;
     const uint2 wa = *reinterpret_cast<const uint2*>(st + a_off);
     const uint2 wb = *reinterpret_cast<const uint2*>(st + a_off + 256);
     uint32_t A[4][4], L[4][4];
-    a_frags<kDequant>(wa, wb, la, lb, sr, A, L);
+    if (kI8)
+      a_frags_i8(wa, wb, *reinterpret_cast<const uint2*>(st + a_off + 512),
+                 *reinterpret_cast<const uint2*>(st + a_off + 768), A);
+    else
+      a_frags<kDequant>(wa, wb, la, lb, sr, A, L);
 #pragma unroll
     for (int t = 0; t < MT; ++t) {
       const int off = (8 * t + g) * xld + kloc + 2 * tq;
@@ -983,7 +1061,7 @@ __global__ void __launch_bounds__(128) qmm_fma_kernel(
   const int n_chunks = klen / kChunk;
   const int pair0 = sp.k_begin / 2;
 
-  const W64Copy wcopy(qw, N, pair0, sp.n0, smem_u32(ring));
+  const W64Copy<false> wcopy(qw, N, pair0, sp.n0, smem_u32(ring));
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < n_chunks) wcopy.issue(c);
@@ -1094,7 +1172,9 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 // One thread's share of each 64-row chunk of q (rows p and p + 32, 16
 // columns at 16 j; 128 threads): 16-byte cp.async copies where N allows
 // them (zero-filled past N and past the split), byte loads elsewhere.
-// Chunk c goes to stage c mod kI8Stages, row r at byte 64 r.
+// Chunk c goes to stage c mod kI8Stages, row r at byte 64 r.  kPacked:
+// q is nibble-packed [K/2, N], a chunk 32 packed rows (row p only).
+template <bool kPacked>
 struct I8Copy {
   const int8_t* q;
   uint8_t* ring;
@@ -1107,17 +1187,19 @@ struct I8Copy {
         j16(16 * (threadIdx.x & 3)), vec(vec_) {}
   __device__ void issue(int c) const {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < (kPacked ? 1 : 2); ++h) {
       const int r = p + 32 * h;
-      const int k = k_begin + c * kChunk + r;
+      // the stage row's first K-row, and its row of q
+      const int k = k_begin + c * kChunk + (kPacked ? 2 * r : r);
+      const int qrow = kPacked ? k / 2 : k;
       uint8_t* dst = ring + (c % kI8Stages) * kI8StageBytes + r * kBN + j16;
       const bool row_ok = k < k_end;
       if (vec) {
         const bool ok = row_ok && col < N;
-        const int8_t* src = ok ? q + static_cast<size_t>(k) * N + col : q;
+        const int8_t* src = ok ? q + static_cast<size_t>(qrow) * N + col : q;
         cp_async16_zfill(smem_u32(dst), src, ok);
       } else {
-        const int8_t* src = q + static_cast<size_t>(row_ok ? k : 0) * N;
+        const int8_t* src = q + static_cast<size_t>(row_ok ? qrow : 0) * N;
 #pragma unroll
         for (int b = 0; b < 16; ++b)
           dst[b] = row_ok && col + b < N
@@ -1127,7 +1209,9 @@ struct I8Copy {
   }
 };
 
-template <typename XT, bool kTwoAcc>
+// kPacked: q is the int4 entry's nibble-packed [K/2, N] (K even), for the
+// shapes its bodies do not tile; the nibbles are read in place.
+template <typename XT, bool kTwoAcc, bool kPacked>
 __global__ void __launch_bounds__(128) qmm_i8_kernel(
     const XT* __restrict__ x, const int8_t* __restrict__ q,
     const float* __restrict__ s_wl, const float* __restrict__ s_wr,
@@ -1141,7 +1225,8 @@ __global__ void __launch_bounds__(128) qmm_i8_kernel(
   const int klen = sp.k_end - sp.k_begin;
   const int n_chunks = (klen + kChunk - 1) / kChunk;
 
-  const I8Copy wcopy(q, ring, N, sp.k_begin, sp.k_end, sp.n0, vec);
+  const I8Copy<kPacked> wcopy(q, ring, N, sp.k_begin, sp.k_end, sp.n0,
+                              vec);
 #pragma unroll
   for (int c = 0; c < kI8Stages - 1; ++c) {
     if (c < n_chunks) wcopy.issue(c);
@@ -1191,8 +1276,14 @@ __global__ void __launch_bounds__(128) qmm_i8_kernel(
         sr_group = gp.g;
         sr = live ? s_wr[static_cast<size_t>(sr_group) * N + n] : 0.f;
       }
-      const float qv = static_cast<float>(
-          static_cast<int8_t>(st[(32 * half + rr) * kBN + n_loc]));
+      const int sr_row = 32 * half + rr;          // the row in the chunk
+      float qv;
+      if (kPacked) {                              // row 2i low, 2i+1 high
+        const uint32_t b = st[(sr_row >> 1) * kBN + n_loc];
+        qv = nibble(sr_row & 1 ? b >> 4 : b);
+      } else {
+        qv = static_cast<float>(static_cast<int8_t>(st[sr_row * kBN + n_loc]));
+      }
       const float4* xr = reinterpret_cast<const float4*>(xk + kloc * BM);
       const float4 u = xr[0], v = xr[1];
       const float a[BM] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
@@ -1355,13 +1446,84 @@ int launch(bool dequant, const void* x, const void* qw, const void* s_wl,
   return static_cast<int>(rc);
 }
 
-// The int8 entry: any M, N, K >= 1 and a group that divides K; ks: rows per
-// split, a multiple of 64; ws and counters as `launch` above.
+// The int8 entry's mma body: the checks of `launch` for body 1, and a
+// 16-byte aligned q.
+int launch_i8_mma(const void* x, const void* q, const void* s_wl,
+                  const void* s_wr, void* y, int M, int N, int K, int group,
+                  int x_dtype, int ks, void* ws, void* counters,
+                  cudaStream_t st) {
+  constexpr int kRing = kStages * W64Copy<true>::kBytes;
+  if (!shape_ok(M, N, K, group) || ks < kChunk || ks % kChunk ||
+      !nests(ks, group, K) || x_dtype != kBF16 || M > 16 ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      64LL * (ks + 8) + kRing > 200 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = cdiv(K, ks);
+  if (splits > 1 && (ws == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* qb = static_cast<const uint8_t*>(q);
+  const auto* wl = static_cast<const float*>(s_wl);
+  const auto* wr = static_cast<const float*>(s_wr);
+  auto* yb = static_cast<bf16*>(y);
+  auto* w = static_cast<float*>(ws);
+  auto* cnt = static_cast<int*>(counters);
+  const bool two_acc = !(group >= K || group % ks == 0);
+  const int mt = M <= 8 ? 1 : 2;
+  const int ring = kRing + 2 * 8 * mt * (ks + 8) * 2;
+  const int tiles = 4 * 8 * mt * kTileLd * 4;
+  const int smem = ring > tiles ? ring : tiles;
+  cudaError_t rc;
+  if (mt == 1)
+    rc = two_acc ? go<qmm_mma_kernel<1, false, true, true>>(
+                       1, N / kBN, splits, 128, smem, st, xb, qb, wl, wr, yb,
+                       w, cnt, M, N, K, group, ks)
+                 : go<qmm_mma_kernel<1, false, false, true>>(
+                       1, N / kBN, splits, 128, smem, st, xb, qb, wl, wr, yb,
+                       w, cnt, M, N, K, group, ks);
+  else
+    rc = two_acc ? go<qmm_mma_kernel<2, false, true, true>>(
+                       1, N / kBN, splits, 128, smem, st, xb, qb, wl, wr, yb,
+                       w, cnt, M, N, K, group, ks)
+                 : go<qmm_mma_kernel<2, false, false, true>>(
+                       1, N / kBN, splits, 128, smem, st, xb, qb, wl, wr, yb,
+                       w, cnt, M, N, K, group, ks);
+  return static_cast<int>(rc);
+}
+
+// One instantiation of the int8 entry's fma body.
+template <typename XT, bool kPacked>
+cudaError_t go_i8(bool two_acc, int mt, int nt, int splits, int smem,
+                  cudaStream_t st, const void* x, const int8_t* q,
+                  const float* wl, const float* wr, void* y, float* w,
+                  int* cnt, int M, int N, int K, int group, int ks, bool vec) {
+  const XT* xx = static_cast<const XT*>(x);
+  XT* yy = static_cast<XT*>(y);
+  return two_acc
+      ? go<qmm_i8_kernel<XT, true, kPacked>>(mt, nt, splits, 128, smem, st,
+                                             xx, q, wl, wr, yy, w, cnt, M, N,
+                                             K, group, ks, vec)
+      : go<qmm_i8_kernel<XT, false, kPacked>>(mt, nt, splits, 128, smem, st,
+                                              xx, q, wl, wr, yy, w, cnt, M,
+                                              N, K, group, ks, vec);
+}
+
+// The int8 entry.  body 1 (mma): bf16 x, M <= 16 and a shape `launch`
+// takes, ks nesting with the group.  body 0 (fma): any M, N, K >= 1 and a
+// group that divides K; ks: rows per split, a multiple of 64.  packed: q is
+// nibble-packed [K/2, N] (fma only, K even).  ws and counters as `launch`
+// above.
 int launch_i8(const void* x, const void* q, const void* s_wl,
               const void* s_wr, void* y, int M, int N, int K, int group,
-              int x_dtype, int ks, void* ws, void* counters, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || group < 1 || K % group || ks < kChunk ||
-      ks % kChunk || (x_dtype != kF32 && x_dtype != kBF16))
+              int x_dtype, int body, int packed, int ks, void* ws,
+              void* counters, void* stream) {
+  if (body == kMma && !packed)
+    return launch_i8_mma(x, q, s_wl, s_wr, y, M, N, K, group, x_dtype, ks,
+                         ws, counters, static_cast<cudaStream_t>(stream));
+  if (body != kFma || M < 1 || N < 1 || K < 1 || group < 1 || K % group ||
+      ks < kChunk || ks % kChunk || (x_dtype != kF32 && x_dtype != kBF16) ||
+      (packed && K % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kI8Stages * kI8StageBytes + 8 * ks * 4;
   if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -1379,27 +1541,20 @@ int launch_i8(const void* x, const void* q, const void* s_wl,
   const int mt = cdiv(M, 8), nt = cdiv(N, kBN);
   using bf16 = __nv_bfloat16;
   cudaError_t rc;
-  if (x_dtype == kF32) {
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
-    rc = two_acc
-        ? go<qmm_i8_kernel<float, true>>(mt, nt, splits, 128, smem, st, xf,
-                                         qi, wl, wr, yf, w, cnt, M, N, K,
-                                         group, ks, vec)
-        : go<qmm_i8_kernel<float, false>>(mt, nt, splits, 128, smem, st, xf,
-                                          qi, wl, wr, yf, w, cnt, M, N, K,
-                                          group, ks, vec);
-  } else {
-    const bf16* xb = static_cast<const bf16*>(x);
-    bf16* yb = static_cast<bf16*>(y);
-    rc = two_acc
-        ? go<qmm_i8_kernel<bf16, true>>(mt, nt, splits, 128, smem, st, xb,
-                                        qi, wl, wr, yb, w, cnt, M, N, K,
-                                        group, ks, vec)
-        : go<qmm_i8_kernel<bf16, false>>(mt, nt, splits, 128, smem, st, xb,
-                                         qi, wl, wr, yb, w, cnt, M, N, K,
-                                         group, ks, vec);
-  }
+  if (x_dtype == kF32)
+    rc = packed ? go_i8<float, true>(two_acc, mt, nt, splits, smem, st, x,
+                                     qi, wl, wr, y, w, cnt, M, N, K, group,
+                                     ks, vec)
+                : go_i8<float, false>(two_acc, mt, nt, splits, smem, st, x,
+                                      qi, wl, wr, y, w, cnt, M, N, K, group,
+                                      ks, vec);
+  else
+    rc = packed ? go_i8<bf16, true>(two_acc, mt, nt, splits, smem, st, x, qi,
+                                    wl, wr, y, w, cnt, M, N, K, group, ks,
+                                    vec)
+                : go_i8<bf16, false>(two_acc, mt, nt, splits, smem, st, x,
+                                     qi, wl, wr, y, w, cnt, M, N, K, group,
+                                     ks, vec);
   return static_cast<int>(rc);
 }
 
@@ -1426,13 +1581,15 @@ extern "C" int qft_quant_matmul_dequant(const void* x, const void* qw,
                 ks, ws, xs, counters, stream);
 }
 
-// y = sum_g s_wr[g] * ((x * s_wl)[:, g] @ q[g]) for int8 q [K, N]; x_dtype
-// 0 f32, 1 bf16; ks, ws and counters from the wrapper's plan_int8.
+// y = sum_g s_wr[g] * ((x * s_wl)[:, g] @ q[g]) for int8 q [K, N] (packed
+// 1: q nibble-packed [K/2, N], the int4 entry's layout); x_dtype 0 f32,
+// 1 bf16; body 0 fma, 1 mma; ks, ws and counters from the wrapper's
+// plan_int8.
 extern "C" int qft_quant_matmul_i8(const void* x, const void* q,
                                    const void* s_wl, const void* s_wr,
                                    void* y, int M, int N, int K, int group,
-                                   int x_dtype, int ks, void* ws,
-                                   void* counters, void* stream) {
-  return launch_i8(x, q, s_wl, s_wr, y, M, N, K, group, x_dtype, ks, ws,
-                   counters, stream);
+                                   int x_dtype, int body, int packed, int ks,
+                                   void* ws, void* counters, void* stream) {
+  return launch_i8(x, q, s_wl, s_wr, y, M, N, K, group, x_dtype, body,
+                   packed, ks, ws, counters, stream);
 }

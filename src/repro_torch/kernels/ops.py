@@ -5,7 +5,6 @@ from __future__ import annotations
 
 import torch
 
-from ..core.fakequant import unpack_int4
 from . import ref
 from ._library import on_card
 from .fake_quant import fake_quant_kernel
@@ -24,9 +23,13 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
 
     ``plan`` (a ``serve.deploy.DeployPlan``) overrides ``use_kernels``.  A
     packed int4 leaf whose shape passes :func:`kernel_tiles_ok` goes through
-    ``quant_matmul`` (the CUDA kernel for CUDA tensors); on the card another
-    shape goes through the int8 entry, its nibbles unpacked to int8; CPU
-    tensors take the plain version.  An int8 (exempt, unpacked) leaf goes through
+    ``quant_matmul`` (the CUDA kernel for CUDA tensors).  On the card
+    another shape goes through K1's int8 entry, which reads the packed
+    nibbles in place: the JAX package's Pallas blocks, clamped to each
+    dim, take shapes whose N is under or off 64 (N 32 at SMOKE width) where
+    this kernel's 64-column tiles do not, and there its route keeps the
+    integer weight as the operand.  CPU tensors, and the plain route, take
+    the plain version.  An int8 (exempt, unpacked) leaf goes through
     ``quant_matmul_int8``: the integer weight is the kernel's operand, with
     per-group partial sums and the scales hoisted, as the JAX package's
     integer ``dot_general`` (for CPU tensors, and on the plain route, the
@@ -50,9 +53,7 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
                                            x2.shape[-1], n_groups):
             y = quant_matmul(x2, q, s_wl, s_wr)
         elif use_kernels and on_card(x2):
-            # a shape the int4 kernel does not tile: the nibbles unpacked
-            # to int8 (integer to integer) through the int8 entry
-            y = quant_matmul_int8(x2, unpack_int4(q, axis=0), s_wl, s_wr)
+            y = quant_matmul_int8(x2, q, s_wl, s_wr)
         else:
             y = ref.quant_matmul_ref(x2, q, s_wl, s_wr)
     elif use_kernels:

@@ -29,9 +29,13 @@ them in split order: no float atomics, two launches give identical bits.
 
 :func:`quant_matmul_int8` is the entry for the unpacked int8 weights the
 plan keeps at 8 bits (``q [K, N]`` int8, the reference's integer
-``dot_general`` operand): the ``fma`` body's pipeline with a byte load in
-place of the nibble unpack, for f32 and bf16 x and any shape
-(:func:`plan_int8`), counted on ``quant_matmul.launches_int8`` alone.
+``dot_general`` operand), counted on ``quant_matmul.launches_int8`` alone.
+:func:`plan_int8` gives bf16 x at M ≤ 16 on a shape that passes
+:func:`tiles_ok` the ``mma`` body, the weight's bytes widened to bf16 in
+registers (exact); f32 x and every other shape take the ``fma`` body's
+pipeline with a byte load in place of the nibble unpack.  The ``fma``
+body also reads the int4 entry's nibble-packed ``qw [K/2, N]`` in place,
+for the int4 shapes that :func:`tiles_ok` refuses.
 
 Each entry is a ``torch.library`` operator (``repro_torch::quant_matmul``,
 ``::quant_matmul_dequant``, ``::quant_matmul_i8``; ``_library.py``), so a
@@ -46,6 +50,7 @@ import math
 
 import torch
 
+from ..core.fakequant import unpack_int4
 from . import _build
 from ._library import define, on_card
 from .ref import quant_matmul_int8_ref, quant_matmul_ref
@@ -158,12 +163,22 @@ def plan(M: int, N: int, K: int, group: int, dtype: torch.dtype) -> Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan_int8(M: int, N: int, K: int) -> Plan:
-    """The launch plan of the int8 entry: the ``fma`` body's 8 x 64
-    blocks for both x types, the K-split a multiple of 64 rows (at most
-    1024, x of a split is kept in shared memory) and the fewest splits, at
-    most ``MAX_SPLITS``, that launch two blocks an SM.  A split need not
-    nest with the groups: a row that opens a group flushes the partial."""
+def plan_int8(M: int, N: int, K: int, group: int | None = None,
+              dtype: torch.dtype = torch.float32,
+              packed: bool = False) -> Plan:
+    """The launch plan of the int8 entry (``group`` rows a K-group, None
+    or K for the channel layout; ``packed``: nibble-packed weights).  bf16
+    x at M ≤ 16 on a shape that passes :func:`tiles_ok`, unpacked:
+    :func:`plan`'s ``mma`` plan.  Otherwise the ``fma``
+    body's 8 x 64 blocks for both x types, the K-split a multiple of 64
+    rows (at most 1024, x of a split is kept in shared memory) and the
+    fewest splits, at most ``MAX_SPLITS``, that launch two blocks an SM; a
+    split need not nest with the groups there: a row that opens a group
+    flushes the partial."""
+    group = K if group is None else group
+    if (not packed and dtype == torch.bfloat16 and M <= 16
+            and tiles_ok(M, N, K, None if group >= K else K // group)):
+        return plan(M, N, K, group, dtype)
     bm, bn, cap, target = _BLOCK["fma"]
     tiles = math.ceil(M / bm) * math.ceil(N / bn)
     ksplit = min(cap, math.ceil(K / TILE_K) * TILE_K)
@@ -185,7 +200,7 @@ def plan_int8(M: int, N: int, K: int) -> Plan:
 def _signature(lib: ctypes.CDLL, variant: str):
     fn = getattr(lib, _ENTRY[variant])
     if variant == "int8":
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 3)
     else:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -254,7 +269,10 @@ def _launch_int8(x: torch.Tensor, q: torch.Tensor, s_wl: torch.Tensor,
     M, K = x.shape
     N = q.shape[1]
     group = K if s_wr.ndim == 1 else K // s_wr.shape[0]
-    p = plan_int8(M, N, K)
+    packed = q.dtype == torch.uint8
+    p = plan_int8(M, N, K, group, x.dtype, packed)
+    if p.body == "mma":                 # cp.async copies of q
+        _aligned(q)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     ws = (torch.empty(p.workspace, dtype=torch.float32, device=x.device)
           if p.workspace else None)
@@ -263,10 +281,11 @@ def _launch_int8(x: torch.Tensor, q: torch.Tensor, s_wl: torch.Tensor,
                 else None)
     fn = _signature(_build.load("quant_matmul"), "int8")
     rc = fn(x.data_ptr(), q.data_ptr(), s_wl.data_ptr(), s_wr.data_ptr(),
-            y.data_ptr(), M, N, K, group, _DTYPES[x.dtype], p.ksplit,
+            y.data_ptr(), M, N, K, group, _DTYPES[x.dtype],
+            BODIES.index(p.body), int(packed), p.ksplit,
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), stream)
-    _build.check(rc, "quant_matmul (int8)")
+    _build.check(rc, f"quant_matmul (int8, {p.body})")
     quant_matmul.launches_int8 += 1
     return y
 
@@ -344,23 +363,28 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, s_wl: torch.Tensor,
 def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, s_wl: torch.Tensor,
                       s_wr: torch.Tensor) -> torch.Tensor:
     """``Σ_g s_wr[g] · ((x·s_wl)[:, g] @ q[g])`` for an unpacked int8
-    weight ``q [K, N]``: the kernel on the card, the plain version
-    (``ref.quant_matmul_int8_ref``) for CPU tensors.  x ``[M, K]`` f32 or
-    bf16; s_wr ``[N]`` or ``[K/g, N]``.  Any M, N, K.  Launches count on
+    weight ``q [K, N]``, or the int4 entry's nibble-packed uint8 ``q [K/2,
+    N]`` (row 2i in the low nibble): the kernel on the card, the plain
+    version (``ref.quant_matmul_int8_ref`` on the unpacked weight) for CPU
+    tensors.  x ``[M, K]`` f32 or bf16; s_wr ``[N]`` or ``[K/g, N]``.  Any
+    M, N, K (K even when packed).  Launches count on
     ``quant_matmul.launches_int8``."""
-    if x.ndim != 2 or q.ndim != 2 or q.dtype != torch.int8:
+    if x.ndim != 2 or q.ndim != 2 or q.dtype not in (torch.int8,
+                                                      torch.uint8):
         raise ValueError("quant_matmul_int8 takes x [M, K] and int8 q "
-                         "[K, N]")
+                         "[K, N] or packed uint8 q [K/2, N]")
     M, K = x.shape
     N = q.shape[1]
-    if q.shape[0] != K:
+    packed = q.dtype == torch.uint8
+    if q.shape[0] * (2 if packed else 1) != K:
         raise ValueError(f"q {tuple(q.shape)} does not fit x "
                          f"{tuple(x.shape)}")
     _check_scales("quant_matmul_int8", K, N, s_wl, s_wr)
     if s_wr.ndim == 2 and K % s_wr.shape[0]:
         raise ValueError(f"{s_wr.shape[0]} groups do not divide K={K}")
     if _check_devices("quant_matmul_int8", (x, q, s_wl, s_wr)):
-        return quant_matmul_int8_ref(x, q, s_wl, s_wr)
+        return quant_matmul_int8_ref(
+            x, unpack_int4(q, axis=0) if packed else q, s_wl, s_wr)
     if x.dtype not in _DTYPES:
         raise ValueError(f"the CUDA kernel takes f32/bf16 x, got {x.dtype}")
     if s_wl.dtype != torch.float32 or s_wr.dtype != torch.float32:

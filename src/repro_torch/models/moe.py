@@ -211,12 +211,13 @@ def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
     """``x [B, S, d]`` → routed experts + shared experts.  ``plan`` is
     scoped to this module's path (``layers.mlp``).
 
-    ``moe_fn(x, p)``: an override of the routed experts (the
-    expert-parallel path, ``sharding.ep.make_ep_moe``); it may return None
-    (a decode step) to fall back to the in-graph path."""
+    ``moe_fn(x, p, use_kernels)``: an override of the routed experts (the
+    expert-parallel path, ``sharding.ep.make_ep_moe``), on this block's
+    route; it may return None (a decode step) to fall back to the in-graph
+    path."""
     B, S, d = x.shape
     pv = plan_view(plan)
-    out = None if moe_fn is None else moe_fn(x, p)
+    out = None if moe_fn is None else moe_fn(x, p, use_kernels)
     if out is None:
         xt = x.reshape(B * S, d)
         if mode == "dense":

@@ -76,9 +76,10 @@ _RUNTIME: dict[str, Any] = {}
 
 def set_runtime(**kw) -> None:
     """Process-level runtime knobs: ``moe_mode`` (``"sorted"``, the
-    default, or ``"dense"``, the oracle) and ``moe_fn`` (``fn(x, p) -> y``
-    or None, replacing the routed experts, e.g. ``sharding.ep.make_ep_moe``'s;
-    None from it falls back to the in-graph path)."""
+    default, or ``"dense"``, the oracle) and ``moe_fn`` (``fn(x, p,
+    use_kernels) -> y`` or None, replacing the routed experts on the
+    forward's route, e.g. ``sharding.ep.make_ep_moe``'s; None from it falls
+    back to the in-graph path)."""
     _RUNTIME.update(kw)
 
 

@@ -122,19 +122,20 @@ class _ScaleGrad(torch.autograd.Function):
 
 
 def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
-                dp_axes=("data",), tp_axis: str = "model", plan=None,
-                use_kernels: bool = True):
-    """Returns ``moe_fn(x [B, S, d], layer_params) -> y [B, S, d]`` (or
-    None); register it with ``models.transformer.set_runtime(moe_fn=)`` to
-    replace the routed-experts path.
+                dp_axes=("data",), tp_axis: str = "model", plan=None):
+    """Returns ``moe_fn(x [B, S, d], layer_params, use_kernels) -> y [B, S,
+    d]`` (or None); register it with ``models.transformer.set_runtime(
+    moe_fn=)`` to replace the routed-experts path.
 
     ``mesh``: a ``DeviceMesh`` with ``tp_axis``; ``x`` is this rank's rows
     of the batch (its split over ``dp_axes`` happened before the forward).
     ``plan``: the resolved QuantPlan — the expert and router bits are
     looked up at ``layers.mlp``, as the in-graph path does.  A layer whose
     experts carry no quant DoF (the FP teacher) runs with ``qcfg`` None.
-    ``use_kernels``: the experts' fake-quant takes the kernel route
-    (``fake_quant`` for CUDA tensors, its plain version on the CPU).
+    ``use_kernels`` is the calling forward's route (``models.moe.
+    moe_block`` passes its own): the experts' fake-quant takes the kernel
+    route (``fake_quant`` for CUDA tensors, its plain version on the CPU)
+    when it is set.
     """
     pv = plan_view(plan).child("layers", "mlp")
     e = cfg.moe
@@ -151,7 +152,7 @@ def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
         return {k: local_experts(v) if isinstance(v, dict)
                 else v[lo:lo + E_loc] for k, v in node.items()}
 
-    def moe_fn(x: torch.Tensor, p: Params):
+    def moe_fn(x: torch.Tensor, p: Params, use_kernels: bool = False):
         B, S, d = x.shape
         if S % tp:                    # decode: trivial dispatch, baseline
             return None

@@ -36,6 +36,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.fakequant import unpack_int4  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig, permissive  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels._library import kernel_of  # noqa: E402
+from repro_torch.kernels.ops import qlinear_deployed  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     quant_matmul, quant_matmul_int8)
 from repro_torch.launch import hlo_analysis as H  # noqa: E402
@@ -219,8 +221,7 @@ def test_float_weights_do_not_false_positive():
 
 def test_int4_unpack_does_not_false_positive():
     """uint8→int8 nibble unpack is int→int: the unpacked weight through
-    K1's int8 entry trips nothing (the route of an int4 shape the int4
-    kernel does not tile)."""
+    K1's int8 entry trips nothing."""
     def f(x, q4, s_wl, s_wr):
         return quant_matmul_int8(x, unpack_int4(q4, axis=0), s_wl, s_wr)
 
@@ -228,6 +229,22 @@ def test_int4_unpack_does_not_false_positive():
                _meta((32,)))
     assert dequant_dot_violations(tr) == []
     assert integer_operand_count(tr) == 1
+
+
+def test_untiled_int4_takes_the_int8_entry_on_packed_nibbles():
+    """An int4 leaf the int4 kernel does not tile (N 32, SMOKE width) goes,
+    on the kernel route, to K1's int8 entry with the packed uint8 weight
+    as its operand: one kernel node, no convert, no unpack."""
+    ex = {"q": _meta((32, 32), torch.uint8), "s_wl": _meta((64,)),
+          "s_wr": _meta((32,))}
+    tr = trace(lambda x, e: qlinear_deployed(x, e), _meta((8, 64)), ex)
+    assert dequant_dot_violations(tr) == []
+    assert integer_operand_count(tr) == 1
+    assert [str(n.target) for n in tr.nodes() if kernel_of(n.target)] == [
+        "repro_torch.quant_matmul_i8.default"]
+    assert [n for n in tr.nodes() if n.op == "call_function"
+            and str(n.target).split(".")[1] in ("bitwise_and", "__rshift__",
+                                                "bitwise_right_shift")] == []
 
 
 # ---------------------------------------------------------------------------

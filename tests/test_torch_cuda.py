@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as fd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_paged)
 from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
+from repro_torch.kernels.ops import qlinear_deployed  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_prefill, flash_attention)
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
@@ -297,6 +298,91 @@ def test_quant_matmul_int8_kernel(cuda, name, layout, M, dtype):
     assert y.dtype == dt and y.shape == (M, N)
     assert torch.equal(y, again)
     ref = quant_matmul_int8_ref(x, q, s_wl, s_wr).float()
+    err = (y.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= (1e-5 if dtype == "float32" else 2 ** -7) * scale, (
+        err, scale)
+
+
+@pytest.mark.parametrize("group", [None, 16, 32, 64, 128])
+@pytest.mark.parametrize("M", [1, 8, 9, 16])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1024, 64), (640, 320)])
+def test_quant_matmul_int8_mma_body(cuda, K, N, M, group):
+    """K1's int8 entry on its ``mma`` body (bf16 x, M ≤ 16): every group
+    size the packed bodies take (one per split, whole groups per split, a
+    group past the 64-row step), one and two token tiles, against the
+    plain version within one bf16 rounding (2^-7 of max|ref|), with the
+    extreme weights -128 and 127 among the draws; two launches
+    bit-identical; counted on launches_int8 alone."""
+    assert qmm.plan_int8(M, N, K, group, torch.bfloat16).body == "mma"
+    rng = np.random.default_rng(K + N + M + (group or 0))
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        torch.bfloat16).to(cuda)
+    qn = rng.integers(-128, 128, size=(K, N)).astype(np.int8)
+    qn[0, :2], qn[-1, -2:] = (-128, 127), (127, -128)
+    q = torch.from_numpy(qn).to(cuda)
+    s_wl = torch.from_numpy(np.exp(rng.normal(size=K) * 0.2).astype(
+        np.float32) * 0.05).to(cuda)
+    shape = (N,) if group is None else (K // group, N)
+    s_wr = torch.from_numpy(np.exp(rng.normal(size=shape) * 0.2).astype(
+        np.float32) * 0.01).to(cuda)
+    counts = (_qmm_counts(), quant_matmul.launches, quant_matmul.launches_int8)
+    y = quant_matmul_int8(x, q, s_wl, s_wr)
+    again = quant_matmul_int8(x, q, s_wl, s_wr)
+    torch.cuda.synchronize()
+    assert (_qmm_counts(), quant_matmul.launches,
+            quant_matmul.launches_int8) == (counts[0], counts[1],
+                                            counts[2] + 2)
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert torch.equal(y, again)
+    ref = quant_matmul_int8_ref(x, q, s_wl, s_wr).float()
+    err = (y.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= 2 ** -7 * scale, (err, scale)
+
+
+#: int4 shapes the int4 entry does not tile (N under or off 64): SMOKE
+#: width's N 32, a router's N 60, ragged, N 96
+_INT4_UNTILED = {"smoke_n32": (64, 32), "router_n60": (2048, 60),
+                 "ragged": (200, 70), "n96": (1024, 96)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("layout", ["channel", "group"])
+@pytest.mark.parametrize("name", sorted(_INT4_UNTILED))
+def test_quant_matmul_int8_packed(cuda, name, layout, M, dtype):
+    """An int4 leaf the int4 entry does not tile: ``qlinear_deployed``
+    sends its packed weight to K1's int8 entry, which reads the nibbles in
+    place (launches_int8 + 1 a call; the int4 entry's counts unchanged),
+    against the plain version on the unpacked weight: f32 within 1e-5 of
+    max|ref|, bf16 within one bf16 rounding; -8 and 7 among the draws; two
+    calls bit-identical."""
+    K, N = _INT4_UNTILED[name]
+    group = 32 if K % 32 == 0 else 8
+    rng = np.random.default_rng(K + N + M + 7)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(
+        dt).to(cuda)
+    q4 = rng.integers(-8, 8, size=(K, N)).astype(np.int8)
+    q4[0, :2], q4[-1, -2:] = (-8, 7), (7, -8)
+    q = torch.from_numpy(q4)
+    s_wl = torch.from_numpy(np.exp(rng.normal(size=K) * 0.2).astype(
+        np.float32) * 0.05).to(cuda)
+    shape = (N,) if layout == "channel" else (K // group, N)
+    s_wr = torch.from_numpy(np.exp(rng.normal(size=shape) * 0.2).astype(
+        np.float32)).to(cuda)
+    ex = {"q": pack_int4(q, axis=0).to(cuda), "s_wl": s_wl, "s_wr": s_wr}
+    counts = (_qmm_counts(), quant_matmul.launches, quant_matmul.launches_int8)
+    y = qlinear_deployed(x, ex)
+    again = qlinear_deployed(x, ex)
+    torch.cuda.synchronize()
+    assert (_qmm_counts(), quant_matmul.launches,
+            quant_matmul.launches_int8) == (counts[0], counts[1],
+                                            counts[2] + 2)
+    assert y.dtype == dt and y.shape == (M, N)
+    assert torch.equal(y, again)
+    ref = quant_matmul_int8_ref(x, q.to(cuda), s_wl, s_wr).float()
     err = (y.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
     assert err <= (1e-5 if dtype == "float32" else 2 ** -7) * scale, (

@@ -20,6 +20,7 @@ from repro.core import dof as j_dof  # noqa: E402
 from repro.core import permissive as j_permissive  # noqa: E402
 from repro.kernels import decode_attention as j_decode_attention  # noqa: E402
 from repro.kernels import quant_matmul as j_quant_matmul  # noqa: E402
+from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels.ops import qlinear_deployed as j_qlinear_deployed  # noqa: E402
 from repro.serve.deploy import kernel_route_check as j_route_check  # noqa: E402
 from repro.serve.deploy import make_deploy_plan as j_make_plan  # noqa: E402
@@ -298,6 +299,56 @@ def test_quant_matmul_int8_plan_covers_k_once(M, K, N):
     elif p.splits > 1:                    # one split fewer would not do
         fewer = -(-(-(-K // (p.splits - 1))) // 64) * 64
         assert fewer > 1024 or p.tiles * -(-K // fewer) < 2 * t_qmm.SMS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17])
+@pytest.mark.parametrize("K,N,group", [
+    (512, 16384, None), (5120, 576, None), (5120, 1536, 128), (5120, 576, 8),
+    (64, 10, None), (2048, 60, None), (640, 320, 32)])
+def test_quant_matmul_int8_plan_takes_mma_for_bf16_decode(dtype, M, K, N,
+                                                          group):
+    """K1's int8 entry: bf16 x at M ≤ 16 on a shape the packed bodies tile
+    gets the int4 entry's own ``mma`` plan (its split nests with the
+    group); f32 x, M > 16 and untiled shapes (the CNN fc, a router, group
+    8) keep the ``fma`` plan of :func:`plan_int8`."""
+    dt = getattr(torch, dtype)
+    p = t_qmm.plan_int8(M, N, K, group, dt)
+    n_groups = None if group is None else K // group
+    if dt == torch.bfloat16 and M <= 16 and kernel_tiles_ok(M, N, K,
+                                                            n_groups):
+        assert p == t_qmm.plan(M, N, K, group or K, dt)
+        assert p.body == "mma" and t_qmm.nests(p.ksplit, group or K, K)
+    else:
+        assert p == t_qmm.plan_int8(M, N, K) and p.body == "fma"
+    # packed nibbles (an untiled int4 shape) stay on the fma body
+    assert t_qmm.plan_int8(M, N, K, group, dt, True) == t_qmm.plan_int8(
+        M, N, K)
+
+
+@pytest.mark.parametrize("group", [None, 8])
+@pytest.mark.parametrize("K,N", [(64, 32), (200, 70)])
+def test_quant_matmul_int8_reads_packed_nibbles(K, N, group):
+    """K1's int8 entry on the int4 entry's nibble-packed weight (the route
+    of an int4 shape the int4 kernel does not tile): on the CPU its plain
+    version equals the entry on the unpacked int8 weight bit for bit, and
+    the JAX package's f32 reference within 1e-5 of max|ref| (the two sum
+    in different orders)."""
+    rng = np.random.default_rng(K + N)
+    x = rng.normal(size=(4, K)).astype(np.float32)
+    q4 = rng.integers(-8, 8, size=(K, N)).astype(np.int8)
+    s_wl = np.exp(rng.normal(size=K) * 0.2).astype(np.float32)
+    s_wr = np.exp(rng.normal(size=(N,) if group is None
+                             else (K // group, N)) * 0.2).astype(np.float32)
+    args = [_t(x), pack_int4(_t(q4), axis=0), _t(s_wl), _t(s_wr)]
+    y = t_qmm.quant_matmul_int8(*args)
+    assert torch.equal(y, t_qmm.quant_matmul_int8(_t(x), _t(q4), *args[2:]))
+    ref = j_ref.quant_matmul_ref(
+        jnp.asarray(x), jnp.asarray(args[1].numpy()), jnp.asarray(s_wl),
+        jnp.asarray(s_wr))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

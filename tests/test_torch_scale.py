@@ -592,8 +592,8 @@ def test_moe_runtime_hooks(monkeypatch):
         finally:
             t_tf.set_runtime(moe_fn=None)
     base = port()
-    assert torch.equal(port(moe_fn=lambda x, p: None), base)
-    zero = port(moe_fn=lambda x, p: torch.zeros_like(x))
+    assert torch.equal(port(moe_fn=lambda x, p, use_kernels: None), base)
+    zero = port(moe_fn=lambda x, p, use_kernels: torch.zeros_like(x))
     assert not torch.equal(zero, base)
     lp = t_tf.layer_slice(tparams["layers"], 0)["mlp"]
     xt = torch.from_numpy(np.random.default_rng(2).standard_normal(

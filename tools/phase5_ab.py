@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Phase 5 of chip_smoke.py (qwen3-8b served at full width and depth) on
-two trees of the repository, alternated on one card: A, B, B, A.
+two trees of the repository, alternated on one card in pairs: A B, B A,
+A B, ...
 
-    python3 tools/phase5_ab.py <tree A> <tree B>
+    python3 tools/phase5_ab.py <tree A> <tree B> [--pairs N] [--out F]
 
 Each run is a process of its own, in the tree's root: it builds the
 kernels, then runs chip_smoke's ``main_path`` on qwen3-8b, whose
 ``decode ... ms/step`` line this script collects with the card's name and
-power limit.  Used to measure what a change to the kernels' dispatch costs
-a decode step (compare two trees only within one call).
+power limit.  It prints each run, then per tree the median and quartiles
+of the decode ms a step, and the median and quartiles of the pairs' B/A
+ratios (each pair's two runs are adjacent, so a drift of the host between
+pairs cancels in its ratio).  Used to measure what a change to the
+kernels' dispatch costs a decode step (compare two trees only within one
+call).  ``--out`` also writes the summary as JSON.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -35,21 +42,46 @@ def run(tree: Path) -> float:
     return float(hit.group(1))
 
 
-def main() -> int:
-    a, b = (Path(p).resolve() for p in sys.argv[1:3])
+def quartiles(xs: list[float]) -> dict:
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return {"median": q2, "q1": q1, "q3": q3, "min": min(xs),
+            "max": max(xs), "n": len(xs)}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("tree_a")
+    ap.add_argument("tree_b")
+    ap.add_argument("--pairs", type=int, default=2)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    a, b = Path(args.tree_a).resolve(), Path(args.tree_b).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    print(smi.stdout.strip())
-    runs = []
-    for tag, tree in (("A", a), ("B", b), ("B", b), ("A", a)):
-        ms = run(tree)
-        runs.append({"tree": tag, "path": str(tree), "decode_ms_step": ms})
-        print(json.dumps(runs[-1]), flush=True)
-    mean = {t: sum(r["decode_ms_step"] for r in runs if r["tree"] == t) / 2
-            for t in ("A", "B")}
-    print(json.dumps({"mean_decode_ms_step": mean,
-                      "b_over_a": mean["B"] / mean["A"]}))
+    card = smi.stdout.strip()
+    print(card)
+    runs, ratios = [], []
+    for i in range(args.pairs):
+        order = (("A", a), ("B", b)) if i % 2 == 0 else (("B", b), ("A", a))
+        pair = {}
+        for tag, tree in order:
+            pair[tag] = run(tree)
+            runs.append({"pair": i, "tree": tag, "decode_ms_step": pair[tag]})
+            print(json.dumps(runs[-1]), flush=True)
+        ratios.append(pair["B"] / pair["A"])
+    summary = {"card": card, "pairs": args.pairs,
+               "A": quartiles([r["decode_ms_step"] for r in runs
+                               if r["tree"] == "A"]),
+               "B": quartiles([r["decode_ms_step"] for r in runs
+                               if r["tree"] == "B"]),
+               "b_over_a_pairs": quartiles(ratios), "runs": runs}
+    summary["b_over_a_medians"] = (summary["B"]["median"]
+                                   / summary["A"]["median"])
+    print(json.dumps({k: v for k, v in summary.items() if k != "runs"}))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
     return 0
 
 
