@@ -222,6 +222,17 @@ Phases, each fatal on failure:
    view's bf16 torch.matmul, and the operator layer's host cost a call of
    decode_attention's paged entry; phase 8's route check on the CNN's
    int8 fc launches the int8 entry.
+25. tensor parallelism over model (sharding.tp) at tp 2 and 4 on the one
+   card, each rank a thread of this process under torch's threaded
+   process group: build_step on a 2-layer full-width qwen3-8b student,
+   phase 6's batch in 4 microbatches, its loss and every gradient leaf
+   against the unsharded step the QFTTrainer runs, in bf16 and f32 (the
+   step's distance from the f32 step at most twice the bf16 step's);
+   each rank's fake_quant and flash_attention launches and the shard
+   shapes they ran at.  Phase 3 adds fake_quant at qwen3-8b's tp-16
+   shards (wq's and gate/up's columns, wo's and down's rows, a whole KV
+   head, the embedding's vocabulary rows) and flash_attention at a tp-16
+   rank's 2 query heads over 1 KV head.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -341,6 +352,12 @@ SHARDED_LAYERS = 2
 ELASTIC_STEPS = 5
 ELASTIC_CKPT_EVERY = 2
 ELASTIC_FAIL_AT = 3
+#: phase 25: tensor parallelism over model on the one card, each rank a
+#: thread of this process; qwen3-8b at full width on 2 layers, phase 6's
+#: batch; the shard shapes of phase 3's rows are qwen3-8b's at tp 16
+TP_SIZES = (2, 4)
+TP_LAYERS = 2
+TP_SHARDS = 16
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -1255,6 +1272,49 @@ def check_fake_quant(cfg) -> tuple[dict, dict]:
         del x, s
         torch.cuda.empty_cache()
     return record, layers
+
+
+def check_fake_quant_tp(cfg, tp: int = TP_SHARDS) -> dict:
+    """fake_quant at the shards a rank of a ``tp``-rank model group runs it
+    on in the sharded step (``sharding.tp``), qwen3-8b's: ``wq``'s columns
+    of its query heads, ``wo``'s rows, the whole KV head that ``tp / Hkv``
+    ranks gather for ``wk``/``wv`` (``[d, hd]``), ``gate``/``up``'s
+    columns, ``down``'s rows, each with the doubly-channelwise scale and a
+    per-channel row beside the library; the embedding's vocabulary rows
+    with the per-row scale.  Returns {shard: record}."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    c = cfg.with_padding(tp=tp)
+    d, hd, ff = c.d_model, c.head_dim, c.d_ff
+    hq = c.n_heads_padded * hd // tp
+    hkv = max(c.n_kv_heads_padded * hd // tp, hd)
+    cases = [("wq", d, hq), ("wk/wv (a KV head)", d, hkv), ("wo", hq, d),
+             ("gate/up", d, ff // tp), ("down", ff // tp, d)]
+    out = {}
+    for name, R, C in cases:
+        qmax = 7
+        x = torch.randn((R, C), generator=g, device=dev) * R ** -0.5
+        s = (torch.rand((R, 1), generator=g, device=dev) + 0.5) * (
+            torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+            3 * R ** -0.5 / qmax)
+        out[f"tp{tp} {name}"] = _fq_row(f"tp{tp} {name}", x, s, 4,
+                                        exact_gs=True)
+        col = (torch.rand((1, C), generator=g, device=dev) + 0.5) * (
+            3 * R ** -0.5 / qmax)
+        out[f"tp{tp} {name} channel"] = _fq_row(
+            f"tp{tp} {name} channel", x, col, 4, exact_gs=False, lib_axis=1)
+        del x, s, col
+        torch.cuda.empty_cache()
+    V = c.vocab_padded // tp
+    x = torch.randn((V, d), generator=g, device=dev) * d ** -0.5
+    s = (torch.rand((V, 1), generator=g, device=dev) + 0.5) * (
+        3 * d ** -0.5 / 127)
+    out[f"tp{tp} embed"] = _fq_row(f"tp{tp} embed", x, s, 8,
+                                   exact_gs=False, lib_axis=0)
+    del x, s
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_fake_quant_moe(cfg) -> dict:
@@ -3545,6 +3605,273 @@ def _elastic_on_card(cfg, mesh, pol) -> dict:
             "bit_equal": equal, "bytes_written": written[0]}
 
 
+def _threaded_ranks(world: int, fn, timeout_s: float = 600.0) -> list:
+    """``fn(rank)`` on ``world`` threads of this process, each a rank of
+    torch's threaded process group (NCCL refuses two ranks on one card,
+    and gloo has no all-gather or reduce-scatter for CUDA tensors).  Each
+    thread runs its backward itself (``set_multithreading_enabled(False)``):
+    on the autograd engine's one device thread one rank's all-reduce in a
+    backward would wait for a rank queued behind it.  Returns the ranks'
+    results; a rank that raises wakes the others and fails the phase."""
+    import threading
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg)
+    if not hasattr(multi_threaded_pg.ThreadLocalWorld, "comms"):
+        # torch 2.11's c10d keeps a world's communicators in ``comms``; its
+        # thread-local world has none
+        def comms(self):
+            world = self._get_world()
+            if not hasattr(world, "comms"):
+                world.comms = []
+            return world.comms
+        multi_threaded_pg.ThreadLocalWorld.comms = property(comms)
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    ProcessLocalGroup.reset()
+    out, errors = [None] * world, []
+    store = dist.HashStore()
+
+    def run(rank):
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world,
+                                    store=store)
+            try:
+                with torch.autograd.set_multithreading_enabled(False):
+                    out[rank] = fn(rank)
+            finally:
+                dist.destroy_process_group()
+        except BaseException as e:      # noqa: BLE001 — reported below
+            errors.append((rank, e))
+            ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + timeout_s
+    for t in threads:
+        t.join(max(deadline - time.perf_counter(), 0.0))
+    if any(t.is_alive() for t in threads):
+        fail(f"{world} threaded ranks did not finish in {timeout_s:.0f} s")
+    if errors:
+        rank, e = errors[0]
+        fail(f"threaded rank {rank} of {world}: {type(e).__name__}: {e}")
+    return out
+
+
+@contextlib.contextmanager
+def _per_rank_launches(record: dict):
+    """Record each rank's fake_quant forward and flash_attention calls
+    (the kernels' wrappers, called as the model code calls them) with
+    their shapes: ``record[rank] = {"fake_quant": [...], "flash_attention":
+    [...]}``.  The wrappers count as they always do."""
+    import torch.distributed as dist
+    from repro_torch.core import dof
+    from repro_torch.models import attention as attn_mod
+    fq, fa = dof.fake_quant_kernel, attn_mod.attention_prefill
+
+    def mine():
+        return record.setdefault(dist.get_rank(), {"fake_quant": [],
+                                                   "flash_attention": []})
+
+    def fq_rec(x, s, bits, rule="kernel"):
+        mine()["fake_quant"].append(tuple(x.shape))
+        return fq(x, s, bits, rule=rule)
+
+    def fa_rec(q, k, v, causal=True):
+        mine()["flash_attention"].append((tuple(q.shape), tuple(k.shape)))
+        return fa(q, k, v, causal=causal)
+
+    dof.fake_quant_kernel, attn_mod.attention_prefill = fq_rec, fa_rec
+    try:
+        yield record
+    finally:
+        dof.fake_quant_kernel, attn_mod.attention_prefill = fq, fa
+
+
+def _grad_distances(got: dict, f32: dict, bf16: dict) -> tuple:
+    """(worst ratio, its leaf, {leaf: (|got - f32|, |bf16 - f32|)}) over
+    the gradient leaves of three host trees ``{path: tensor or None}``:
+    the ratio of a leaf is its distance from the f32 gradient over the
+    unsharded bf16 gradient's."""
+    import torch
+    worst, at, dist_ = 0.0, "-", {}
+    for k, ref in f32.items():
+        if ref is None:
+            if got[k] is not None:
+                fail(f"tp: {k} has a gradient the unsharded step has not")
+            continue
+        d_tp = float((got[k] - ref).norm())
+        d_16 = float((bf16[k] - ref).norm())
+        dist_[k] = (d_tp, d_16)
+        ratio = d_tp / d_16 if d_16 > 0 else (0.0 if d_tp == 0
+                                             else math.inf)
+        if not torch.isfinite(got[k]).all():
+            fail(f"tp: {k}'s gradient is not finite")
+        if ratio > worst:
+            worst, at = ratio, k
+    return worst, at, dist_
+
+
+def tp_path(cfg) -> dict:
+    """Tensor parallelism over ``model`` (``sharding.tp``) at tp 2 and 4
+    on the one card, the ranks threads of this process on a (data 1,
+    model tp) mesh: the launcher's ``build_step`` on a full-width
+    qwen3-8b student of ``TP_LAYERS`` layers, phase 6's batch in 4
+    microbatches, its loss and every gradient leaf (captured on their way
+    to the update) against the unsharded step the QFTTrainer runs
+    (``make_value_and_grad`` with its arguments) in bf16 and in f32: the
+    step's distance from the f32 step at most twice the bf16 step's, for
+    the loss and each leaf.  Each rank must launch fake_quant and
+    flash_attention on its own shards (printed with their shapes).  Threads
+    share the GIL: no time here is a tensor-parallel speed."""
+    import torch
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data.calib import CalibConfig, CalibDataset
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.models import init_model
+    from repro_torch.pipeline.adapters import resolve_quant_plan
+    from repro_torch.sharding.partition import ShardingPolicy
+    from repro_torch.train.qft_trainer import QFTConfig, QFTTrainer
+    from repro_torch.train.steps import make_value_and_grad
+    from repro_torch.tree import tree_from_items, tree_items
+    qcfg = QuantConfig()
+    pol = ShardingPolicy()
+    c = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    teacher = init_model(torch.Generator(device=DEVICE).manual_seed(0), c,
+                         None, device=DEVICE)
+    tokens = CalibDataset(CalibConfig(vocab=c.vocab, **TRAIN_DATA))
+    qplan = resolve_quant_plan(c, qcfg)
+    trainer = QFTTrainer(c, qcfg, teacher, QFTConfig(),
+                         steps_per_epoch=tokens.steps_per_epoch,
+                         microbatches=TRAIN_MICROBATCHES, plan=qplan)
+    student = _host_copy(trainer.prepare_student(1, [next(tokens)]))
+    batch = {"tokens": torch.as_tensor(next(tokens)["tokens"]).to(DEVICE)}
+    torch.cuda.empty_cache()
+
+    def host_grads(grads) -> dict:
+        return {".".join(p): None if g is None
+                else g.detach().float().to("cpu", copy=True)
+                for p, g in tree_items(grads)}
+
+    # the unsharded references, the QFTTrainer's step's arguments
+    ref = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        s = tree_from_items((p, t.to(DEVICE)) for p, t in tree_items(
+            student))
+        vg = make_value_and_grad(c, qcfg, microbatches=TRAIN_MICROBATCHES,
+                                 plan=qplan, compute_dtype=dtype)
+        loss, grads = vg(s, teacher, batch)
+        ref[name] = {"loss": float(loss), "grads": host_grads(grads)}
+        del s, grads, vg
+        torch.cuda.empty_cache()
+    opt = trainer.opt
+    del trainer
+    out = {}
+    for tp in TP_SIZES:
+        shared = {"student": tree_from_items(
+            (p, t.to(DEVICE)) for p, t in tree_items(student))}
+        shared["opt"] = opt.init(shared["student"])
+        record: dict = {}
+        import threading
+        placed = threading.Barrier(tp)
+
+        def rank_fn(rank):
+            mesh = make_elastic_mesh(tp, tp, DEVICE)
+            state = lt.place_state((shared["student"], shared["opt"]), c,
+                                   mesh, pol)
+            seen = {}
+
+            def capture(g, opt_state):
+                host = {}
+                for p, t in tree_items(g):     # full_tensor: every rank
+                    full = None if t is None else t.full_tensor()
+                    if rank == 0:
+                        host[".".join(p)] = None if full is None else \
+                            full.detach().float().to("cpu", copy=True)
+                    del full
+                seen["grads"] = host
+                return g, opt_state
+
+            step = lt.build_step(mesh, c, qcfg, opt, teacher, pol,
+                                 plan=qplan, microbatches=TRAIN_MICROBATCHES,
+                                 grad_compress=capture)
+            if placed.wait() == 0:              # the whole copies go
+                shared.clear()
+            placed.wait()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            return {"loss": float(m["loss"]), "ms": 1e3 * (
+                time.perf_counter() - t0),
+                "grads": seen["grads"] if rank == 0 else None,
+                "gnorm": float(m["grad_norm"])}
+
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _per_rank_launches(record):
+            res = _threaded_ranks(tp, rank_fn)
+        counts = _counts()
+        torch.cuda.empty_cache()
+        got = res[0]
+        losses = {r["loss"] for r in res}
+        if len(losses) != 1:
+            fail(f"tp {tp}: the ranks' losses differ: {losses}")
+        d_tp = abs(got["loss"] - ref["f32"]["loss"])
+        d_16 = abs(ref["bf16"]["loss"] - ref["f32"]["loss"])
+        worst, at, _ = _grad_distances(got["grads"], ref["f32"]["grads"],
+                                       ref["bf16"]["grads"])
+        per_rank = {r: {k: len(v) for k, v in rec.items()}
+                    for r, rec in sorted(record.items())}
+        say(f"[tp] {c.name} full width, {c.n_layers} layers, mesh (data 1, "
+            f"model {tp}), ranks as threads: build_step loss "
+            f"{got['loss']:.8f}; the unsharded step f32 "
+            f"{ref['f32']['loss']:.8f}, bf16 {ref['bf16']['loss']:.8f}; "
+            f"|tp - f32| {d_tp:.3e} against |bf16 - f32| {d_16:.3e} "
+            f"({d_tp / max(d_16, 1e-30):.2f}x); gradients: worst leaf {at} "
+            f"at {worst:.2f}x the bf16 step's distance; peak "
+            f"{_gib():.2f} GiB; rank 0's step {got['ms']:.1f} ms (threads "
+            f"share the GIL: not a speed)")
+        for r, rec in sorted(record.items()):
+            say(f"[tp]   rank {r}: fake_quant {len(rec['fake_quant'])} "
+                f"launches at {sorted(set(rec['fake_quant']))}; "
+                f"flash_attention {len(rec['flash_attention'])} at "
+                f"{sorted(set(rec['flash_attention']))}")
+        if set(record) != set(range(tp)) or not all(
+                v["fake_quant"] and v["flash_attention"]
+                for v in per_rank.values()):
+            fail(f"tp {tp}: a rank launched no fake_quant or "
+                 f"flash_attention: {per_rank}")
+        want_fq = sum(v["fake_quant"] for v in per_rank.values())
+        want_fa = sum(v["flash_attention"] for v in per_rank.values())
+        if (counts["fake_quant_fwd"], counts["flash_attention"]) != (
+                want_fq, want_fa):
+            fail(f"tp {tp}: the wrappers counted fake_quant "
+                 f"{counts['fake_quant_fwd']}, flash_attention "
+                 f"{counts['flash_attention']}; the ranks called them "
+                 f"{want_fq}, {want_fa}")
+        if d_tp > 2 * d_16 or worst > 2.0:
+            fail(f"tp {tp}: loss |tp - f32| {d_tp} > 2 x {d_16}, or "
+                 f"{at}'s gradient {worst:.2f}x the bf16 step's distance")
+        out[f"tp{tp}"] = {
+            "loss": got["loss"], "f32_loss": ref["f32"]["loss"],
+            "bf16_loss": ref["bf16"]["loss"],
+            "loss_distance_ratio": d_tp / max(d_16, 1e-30),
+            "worst_grad_ratio": worst, "worst_leaf": at,
+            "launches_per_rank": per_rank,
+            "shapes_rank0": {k: sorted(set(v)) for k, v in
+                             record[0].items()},
+            "peak_gib": _gib()}
+        del res, got, record
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3618,6 +3945,13 @@ def main() -> int:
     fa = check_flash_attention(CONFIG)
     fa_zamba = check_flash_attention_fma(ZAMBA2)
     fq_vl_ed = check_fake_quant_vlm_encdec(QWEN2_VL, SEAMLESS)
+    fq_tp = check_fake_quant_tp(CONFIG)
+    c16 = CONFIG.with_padding(tp=TP_SHARDS)
+    fa_tp = check_flash_attention_at(
+        f"qwen3-8b tp{TP_SHARDS} shard", 16, 512, 512,
+        c16.n_heads_padded // TP_SHARDS,
+        max(c16.n_kv_heads_padded // TP_SHARDS, 1), c16.head_dim, True,
+        "wgmma", seed=24)
     S_ENC, S_DEC = ENCDEC_FRAMES, ENCDEC_TRAIN_DATA["seq_len"]
     fa_vl = check_flash_attention_at(
         "qwen2-vl", 16, 512, 512, QWEN2_VL.n_heads, QWEN2_VL.n_kv_heads,
@@ -3709,6 +4043,10 @@ def main() -> int:
     launch = launch_path(CONFIG, SMOKE)
     say(f"[main] phase 24 (launch.serve, check) "
         f"{time.perf_counter() - t24:.1f} s")
+    t25 = time.perf_counter()
+    tp = tp_path(CONFIG)
+    say(f"[main] phase 25 (tensor parallelism, ranks as threads) "
+        f"{time.perf_counter() - t25:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -3776,6 +4114,13 @@ def main() -> int:
                    "launches_bwd": remat_counts["fake_quant_bwd"],
                    "routes": remat, "depth": depth},
          "sharded": sharded,
+         "tp": {"views": fq_tp, **{k: {
+             "launches_per_rank": {r: v["fake_quant"] for r, v in
+                                   rec["launches_per_rank"].items()},
+             "shapes_rank0": rec["shapes_rank0"]["fake_quant"],
+             "loss_distance_ratio": rec["loss_distance_ratio"],
+             "worst_grad_ratio": rec["worst_grad_ratio"]}
+             for k, rec in tp.items()}},
          "paper_cnn": {"launches_fwd": cnn["fake_quant_fwd"],
                        "launches_bwd": cnn["fake_quant_bwd"],
                        "views": fq_cnn},
@@ -3819,7 +4164,12 @@ def main() -> int:
                           launches_serve=vl["flash_attention"]),
          "seamless_m4t": dict(fa_ed, launches=ed_train["flash_attention"],
                               launches_wgmma=ed_train[
-                                  "flash_attention_wgmma"])},
+                                  "flash_attention_wgmma"]),
+         "tp": dict(fa_tp, **{k: {
+             "launches_per_rank": {r: v["flash_attention"] for r, v in
+                                   rec["launches_per_rank"].items()},
+             "shapes_rank0": rec["shapes_rank0"]["flash_attention"]}
+             for k, rec in tp.items()})},
         {"name": "quant_matmul_dequant", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:115",

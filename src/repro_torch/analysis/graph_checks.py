@@ -33,10 +33,9 @@ int8dot          On the serve path the integer weight is the product's
                  through ``kernels.ops.qlinear_deployed`` (the int4 kernel
                  and K1's int8 entry are nodes with integer operands).  An
                  int4 shape the kernel does not tile takes the plain
-                 version, reported as a skip, never silently passed.  The
-                 plain route of an int8 leaf (``use_kernels`` False, and
-                 CPU tensors) widens the weight to f32 and is not held
-                 here: see check_int8dot.
+                 version, reported as a skip, never silently passed.  An
+                 int8 leaf on the card takes K1's int8 entry on both
+                 routes (CPU tensors widen the weight, not traced here).
 prefill-recompile  Attention families pad prompt chunks to a fixed menu
                  (serve/kv_cache.prefill_buckets): the program surface is
                  ``len(menu)``; SSM families keep exact-length chunks and
@@ -588,14 +587,13 @@ def check_int8dot(arch: str, exported, plan) -> list[Diagnostic]:
     """Trace qlinear_deployed per distinct weight signature and prove no
     float weight materialisation feeds a product.
 
-    Each leaf is traced on the plan's route.  With ``plan.use_kernels`` an
-    int8 leaf is K1's int8 entry, one node with the integer operand, and
-    the info message describes that route.  The port's plain route for an
-    int8 leaf (``ref.quant_matmul_int8_ref``: the CPU, or ``use_kernels``
-    False on the card) still widens the weight to f32, so
-    ``analyze_config(arch, use_kernels=False)`` reports an error on each
-    int8 leaf where the JAX package, whose one int8 route is the integer
-    ``dot_general``, reports info."""
+    Each leaf is traced on the plan's route, over fake tensors that take
+    the card's routes.  An int8 leaf is K1's int8 entry on either route,
+    one node with the integer operand, as the JAX package's one int8 route
+    is the integer ``dot_general``: ``analyze_config(arch,
+    use_kernels=False)`` gives the JAX package's ``use_pallas=False``
+    verdicts.  (Only CPU tensors widen the weight, in
+    ``ref.quant_matmul_int8_ref``.)"""
     diags = []
     checked = 0
     for (packed, k_st, n, n_groups), path in \

@@ -160,9 +160,11 @@ def effective_weight(p: Params, cfg: QuantConfig | None,
 def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
             stream: Params | None = None,
             bits: int | None = None,
-            use_kernels: bool = False) -> torch.Tensor:
+            use_kernels: bool = False, reduce=None) -> torch.Tensor:
     """``y = x̂ @ W_eff + b``; ``stream`` supplies both the activation
-    fake-quant and S_wL (paper Appendix D)."""
+    fake-quant and S_wL (paper Appendix D).  ``reduce`` (a row-parallel
+    shard's sum over its group, ``sharding.tp.Group.reduce_from``) is
+    applied to ``x̂ @ W_eff`` before the bias is added."""
     log_sa = None
     if stream is not None and cfg is not None:
         x = stream_fake_quant(x, stream, cfg)
@@ -170,9 +172,55 @@ def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
     w_eff = effective_weight(p, cfg, log_sa, compute_dtype=x.dtype, bits=bits,
                              use_kernels=use_kernels)
     y = torch.matmul(x, w_eff)
+    if reduce is not None:
+        y = reduce(y)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def shard_qlinear(p: Params, axis: str, rank: int, size: int) -> Params:
+    """A quantized linear on a tensor-parallel shard: ``p["w"]`` is already
+    the shard (``"col"``: output columns ``[rank·c, (rank+1)·c)`` of
+    ``size`` such blocks; ``"row"``: input rows so), the other leaves
+    whole.  ``log_swr`` and a column shard's bias are sliced to go with
+    it: S_wR's columns; a group layout's groups of the shard's rows, which
+    must be whole groups.  A row shard keeps its bias whole (it is added
+    after the reduce) and takes its S_wL from its input stream's slice
+    (:func:`shard_stream`).  The slices' fake-quant is elementwise the
+    whole weight's, so its bits are the matching slice of the whole
+    weight's."""
+    w = p["w"]
+    out = dict(p)
+    if axis == "col":
+        c = w.shape[-1]
+        cols = slice(rank * c, (rank + 1) * c)
+        if "b" in p:
+            out["b"] = p["b"][..., cols]
+        if "log_swr" in p and swr_layout_kind(w, p["log_swr"]) != \
+                "layerwise":
+            out["log_swr"] = p["log_swr"][..., cols]
+        return out
+    if "log_swr" in p and swr_layout_kind(w, p["log_swr"]) == "group":
+        rows = w.shape[-2]
+        n_g = p["log_swr"].shape[-2]
+        K = rows * size
+        g = K // n_g
+        if K % n_g or rows % g:
+            raise ValueError(
+                f"a group-wise S_wR of group {K / n_g:g} over a {K}-row "
+                f"weight does not split into whole groups on {size} "
+                f"row-parallel shards of {rows} rows")
+        k = rows // g
+        out["log_swr"] = p["log_swr"][..., rank * k:(rank + 1) * k, :]
+    return out
+
+
+def shard_stream(stream: Params, rank: int, size: int) -> Params:
+    """A stream's ``log_sa``/``zp`` for channels ``[rank·c, (rank+1)·c)``
+    of ``size`` equal blocks: a row-parallel shard's input stream."""
+    c = stream["log_sa"].shape[-1] // size
+    return {k: v[..., rank * c:(rank + 1) * c] for k, v in stream.items()}
 
 
 # ---------------------------------------------------------------------------

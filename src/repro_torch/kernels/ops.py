@@ -29,11 +29,12 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
     dim, take shapes whose N is under or off 64 (N 32 at SMOKE width) where
     this kernel's 64-column tiles do not, and there its route keeps the
     integer weight as the operand.  CPU tensors, and the plain route, take
-    the plain version.  An int8 (exempt, unpacked) leaf goes through
-    ``quant_matmul_int8``: the integer weight is the kernel's operand, with
-    per-group partial sums and the scales hoisted, as the JAX package's
-    integer ``dot_general`` (for CPU tensors, and on the plain route, the
-    plain version, which widens the weight).
+    the plain version.  An int8 (exempt, unpacked) leaf on the card goes
+    through ``quant_matmul_int8`` on either route: the integer weight is
+    the kernel's operand, with per-group partial sums and the scales
+    hoisted, as the JAX package's one int8 route, the integer
+    ``dot_general``, whatever its ``use_pallas``.  CPU tensors take the
+    plain version, which widens the weight.
     """
     if plan is not None:
         use_kernels = plan.use_kernels
@@ -56,7 +57,7 @@ def qlinear_deployed(x: torch.Tensor, export: dict, use_kernels: bool = True,
             y = quant_matmul_int8(x2, q, s_wl, s_wr)
         else:
             y = ref.quant_matmul_ref(x2, q, s_wl, s_wr)
-    elif use_kernels:
+    elif on_card(x2):
         y = quant_matmul_int8(x2, q, s_wl, s_wr)
     else:
         y = ref.quant_matmul_int8_ref(x2, q, s_wl, s_wr)

@@ -26,10 +26,14 @@ The step of a cell:
   divide) and their cache.
 
 Where this moves other bytes than the JAX package's GSPMD compute, it
-reports what the port does: the ``model`` axis shards storage, not compute
-(every rank of a model group gathers each layer's leaves whole and runs the
-same forward; tensor-parallel compute is ROADMAP Queue 1 item 4), so the
-collectives are per-layer all-gathers and the gradient reductions.
+reports what the port does.  In a train cell the ``model`` axis computes
+the dense attention, the dense MLP and the embedding on shards
+(``sharding.tp``): per-layer all-gathers over ``data``, the KV-group
+gathers, the *f*/*g* all-reduces over ``model`` and the gradient
+reductions; the MoE experts, MLA, Mamba2, the hybrid's shared block and
+the encoder-decoder's layers are gathered whole and repeated by every rank
+of a model group (ROADMAP Queue 1).  The inference cells gather every
+layer whole.
 
 The port's graphs are unrolled.  A cell is traced at 1 and 2 layer units
 (a hybrid's unit is ``attn_every`` layers; an encoder-decoder's one encoder

@@ -219,14 +219,17 @@ def memory_summary(param_bytes: float, optimizer_bytes: float, batch,
 
 
 def _group_size(node, n_devices: int) -> int:
-    for a in node.args:
-        if isinstance(a, str):
-            try:
-                from torch.distributed.distributed_c10d import \
-                    _resolve_process_group
-                return _resolve_process_group(a).size()
-            except (RuntimeError, ValueError, KeyError):
-                break
+    """The size of the group a collective node runs over: its group name
+    is its last string argument (an all-reduce's first is its reduce
+    op)."""
+    names = [a for a in node.args if isinstance(a, str)]
+    if names:
+        try:
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+            return _resolve_process_group(names[-1]).size()
+        except (RuntimeError, ValueError, KeyError):
+            pass
     return n_devices
 
 

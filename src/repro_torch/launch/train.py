@@ -17,18 +17,23 @@ the teacher and Adam's ``m``/``v`` are DTensors placed by
 ``sharding.partition``'s specs (ZeRO-style storage over ``data`` and
 ``model``).  A step splits the batch over the ``dp`` axes and runs
 ``train.steps.make_value_and_grad`` on the rank's rows over the DTensor
-trees: the forward (``models.transformer``) gathers each layer's leaves to
-plain local tensors at the start of that layer's body, inside the remat
-region, so the kernels never see a DTensor and, under remat, a rank holds
-one layer's whole weights at a time beside its shards (the backward
-gathers them again).  The embedding, the head and the final norms are
-gathered for the whole forward.  The gathers' backward takes each
-gradient as a partial sum over every mesh axis; scaled by ``1 / ranks``,
-the gradients arrive summed onto the shards' placements, the gradient one
-process computes over the whole batch.  Adam then updates each rank's
-shards.  The ``model`` axis shards storage, not compute: every rank of a
-model group runs the same forward.  A checkpoint is written whole by
-every rank (``train.checkpoint``, one leaf gathered at a time).
+trees.  The ``model`` axis computes (``sharding.tp``, Megatron's layout, as
+the JAX package's GSPMD computes its placements): the dense attention and
+MLP of each layer run on the rank's columns, rows and heads, with *f*/*g*
+all-reduces over ``model``, and the embedding on its vocabulary rows;
+their weights are gathered over the ``dp`` axes only, at the start of the
+layer's body, inside the remat region.  What does not run on shards —
+the MoE experts, MLA, Mamba2, the hybrid's shared block, the
+encoder-decoder's layers, the head and the final norms — is gathered whole
+(a layer's leaves in its body, the rest for the whole forward) and
+repeated by every rank of a model group.  Each view states how the rank's
+gradient relates to its group's (``sharding.tp``'s rule); the gradients
+arrive summed onto the shards' placements and, divided by the ``dp``
+size, are the gradient one process computes over the whole batch.  Adam
+then updates each rank's shards.  At ``model`` size 1 the step is the
+storage-only one: every leaf gathered whole, each gradient a partial sum
+over every axis.  A checkpoint is written whole by every rank
+(``train.checkpoint``, one leaf gathered at a time).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from ..pipeline.adapters import resolve_quant_plan
 from ..sharding.partition import (ShardingPolicy, axis_size, batch_shardings,
                                   opt_state_shardings, params_shardings,
                                   spec_at, to_placements)
+from ..sharding.tp import model_size, prepare as tp_prepare
 from ..train.checkpoint import CheckpointManager
 from ..train.elastic import ElasticConfig, ElasticRunner
 from ..train.qft_trainer import QFTConfig, QFTTrainer
@@ -112,16 +118,24 @@ def sharded_value_and_grad(cfg, qcfg, mesh, pol: ShardingPolicy,
                            microbatches: int = 1, plan=None) -> Callable:
     """``value_and_grad(student, teacher, batch) -> (loss, grads)`` over
     DTensor trees: ``loss`` the whole batch's, ``grads`` DTensors on the
-    student's placements (None where no gradient reaches)."""
+    student's placements (None where no gradient reaches).
+
+    Each leaf's gradient arrives as the sum over the ``dp`` axes of the
+    ranks' gradients of their rows, and over ``model`` as the rule of
+    ``sharding.tp`` has it; divided by the ``dp`` size it is the whole
+    batch's.  (At ``model`` size 1 every gradient is a partial sum over
+    the mesh, and the ``dp`` size is the mesh's.)"""
     local = make_value_and_grad(cfg, qcfg, microbatches=microbatches,
                                 plan=plan)
-    n = mesh.size()
+    n = mesh.size() // model_size(mesh)
+    tp_prepare(mesh, cfg)
 
     def value_and_grad(student, teacher, batch):
         loss, grads = local(student, teacher, local_rows(batch, mesh, pol))
         grads = tree_from_items((p, None if g is None else g / n)
                                 for p, g in tree_items(grads))
-        return _mesh_sum(loss.to(torch.float32) / n, mesh), grads
+        # every rank of a model group holds its group's loss
+        return _mesh_sum(loss.to(torch.float32) / mesh.size(), mesh), grads
 
     return value_and_grad
 

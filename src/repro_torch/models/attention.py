@@ -224,7 +224,7 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, positions: torch.Tensor,
               cache: Params | None = None, plan=None,
               use_kernels: bool = False, taps: dict | None = None,
-              prefix: str = "") -> torch.Tensor:
+              prefix: str = "", tp=None) -> torch.Tensor:
     """GQA forward; writes this step's K/V into ``cache`` (in place) when one
     is given.  ``positions`` is ``[B, S]``, or ``[B, 3, S]`` under M-RoPE
     (``cfg.mrope_sections``).  Cache modes: none (full sequence, causal);
@@ -237,18 +237,30 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     through ``kernels.ops.attention_prefill`` under :func:`prefill_route`
     (``_sdpa`` / ``_paged_sdpa`` are the plain route) and the weights'
     fake-quant through the ``fake_quant`` kernel.  ``taps`` records
-    ``{prefix}.pre_o``."""
+    ``{prefix}.pre_o``.
+
+    ``tp`` (a ``sharding.tp.Group``, cache-free forwards only): ``p`` is
+    the rank's shard (``sharding.tp.layer_view``): ``wq`` the columns of
+    its query heads, ``wk``/``wv`` those of the KV heads they read,
+    ``wo`` its rows; the input passes *f*, ``wo``'s product *g*.  The head
+    counts are read off the weights' shapes, so one code serves both."""
     B, Sq, _ = x.shape
     hd = cfg.head_dim
-    H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
     pv = plan_view(plan)
     ins = p.get("in_stream")
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("a forward with a cache gathers its layers "
+                             "whole; tensor parallelism is for the "
+                             "cache-free forward")
+        x = tp.copy_to(x)
     q = dof.qlinear(x, p["wq"], qcfg, stream=ins, bits=pv.bits("wq"),
-                    use_kernels=use_kernels).reshape(B, Sq, H, hd)
+                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
     k = dof.qlinear(x, p["wk"], qcfg, stream=ins, bits=pv.bits("wk"),
-                    use_kernels=use_kernels).reshape(B, Sq, Hkv, hd)
+                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
     v = dof.qlinear(x, p["wv"], qcfg, stream=ins, bits=pv.bits("wv"),
-                    use_kernels=use_kernels).reshape(B, Sq, Hkv, hd)
+                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
+    H, Hkv = q.shape[2], k.shape[2]
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
     if cfg.mrope_sections:
@@ -281,7 +293,8 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     out = out.reshape(B, Sq, H * hd)
     tap(taps, prefix + ".pre_o", out)
     return dof.qlinear(out, p["wo"], qcfg, stream=p.get("out_stream"),
-                       bits=pv.bits("wo"), use_kernels=use_kernels)
+                       bits=pv.bits("wo"), use_kernels=use_kernels,
+                       reduce=None if tp is None else tp.reduce_from)
 
 
 def cross_attention(x: torch.Tensor, enc_out: torch.Tensor | None,

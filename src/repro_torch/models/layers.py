@@ -105,13 +105,20 @@ def init_mlp(gen: torch.Generator, d: int, ff: int,
 
 def mlp(x: torch.Tensor, p: Params, qcfg: QuantConfig | None,
         plan=None, taps: dict | None = None, prefix: str = "",
-        use_kernels: bool = False, mlp_type: str = "swiglu") -> torch.Tensor:
+        use_kernels: bool = False, mlp_type: str = "swiglu",
+        tp=None) -> torch.Tensor:
     """SwiGLU (or ``mlp_type="gelu"``: GELU's tanh form, ``jax.nn.gelu``'s
     default) forward; ``plan`` (scoped to e.g. ``layers.mlp``) supplies
     per-path fake-quant bits; ``taps`` records ``{prefix}.act``;
-    ``use_kernels`` routes the weights' fake-quant through the kernel."""
+    ``use_kernels`` routes the weights' fake-quant through the kernel.
+
+    ``tp`` (a ``sharding.tp.Group``): ``p`` is the rank's shard
+    (``sharding.tp.layer_view``): ``up``/``gate`` its columns, ``down`` its
+    rows; the input passes *f*, ``down``'s product *g*."""
     pv = plan_view(plan)
     ins = p.get("in_stream")
+    if tp is not None:
+        x = tp.copy_to(x)
     up = dof.qlinear(x, p["up"], qcfg, stream=ins, bits=pv.bits("up"),
                      use_kernels=use_kernels)
     if mlp_type == "swiglu":
@@ -122,7 +129,8 @@ def mlp(x: torch.Tensor, p: Params, qcfg: QuantConfig | None,
         h = torch.nn.functional.gelu(up, approximate="tanh")
     tap(taps, prefix + ".act", h)
     return dof.qlinear(h, p["down"], qcfg, stream=p.get("act_stream"),
-                       bits=pv.bits("down"), use_kernels=use_kernels)
+                       bits=pv.bits("down"), use_kernels=use_kernels,
+                       reduce=None if tp is None else tp.reduce_from)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int,
@@ -136,11 +144,24 @@ def init_embed(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed_lookup(tokens: torch.Tensor, p: Params, qcfg: QuantConfig | None,
-                 dtype=torch.bfloat16, use_kernels: bool = False) -> torch.Tensor:
+                 dtype=torch.bfloat16, use_kernels: bool = False,
+                 tp=None) -> torch.Tensor:
     """Rows of the (student: per-row fake-quantized) table; the
-    fake-quant takes the weights' route (``core.dof.weight_fake_quant``)."""
+    fake-quant takes the weights' route (``core.dof.weight_fake_quant``).
+
+    ``tp`` (a ``sharding.tp.Group``): ``p`` holds the rank's block of
+    vocabulary rows (``sharding.tp.embed_view``); a token outside it gives
+    a zero row, and *g* sums the group's rows (one of them is the
+    token's, so the sum is that row's bits)."""
     w = p["w"]
     if qcfg is not None:
         w = dof.weight_fake_quant(w, torch.exp(p["log_s"]), qcfg.embed_bits,
                                   use_kernels)
-    return w[tokens].to(dtype)
+    if tp is None:
+        return w[tokens].to(dtype)
+    n = w.shape[0]
+    local = tokens - tp.rank * n
+    hit = (local >= 0) & (local < n)
+    rows = w[torch.where(hit, local, torch.zeros_like(local))]
+    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    return tp.reduce_from(rows.to(dtype))

@@ -24,14 +24,22 @@ dots_with_no_batch_dims_saveable`` does, and recomputes batched products
 everything.  A recompute runs the weights' fake-quant forward again.
 
 A DTensor leaf (``launch.train``'s sharded step stores the student and the
-teacher so) is gathered to its whole value where it is used: a layer's
-leaves at the start of that layer's body, inside the remat region (so
-under remat only one layer's whole weights live at a time, and the
-backward gathers them again), the embedding, head and final norms at the
-start of the forward.  The gather's backward takes the gradient as a
-partial sum over every mesh axis, which the sharded step's loss scaling
-makes the whole batch's gradient.  The batch itself is split over the
-``dp`` axes before the forward (``launch.train.local_rows``).
+teacher so) is taken where it is used, as ``sharding.tp`` views it: a
+layer's leaves at the start of that layer's body, inside the remat region
+(so under remat only one layer's weights live at a time, and the backward
+takes them again), the embedding, head and final norms at the start of
+the forward.  In a cache-free forward (the train step's) on a mesh whose
+``model`` axis has more than one rank, the dense attention (not MLA) and
+the dense MLP (not MoE) of a stacked layer run on the rank's shards —
+columns, rows and heads, with *f*/*g* over ``model`` — and the embedding
+on its vocabulary rows (``sharding.tp.layer_view``, ``embed_view``);
+every other leaf is gathered whole: the MoE experts, MLA, Mamba2, the
+hybrid's shared block, the encoder-decoder's layers, the head, the norms.
+A forward with a cache (prefill and decode: the engine, the dry-run's
+inference cells) gathers every leaf whole.  Each view states how its
+gradient relates to the model group's (``sharding.tp``'s rule).  The
+batch itself is split over the ``dp`` axes before the forward
+(``launch.train.local_rows``).
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ..core import dof
 from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..device import resolve_device
+from ..sharding import tp as tp_lib
 from ..tree import tree_from_items, tree_items
 from .attention import (attention, cross_attention, init_attention,
                         init_kv_cache, init_mla, init_mla_cache, mla_attention)
@@ -81,21 +90,6 @@ def set_runtime(**kw) -> None:
     forward's route, e.g. ``sharding.ep.make_ep_moe``'s; None from it falls
     back to the in-graph path)."""
     _RUNTIME.update(kw)
-
-
-def _local(tree):
-    """``tree`` with each DTensor leaf gathered to its whole value (a plain
-    tensor); its backward takes the gradient as a partial sum over every
-    mesh axis.  Plain leaves are kept."""
-    if isinstance(tree, dict):
-        return {k: _local(v) for k, v in tree.items()}
-    if not hasattr(tree, "full_tensor"):
-        return tree
-    from torch.distributed.tensor import Partial
-    if not torch.is_grad_enabled():
-        return tree.full_tensor()
-    return tree.full_tensor(
-        grad_placements=(Partial(),) * tree.device_mesh.ndim)
 
 
 #: the stacked layer trees, gathered one layer at a time
@@ -318,7 +312,10 @@ def unstack(tree) -> list:
 
 def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
                 prefix):
-    lp = _local(lp)
+    if cache is None:
+        lp, attn_tp, mlp_tp = tp_lib.layer_view(lp, cfg)
+    else:
+        lp, attn_tp, mlp_tp = tp_lib.gather(lp), None, None
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".attn_in", h)
     if cfg.mla is not None:           # taps nothing inside, as the JAX package
@@ -327,7 +324,7 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     else:
         a = attention(h, lp["attn"], cfg, qcfg, positions, cache,
                       plan=pv.child("attn"), use_kernels=use_kernels,
-                      taps=taps, prefix=prefix + ".attn")
+                      taps=taps, prefix=prefix + ".attn", tp=attn_tp)
     tap(taps, prefix + ".attn_out", a)
     x = x + a
     h = rmsnorm(x, lp["norm2"])
@@ -340,13 +337,13 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     else:
         m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
                 prefix=prefix + ".mlp", use_kernels=use_kernels,
-                mlp_type=cfg.mlp)
+                mlp_type=cfg.mlp, tp=mlp_tp)
     tap(taps, prefix + ".mlp_out", m)
     return x + m
 
 
 def _ssm_layer(x, lp, cfg, qcfg, c, pv, use_kernels, taps, prefix):
-    lp = _local(lp)
+    lp = tp_lib.gather(lp)
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".ssm_in", h)
     y = ssm_block(h, lp["ssm"], cfg, qcfg, c, taps=taps,
@@ -424,6 +421,10 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops
     it from a step whose loss reads only the hidden states.
 
+    DTensor parameters (the sharded step's) are computed on the rank's
+    shards where the module docstring says; with a cache every leaf is
+    gathered whole.
+
     The batch holds ``tokens [B, S]``, and may hold ``positions`` (``[B,
     S]``, or ``[B, 3, S]`` under M-RoPE); the VLM's ``patch_embeds [B,
     S_img, d]`` go before the token embeddings (``positions`` then covers
@@ -433,21 +434,25 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     slot), the three M-RoPE streams equal.
     """
     _require_family(cfg)
-    params = {k: v if k in _STACKS
+    embed_tp = None
+    if cache is None and not (logits and cfg.tie_embeddings):
+        params = {**params}
+        params["embed"], embed_tp = tp_lib.embed_view(params["embed"])
+    params = {k: v if k in _STACKS or (k == "embed" and embed_tp)
               or (not logits and k in ("lm_head", "head_stream"))
-              else _local(v) for k, v in params.items()}
+              else tp_lib.gather(v) for k, v in params.items()}
     pv = plan_view(plan)
     taps: dict | None = {} if collect_taps else None
     if cfg.family == "encdec":
         h, enc_out = _forward_encdec(params, cfg, qcfg, batch, cache, pv,
-                                     use_kernels, compute_dtype)
+                                     use_kernels, compute_dtype, embed_tp)
         out = _head(params, cfg, qcfg, h, pv, use_kernels) if logits else None
         return {"hidden": h, "logits": out, "cache": cache, "taps": taps,
                 "enc_out": enc_out}
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, tp=embed_tp)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(compute_dtype), x], dim=1)
     S = x.shape[1]
@@ -504,7 +509,7 @@ def _head(params, cfg, qcfg, h, pv, use_kernels) -> torch.Tensor:
 
 
 def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
-                    compute_dtype) -> tuple[torch.Tensor, Any]:
+                    compute_dtype, embed_tp=None) -> tuple[torch.Tensor, Any]:
     """The encoder over ``frames`` (skipped when the cache's cross K/V are
     filled), then the decoder: causal self-attention (RoPE), cross
     attention over the encoder output, the MLP, each pre-norm and
@@ -527,7 +532,7 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
             torch.arange(Se, device=e.device)[None], (Be, Se))
 
         def enc_layer(e, lp):
-            lp = _local(lp)
+            lp = tp_lib.gather(lp)
             e = e + attention(rmsnorm(e, lp["norm1"]), lp["attn"], cfg,
                               qcfg, epos, None, plan=epv.child("attn"),
                               use_kernels=use_kernels)
@@ -543,7 +548,7 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], qcfg, compute_dtype,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, tp=embed_tp)
     self_c = None if cache is None else cache["self"]
     base = 0 if self_c is None else self_c["pos"]
     positions = torch.broadcast_to(
@@ -551,7 +556,7 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
     new_k, new_v = [], []
 
     def dec_layer(x, lp, sc, kv):
-        lp = _local(lp)
+        lp = tp_lib.gather(lp)
         x = x + attention(rmsnorm(x, lp["norm1"]), lp["attn"], cfg, qcfg,
                           positions, sc, plan=dpv.child("attn"),
                           use_kernels=use_kernels)

@@ -1,2 +1,2 @@
-"""Sharding rules (``partition``) and the expert-parallel MoE (``ep``) over
-``torch.distributed``."""
+"""Sharding rules (``partition``), tensor-parallel compute over ``model``
+(``tp``) and the expert-parallel MoE (``ep``) over ``torch.distributed``."""

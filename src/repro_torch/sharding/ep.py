@@ -18,12 +18,12 @@ the model group per layer:
 Differentiable end to end: each exchange is an ``autograd.Function``
 whose backward is the reverse all-to-all; the sequence split's backward
 gathers the slices' gradients and the gather's backward keeps the rank's
-own slice.  Gradients are partial sums in the sharded train step
-(``launch.train``): every rank's contribution is summed and the loss is
-scaled by ``1 / world``, so the computation a model group repeats on
-every rank counts once.  The expert path is not repeated — each rank
-routes its own tokens — so its parameters' gradients are scaled back by
-``tp`` here.
+own slice.  The expert path is not repeated over the model group — each
+rank routes its own tokens — so each rank's gradient of the block's
+parameters is a partial sum over ``model``; they pass Megatron's *f*
+(``sharding.tp.copy_to``: an all-reduce over ``model`` backward), so every
+rank holds the group's whole gradient, as the sharded train step
+(``launch.train``) takes a block gathered whole (``sharding.tp.gather``).
 
 Decode steps (``S`` not divisible by ``tp``) return None: the in-graph
 path runs.
@@ -39,6 +39,7 @@ from ..core.plan import plan_view
 from ..core.qconfig import QuantConfig
 from ..models import moe as moe_lib
 from ..models.config import ModelConfig
+from . import tp as tp_lib
 
 Params = dict[str, Any]
 
@@ -110,17 +111,6 @@ def _gather_seq(x: torch.Tensor, group, tp: int) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-class _ScaleGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, k: float):
-        ctx.k = k
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g * ctx.k, None
-
-
 def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
                 dp_axes=("data",), tp_axis: str = "model", plan=None):
     """Returns ``moe_fn(x [B, S, d], layer_params, use_kernels) -> y [B, S,
@@ -160,7 +150,7 @@ def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
             else None
         ep = {k: v for k, v in p.items() if not k.startswith("shared_")}
         if tp > 1:
-            ep = {k: _scale_tree(v, float(tp)) for k, v in ep.items()}
+            ep = {k: _copy_tree(v, group) for k, v in ep.items()}
             x = _SplitSeq.apply(x, group, tp, rank)
         shard = {**ep, **{k: local_experts(ep[k])
                           for k in ("up", "gate", "down")}}
@@ -180,7 +170,7 @@ def make_ep_moe(mesh, cfg: ModelConfig, qcfg: QuantConfig | None,
     return moe_fn
 
 
-def _scale_tree(node, k: float):
+def _copy_tree(node, group):
     if isinstance(node, dict):
-        return {n: _scale_tree(v, k) for n, v in node.items()}
-    return _ScaleGrad.apply(node, k)
+        return {n: _copy_tree(v, group) for n, v in node.items()}
+    return tp_lib.copy_to(node, group)

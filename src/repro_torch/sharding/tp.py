@@ -1,0 +1,436 @@
+"""Tensor parallelism over ``model`` inside the sharded QFT step: Megatron's
+layout, as the JAX package's GSPMD computes its ``sharding/partition.py``
+placements.
+
+A rank of a ``model`` group computes its own slice of a dense layer:
+
+- column-parallel ``wq``/``wk``/``wv``/``gate``/``up``: the replicated
+  normed residual times the rank's output columns, after Megatron's *f*
+  (:func:`copy_to`: identity forward, all-reduce over ``model`` backward);
+- row-parallel ``wo``/``down``: the rank's activations times its input
+  rows, a partial sum, then *g* (:func:`reduce_from`: all-reduce forward,
+  identity backward); a bias is added once, after the reduce;
+- attention on the rank's query heads.  With fewer KV heads than ranks a
+  KV head's columns lie on ``tp / Hkv`` ranks: those ranks gather the
+  weight's columns among themselves (:func:`gather_kv`, a reduce-scatter
+  backward), never the whole ``wk``/``wv``.  The weight, not the k/v
+  activations: at a train shape the head's ``[d, hd]`` columns are far
+  fewer bytes than ``[B, S, hd]``, and the fake-quant being elementwise the
+  gathered columns quantize to the whole weight's bits;
+- the embedding by vocabulary rows: each rank looks up its rows, masks the
+  tokens outside them, and *g* sums the group's rows.
+
+Leaves are stored as ``sharding.partition`` places them; a rank's views
+are taken where a layer uses them (:func:`layer_view`, inside the remat
+region): a ``model``-sharded weight keeps its shard and is gathered over
+the other axes only; a replicated leaf is taken whole and sliced as its
+weight's shard needs (``core.dof.shard_qlinear``, ``shard_stream``).
+
+**The gradient rule** (:data:`SHARD`, :data:`PARTIAL`, :data:`WHOLE`):
+each view declares how the rank's gradient of the leaf relates to its
+``model`` group's, as the placement on ``model`` of the view's gradient.
+Over the ``dp`` axes it is always a partial sum (each rank holds its rows
+of the batch), so the step's gradients are the sums over ``dp`` divided by
+the ``dp`` size (``launch.train.sharded_value_and_grad``):
+
+- ``SHARD``: a ``model``-sharded weight computed on its shard: the rank's
+  gradient is the group's for its rows or columns;
+- ``PARTIAL``: a replicated leaf that only the rank's share reaches (a
+  sliced ``log_swr`` or bias, a stream's ``log_sa``/``zp`` through S_wL and
+  the activation fake-quant before *f*, ``q_norm``/``k_norm`` on the
+  rank's heads, the embedding's ``log_s``): summed over ``model``;
+- ``WHOLE``: a leaf every rank of the group computes in full — what sees
+  the replicated residual after *f*'s backward (``norm1``, ``norm2``,
+  ``final_norm``), a row-parallel bias, and every leaf of a block that is
+  gathered whole (:func:`gather`).
+
+At ``model`` size 1 nothing here runs: :func:`gather` takes today's whole
+gather, every gradient a partial sum over every axis (``launch.train``
+divides by the mesh size, which is then the ``dp`` size).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from ..core import dof
+
+#: the mesh axis that computes on shards
+AXIS = "model"
+
+#: the view kinds of the gradient rule (see the module docstring)
+SHARD, PARTIAL, WHOLE = "shard", "partial", "whole"
+
+
+def _dtensor_mod():
+    from torch.distributed import tensor
+    return tensor
+
+
+def _funcol():
+    import torch.distributed._functional_collectives as funcol
+    return funcol
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    wait = getattr(t, "wait", None)
+    return wait() if callable(wait) else t
+
+
+def is_dtensor(t) -> bool:
+    return hasattr(t, "device_mesh") and hasattr(t, "to_local")
+
+
+def model_size(mesh) -> int:
+    """The ``model`` axis's size on ``mesh`` (1 where it has none)."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index(AXIS)) if AXIS in names else 1
+
+
+# --------------------------------------------------------------------------
+# f, g and the KV-group gather: functional collectives, so a make_fx trace
+# records them (the dry-run counts their bytes)
+# --------------------------------------------------------------------------
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return _wait(_funcol().all_reduce(x.contiguous(), "sum", group))
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's *f*: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's *g*: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _collective(new: str, old: str):
+    """A functional collective by its current name (``*_single``), or by
+    the name older torch releases have."""
+    f = _funcol()
+    return getattr(f, new, None) or getattr(f, old)
+
+
+class _GatherCols(torch.autograd.Function):
+    """The ranks' column blocks side by side (all-gather on the last
+    dimension); backward sums the gradient's blocks over the group and
+    keeps the rank's (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, w, group, n: int):
+        ctx.group, ctx.n = group, n
+        gather = _collective("all_gather_single", "all_gather_tensor")
+        parts = _wait(gather(w.movedim(-1, 0).contiguous(), 0, group))
+        return parts.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        scatter = _collective("reduce_scatter_single",
+                              "reduce_scatter_tensor")
+        part = _wait(scatter(g.movedim(-1, 0).contiguous(), "sum", 0,
+                             ctx.group))
+        return part.movedim(0, -1).contiguous(), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """*f* over ``group``."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """*g* over ``group``."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_kv(w: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``w``'s columns gathered over the ``n`` ranks of ``group`` (the
+    ranks that hold one KV head between them)."""
+    return _GatherCols.apply(w, group, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """A rank's ``model`` group, for a block computed on shards: the
+    compute side (``models.attention``, ``models.layers``) calls
+    :meth:`copy_to` on a block's input and :meth:`reduce_from` on a
+    row-parallel product; ``rank`` places the embedding's rows."""
+    group: Any
+    size: int
+    rank: int
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to(x, self.group)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_from(x, self.group)
+
+
+#: the KV groups made for a model group: its process group's id → (the
+#: process group, kept so the id is not reused; {ranks a head: group})
+_KV_GROUPS: dict[int, tuple[Any, dict]] = {}
+
+
+def _kv_group(mesh, s: int):
+    """The process group of this rank's ``s`` consecutive ``model`` ranks
+    (one KV head's).  Every rank makes every such group of the mesh, in
+    the same order, the first time (``new_group`` is collective)."""
+    names = mesh.mesh_dim_names
+    if names[-1] != AXIS:
+        raise ValueError(f"the {AXIS!r} axis must be the mesh's last: "
+                         f"{names}")
+    pg = mesh.get_group(AXIS)
+    _, made = _KV_GROUPS.setdefault(id(pg), (pg, {}))
+    if s not in made:
+        ranks = mesh.mesh.reshape(-1, s).tolist()
+        mine = None
+        for r in ranks:
+            g = dist.new_group(ranks=r)
+            if dist.get_rank() in r:
+                mine = g
+        made[s] = mine
+    return made[s]
+
+
+def prepare(mesh, cfg) -> None:
+    """Make the process groups the forward of ``cfg`` on ``mesh`` will ask
+    for (the KV groups, where ``cfg`` has fewer KV heads than ``model``
+    has ranks), so a traced step finds them made: making them reads the
+    mesh's rank tensor, which a ``make_fx`` trace cannot."""
+    size = model_size(mesh)
+    hkv = cfg.n_kv_heads_padded
+    if size > 1 and hkv < size and size % hkv == 0:
+        _kv_group(mesh, size // hkv)
+
+
+# --------------------------------------------------------------------------
+# views: the rank's plain tensors of DTensor leaves, with the gradient rule
+# --------------------------------------------------------------------------
+
+def view(t, kind: str) -> torch.Tensor:
+    """The rank's plain tensor of the DTensor ``t`` for a view of
+    ``kind``: ``SHARD`` keeps ``t``'s ``model`` shard and gathers the other
+    axes; ``PARTIAL`` and ``WHOLE`` gather ``t`` whole.  Where a gradient
+    is taken, the view's gradient is declared a partial sum over every
+    other axis and, over ``model``, the shard's (``SHARD``), a partial sum
+    (``PARTIAL``) or the same on every rank (``WHOLE``)."""
+    dt = _dtensor_mod()
+    mesh = t.device_mesh
+    m = mesh.mesh_dim_names.index(AXIS)
+    keep = t.placements[m] if kind == SHARD else dt.Replicate()
+    target = tuple(keep if i == m else dt.Replicate()
+                   for i in range(mesh.ndim))
+    t = t.redistribute(mesh, target)
+    if not torch.is_grad_enabled():
+        return t.to_local()
+    on_model = {SHARD: keep, PARTIAL: dt.Partial(), WHOLE: dt.Replicate()}
+    grad = tuple(on_model[kind] if i == m else dt.Partial()
+                 for i in range(mesh.ndim))
+    return t.to_local(grad_placements=grad)
+
+
+def gather(tree):
+    """``tree`` with each DTensor leaf gathered to its whole value (a plain
+    tensor); plain leaves are kept.  On a mesh whose ``model`` axis has
+    more than one rank the gather's gradient is ``WHOLE`` (every rank of
+    the group runs the block in full); else a partial sum over every axis,
+    the gather at ``model`` size 1."""
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    if model_size(tree.device_mesh) > 1:
+        return view(tree, WHOLE)
+    from torch.distributed.tensor import Partial
+    if not torch.is_grad_enabled():
+        return tree.full_tensor()
+    return tree.full_tensor(
+        grad_placements=(Partial(),) * tree.device_mesh.ndim)
+
+
+def _model_shard_dim(t) -> int | None:
+    """The tensor dimension ``t`` is sharded on over ``model`` (counted
+    from the end, -1 or -2), or None."""
+    from torch.distributed.tensor import Shard
+    pl = t.placements[t.device_mesh.mesh_dim_names.index(AXIS)]
+    return pl.dim - t.ndim if isinstance(pl, Shard) else None
+
+
+def _group_of(tree) -> tuple[Any, Group] | None:
+    """``(mesh, Group)`` of the first DTensor leaf of ``tree`` on a mesh
+    whose ``model`` axis has more than one rank, else None."""
+    leaves = [tree] if not isinstance(tree, dict) else list(_leaves(tree))
+    for t in leaves:
+        if is_dtensor(t):
+            mesh = t.device_mesh
+            size = model_size(mesh)
+            if size <= 1:
+                return None
+            return mesh, Group(mesh.get_group(AXIS), size,
+                               mesh.get_local_rank(AXIS))
+    return None
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _qlinear_view(p: dict, axis: str, rank: int, size: int,
+                  w: torch.Tensor | None = None) -> dict:
+    """A quantized linear's views on a ``"col"``/``"row"`` shard: the weight
+    ``SHARD`` (or ``w``, a view made by the caller), the bias ``WHOLE`` on
+    a row-parallel weight (added after the reduce), every other leaf
+    ``PARTIAL``; then the scale DoF and bias sliced to the shard."""
+    out = {}
+    for k, t in p.items():
+        if k == "w":
+            out[k] = view(t, SHARD) if w is None else w
+        else:
+            out[k] = view(t, WHOLE if k == "b" and axis == "row"
+                          else PARTIAL)
+    return dof.shard_qlinear(out, axis, rank, size)
+
+
+def _stream_view(s: dict, rank: int | None = None, size: int = 1) -> dict:
+    """A stream's ``PARTIAL`` views, sliced to the rank's channels when
+    ``rank`` is given (a row-parallel weight's input stream)."""
+    out = {k: view(t, PARTIAL) for k, t in s.items()}
+    return out if rank is None else dof.shard_stream(out, rank, size)
+
+
+def _attn_split(p: dict, hd: int, size: int) -> int | None:
+    """How many ranks hold one KV head between them (1: each rank holds
+    whole KV heads), or None where the attention block cannot run on
+    shards: a weight not split on ``model`` as the layout has it, or heads
+    that do not fall whole onto ranks."""
+    dims = {n: _model_shard_dim(p[n]["w"]) for n in ("wq", "wk", "wv", "wo")}
+    if dims != {"wq": -1, "wk": -1, "wv": -1, "wo": -2}:
+        return None
+    if p["wq"]["w"].shape[-1] % (size * hd):
+        return None
+    cols = p["wk"]["w"].shape[-1] // size
+    if cols % hd == 0:
+        return 1
+    if hd % cols == 0 and size % (hd // cols) == 0:
+        return hd // cols
+    return None
+
+
+def _attn_view(p: dict, g: Group, mesh, hd: int, split: int) -> dict:
+    out = {"wq": _qlinear_view(p["wq"], "col", g.rank, g.size),
+           "wo": _qlinear_view(p["wo"], "row", g.rank, g.size)}
+    kv = None if split == 1 else _kv_group(mesh, split)
+    for n in ("wk", "wv"):
+        if kv is None:
+            out[n] = _qlinear_view(p[n], "col", g.rank, g.size)
+        else:           # the whole KV head, from the ranks that share it
+            w = gather_kv(view(p[n]["w"], SHARD), kv, split)
+            out[n] = _qlinear_view(p[n], "col", g.rank // split,
+                                   g.size // split, w=w)
+    for n in ("q_norm", "k_norm"):
+        if n in p:
+            out[n] = {k: view(t, PARTIAL) for k, t in p[n].items()}
+    if "in_stream" in p:
+        out["in_stream"] = _stream_view(p["in_stream"])
+    if "out_stream" in p:
+        out["out_stream"] = _stream_view(p["out_stream"], g.rank, g.size)
+    unknown = set(p) - set(out)
+    if unknown:
+        raise ValueError(f"attention leaves with no tensor-parallel view: "
+                         f"{sorted(unknown)}")
+    return out
+
+
+def _mlp_fits(p: dict) -> bool:
+    want = {"up": -1, "gate": -1, "down": -2}
+    return all(_model_shard_dim(p[n]["w"]) == d for n, d in want.items()
+               if n in p) and "up" in p and "down" in p
+
+
+def _mlp_view(p: dict, g: Group) -> dict:
+    out = {}
+    for n in ("up", "gate"):
+        if n in p:
+            out[n] = _qlinear_view(p[n], "col", g.rank, g.size)
+    out["down"] = _qlinear_view(p["down"], "row", g.rank, g.size)
+    if "in_stream" in p:
+        out["in_stream"] = _stream_view(p["in_stream"])
+    if "act_stream" in p:
+        out["act_stream"] = _stream_view(p["act_stream"], g.rank, g.size)
+    unknown = set(p) - set(out)
+    if unknown:
+        raise ValueError(f"MLP leaves with no tensor-parallel view: "
+                         f"{sorted(unknown)}")
+    return out
+
+
+def layer_view(lp: dict, cfg) -> tuple[dict, Group | None, Group | None]:
+    """``(tree, attn, mlp)``: one layer's leaves as the rank computes them,
+    and the ``Group`` its attention and its MLP run on shards over (None
+    for a block gathered whole).  The dense attention (not MLA) runs on
+    shards where its four weights are split on ``model`` as the layout has
+    them and its heads fall whole onto ranks (or one KV head over ``tp /
+    Hkv`` ranks); the dense MLP (not MoE) where its weights are split so.
+    Every other leaf is gathered whole (:func:`gather`)."""
+    found = _group_of(lp)
+    if found is None:
+        return gather(lp), None, None
+    mesh, g = found
+    attn = mlp = None
+    out = {}
+    for k, v in lp.items():
+        if k == "attn" and cfg.mla is None:
+            split = _attn_split(v, cfg.head_dim, g.size)
+            if split is not None:
+                out[k], attn = _attn_view(v, g, mesh, cfg.head_dim, split), g
+                continue
+        if k == "mlp" and cfg.moe is None and _mlp_fits(v):
+            out[k], mlp = _mlp_view(v, g), g
+            continue
+        out[k] = gather(v)
+    return out, attn, mlp
+
+
+def embed_view(p: dict) -> tuple[dict, Group | None]:
+    """``(tree, group)``: the embedding's rows of this rank (``w``
+    ``SHARD``, ``log_s``'s rows ``PARTIAL``) and its ``Group`` where the
+    table is split by vocabulary rows over ``model``; else the whole table
+    and None."""
+    found = _group_of(p)
+    if found is None or _model_shard_dim(p["w"]) != -2:
+        return gather(p), None
+    _, g = found
+    w = view(p["w"], SHARD)
+    out = {"w": w}
+    if "log_s" in p:
+        rows = w.shape[0]
+        out["log_s"] = view(p["log_s"], PARTIAL)[
+            g.rank * rows:(g.rank + 1) * rows]
+    unknown = set(p) - set(out)
+    if unknown:
+        raise ValueError(f"embedding leaves with no tensor-parallel view: "
+                         f"{sorted(unknown)}")
+    return out, g

@@ -3,8 +3,11 @@ repro_torch check``) against the JAX package's, and tested by injection.
 
 - the trace layer's ``(check, severity)`` multiset equals
   ``repro.analysis.jaxpr_checks.analyze_config``'s on four configs, and
-  ``trace.int8dot`` holds on deepseek-v2's int8 leaves (F21: K1's int8
-  entry is the integer operand; the old widening int8 branch is caught);
+  on every registry config on the plain route (``use_kernels=False``
+  against ``use_pallas=False``), with the same ``trace.int8dot``
+  verdicts; ``trace.int8dot`` holds on deepseek-v2's int8 leaves (F21:
+  K1's int8 entry is the integer operand on either route; the old
+  widening int8 branch is caught);
 - each load-bearing claim has a test that injects the violation it must
   catch (the cases of ``tests/test_analysis.py``): a second host transfer
   in the decode step, a host RNG draw, a float dequant before a product,
@@ -32,7 +35,7 @@ from repro_torch.analysis.graph_checks import (  # noqa: E402
     transfer_surfaces)
 from repro_torch.analysis.lint import lint_source  # noqa: E402
 from repro_torch.analysis.report import Diagnostic, Report  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core.fakequant import unpack_int4  # noqa: E402
 from repro_torch.core.qconfig import QuantConfig, permissive  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -77,6 +80,32 @@ def test_check_severities_match_jax(arch):
     the skips of int8dot included, and no error on either side."""
     port = analyze_config(arch)
     assert _severities(port) == _severities(j_analyze_config(arch))
+    assert not [d for d in port if d.severity == "error"]
+
+
+def _int8dot_verdicts(diags) -> collections.Counter:
+    """``trace.int8dot``'s (severity, signature) pairs: a skip's value
+    names a weight signature by the first path that has it, and the two
+    packages walk their trees in different orders, so the path is
+    dropped."""
+    def sig(v):
+        v = str(v)
+        return v[v.index("["):] if "[" in v else v
+    return collections.Counter((d.severity, sig(d.value)) for d in diags
+                               if d.check == "trace.int8dot")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_plain_route_verdicts_match_jax(arch):
+    """F21: with ``use_kernels=False`` an int8 (exempt) leaf on the card
+    still takes K1's int8 entry, as the JAX package's one int8 route is
+    the integer ``dot_general`` whatever ``use_pallas`` says: the
+    ``trace.int8dot`` verdicts and every check's severities equal the JAX
+    package's ``use_pallas=False`` report, with no error."""
+    port = analyze_config(arch, use_kernels=False)
+    ref = j_analyze_config(arch, use_pallas=False)
+    assert _int8dot_verdicts(port) == _int8dot_verdicts(ref)
+    assert _severities(port) == _severities(ref)
     assert not [d for d in port if d.severity == "error"]
 
 

@@ -1,14 +1,19 @@
 """repro_torch's sharded training over several ``gloo`` processes on the CPU,
 held against one process:
 
-- the launcher's sharded step (``launch.train``) at 2 ranks (data 2) and 4
-  ranks (data 2 × model 2): the student, the teacher and Adam's moments
-  stored as DTensors, the batch split over ``data``; its loss and every
-  gradient leaf against one process's ``make_value_and_grad`` over the
-  same batch in as many row groups (so the bf16 forward sees the same
-  row blocks), then one step of the sharded ``build_step`` — with the
-  int8 error-feedback compressor — against one process's train step with
-  the same hook;
+- the launcher's sharded step (``launch.train``) at 2 ranks (data 2), 4
+  ranks (data 2 × model 2), and the tensor-parallel meshes model 2 and
+  model 4 (SMOKE's 2 KV heads over 4 ranks: each head's columns on 2
+  ranks): the student, the teacher and Adam's moments stored as
+  DTensors, the batch split over ``data``, the dense layers computed on
+  the ``model`` shards (``sharding.tp``); its loss and every gradient
+  leaf against one process's ``make_value_and_grad`` over the same batch
+  in as many row groups (so the forward sees the same row blocks), then
+  one step of the sharded ``build_step`` — with the int8 error-feedback
+  compressor — against one process's train step with the same hook.
+  Where ``model`` computes, both sides run in f32: a bf16 product summed
+  over shards rounds elsewhere than the whole one (tests/test_torch_tp.py
+  holds the bf16 step);
 - the expert-parallel MoE (``sharding.ep``) on 2 ranks against
   ``models.moe.moe_sorted`` with no token dropped, forward and backward.
 
@@ -17,6 +22,7 @@ they write their results to files the test compares.
 """
 import copy
 import dataclasses
+import functools
 import socket
 
 import numpy as np
@@ -74,7 +80,7 @@ def _setup():
     return q, plan, tr, teacher, student, batch
 
 
-def _sharded_rank(rank, world, port, model, out):
+def _sharded_rank(rank, world, port, model, dtype, out):
     import torch.distributed as dist
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -84,6 +90,10 @@ def _sharded_rank(rank, world, port, model, out):
     from repro_torch.sharding.partition import (ShardingPolicy,
                                                 params_shardings)
     from repro_torch.train.compression import error_feedback_hook
+    from repro_torch.train import steps
+    # the sharded step's forward at ``dtype`` (this process's copy)
+    lt.make_value_and_grad = functools.partial(steps.make_value_and_grad,
+                                               compute_dtype=dtype)
     q, plan, tr, teacher, student, batch = _setup()
     mesh = make_elastic_mesh(world, model, device_type="cpu")
     pol = ShardingPolicy()
@@ -107,18 +117,19 @@ def _sharded_rank(rank, world, port, model, out):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("world,model", [(2, 1), (4, 2)],
-                         ids=["data2", "data2xmodel2"])
+@pytest.mark.parametrize("world,model", [(2, 1), (4, 2), (2, 2), (4, 4)],
+                         ids=["data2", "data2xmodel2", "model2", "model4"])
 def test_sharded_step_equals_one_process(world, model, tmp_path):
     from repro_torch.train.compression import error_feedback_hook
     from repro_torch.train.steps import make_train_step, make_value_and_grad
     out = str(tmp_path / "rank0.pt")
-    _spawn(_sharded_rank, world, model, out)
+    dtype = torch.bfloat16 if model == 1 else torch.float32
+    _spawn(_sharded_rank, world, model, dtype, out)
     got = torch.load(out)
     q, plan, tr, teacher, student, batch = _setup()
     dp = world // model
     vg = make_value_and_grad(DENSE, q, microbatches=MICROBATCHES * dp,
-                             plan=plan)
+                             plan=plan, compute_dtype=dtype)
     loss, grads = vg(copy.deepcopy(student), teacher, batch)
     assert abs(float(got["loss"]) - float(loss)) <= 1e-6 * float(loss)
     for path, g in tree_items(grads):
@@ -132,7 +143,7 @@ def test_sharded_step_equals_one_process(world, model, tmp_path):
     assert "Shard" in got["placements"]["layers.attn.wq.w"]
     s = copy.deepcopy(student)
     step = make_train_step(DENSE, q, tr.opt, grad_compress=error_feedback_hook(
-        s), microbatches=MICROBATCHES * dp, plan=plan)
+        s), microbatches=MICROBATCHES * dp, plan=plan, compute_dtype=dtype)
     s, _, m = step(s, tr.opt.init(s), teacher, batch)
     assert abs(float(got["step_loss"]) - float(m["loss"])) \
         <= 1e-6 * float(m["loss"])

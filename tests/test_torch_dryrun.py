@@ -3,8 +3,9 @@
 The dry-run runs in a subprocess under ``torch.distributed``'s ``fake``
 backend, so no process group leaks into the test worker: one train cell
 and one decode cell of qwen3-8b at full config, and one skipped cell,
-each with the JAX package's schema, the H100 roofline terms and the
-port's per-layer gathers; ``_model_flops`` equals the JAX package's
+each with the JAX package's schema, the H100 roofline terms, the
+port's per-layer gathers and, in the train cell, the tensor-parallel
+compute over ``model``; ``_model_flops`` equals the JAX package's
 arithmetic on every (arch × shape) cell (the JAX dry-run module is
 imported in a subprocess too: it sets ``XLA_FLAGS`` when imported).
 """
@@ -57,10 +58,18 @@ def test_train_cell_traces_over_256_fake_ranks(cells):
     assert cost["per_layer_unit"]["flops"] == u2["flops"] - u1["flops"] > 0
     assert cost["corrected_total"]["flops"] == pytest.approx(
         u1["flops"] + 35 * cost["per_layer_unit"]["flops"])
-    # the sharded step gathers each layer's leaves and reduces the
-    # gradients onto the shards (the model axis shards storage only)
+    # the sharded step gathers each layer's leaves over data and reduces
+    # the gradients onto the shards; the model axis computes the dense
+    # layers on shards, with f/g all-reduces (sharding.tp): a rank does
+    # about 1/16 of the whole step's work, as the JAX package's layout
+    # (2.89e14 FLOPs a rank, useful ratio 0.786 in its dry-run)
     kinds = c["collectives"]["per_kind"]
     assert kinds["all-gather"] > 0 and kinds["reduce-scatter"] > 0
+    assert kinds["all-reduce"] > 0
+    assert c["roofline"]["useful_flops_ratio"] >= 0.5
+    assert cost["corrected_total"]["flops"] <= 4.4e14
+    assert kinds["all-gather"] <= 18.2e9
+    assert c["memory"]["peak_bytes"] < 80e9
     mem = c["memory"]
     assert mem["param_bytes"] > 0 and mem["optimizer_bytes"] > 0
     assert mem["peak_bytes"] == pytest.approx(sum(
