@@ -41,7 +41,13 @@ Phases, each fatal on failure:
    self-attention (B 16 x S 512, 16/16 heads, hd 64, causal) and its cross
    attention (64 decoder queries over 512 encoder keys, non-causal);
    fake_quant at the two embeddings (152064 x 3584, 256206 x 1024, per-row
-   scale) and seamless's up (1024 x 4096, full and per-channel scale)),
+   scale) and seamless's up (1024 x 4096, full and per-channel scale));
+   fake_quant's factored entry (S_wL x S_wR formed in the kernel, bf16
+   out, both scale gradients reduced in it) at qwen3-8b's seven layer
+   weights under DCHW and wq/wo under group:128, a qwen2-moe expert
+   stack, deepseek-v2's kv_down, seamless's up and the tp-16 shards, each
+   beside the old route (the full scale, the broadcast entry, the cast)
+   timed as one call and the 16 B/elem bound),
    with the error,
    the kernel's, the plain version's and a library call's time (CUDA
    events, after warm-up) and the least time the card could take.
@@ -63,9 +69,12 @@ Phases, each fatal on failure:
    f32 teacher from a seed → student → activation calibration → APQ/MMSE
    scale init → 6 steps of joint finetuning (batch 16 x 512 tokens, 4
    microbatches, the paper's Adam recipe), every quantized weight's
-   fake-quant forward and backward through fake_quant and the teacher's
+   fake-quant forward and backward through fake_quant (its factored entry
+   for every weight but the embedding's per-row scale) and the teacher's
    attention through flash_attention's tensor-core body, launches counted
-   per body; then export, the
+   per body; one microbatch profiled on the new fake-quant route and on
+   the old one, and the chain of a layer's seven weights profiled alone
+   on both; then export, the
    route check and 2 greedy requests served from the trained artifact
    (quant_matmul, decode_attention); then the teacher's hidden states
    through flash_attention and through the plain route, compared, and one
@@ -1470,6 +1479,199 @@ def check_fake_quant_cnn(ccfg) -> dict:
     return out
 
 
+def _device_profile(fn, iters: int = 10) -> tuple:
+    """(device ms, kernel launches) per call of ``fn``, every kernel it
+    runs summed over ``iters`` calls under torch.profiler; (None, None)
+    if the profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):          # a window the profiler dropped is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                if t:
+                    us += t
+                    n += e.count
+        if us:
+            return us / iters / 1e3, n / iters
+    return None, None
+
+
+def _ff_row(name: str, w, s_wl, s_wr, bits: int = 4, out_dtype=None) -> dict:
+    """One row of K3's factored entry at a weight of the train path: the
+    kernel's forward + backward (the operators, as the autograd Function
+    calls them) against the plain version — y and gx bit for bit, gs_wl
+    and gs_wr within 1e-5 x max|ref|, two runs bitwise identical — then
+    timed: events and profiler device time; the old route timed as one
+    call (S_wL ⊗ S_wR as a full f32 scale, K3's broadcast entry, the cast,
+    and autograd's backward through all three, as effective_weight ran
+    before the factored entry); the plain version; the bound at 16 B an
+    element (bf16 out)."""
+    import torch
+    from repro_torch.core import dof
+    from repro_torch.kernels.fake_quant import (factored_geometry,
+                                                fake_quant_factored,
+                                                fake_quant_factored_bwd,
+                                                fake_quant_factored_fwd)
+    from repro_torch.kernels.ref import (factored_scale,
+                                         fake_quant_factored_ref)
+    out_dtype = out_dtype or torch.bfloat16
+    code = 1 if out_dtype == torch.bfloat16 else 0
+    C = w.shape[-1]
+    R = w.numel() // C
+    gy = torch.randn(w.shape, generator=torch.Generator(
+        device=w.device).manual_seed(R + C), device=w.device).to(out_dtype)
+
+    def leaves():
+        return (w.clone().requires_grad_(),
+                None if s_wl is None else s_wl.clone().requires_grad_(),
+                s_wr.clone().requires_grad_())
+
+    def run(fn):
+        a, b, c = leaves()
+        y = fn(a, b, c)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        return (y.detach(), a.grad, None if b is None else b.grad, c.grad)
+
+    got = [run(lambda a, b, c: fake_quant_factored(a, b, c, bits, out_dtype))
+           for _ in range(2)]
+    ref = run(lambda a, b, c: fake_quant_factored_ref(a, b, c, bits,
+                                                     out_dtype))
+    if not (torch.equal(got[0][0], ref[0]) and torch.equal(got[0][1],
+                                                           ref[1])):
+        fail(f"fake_quant factored {name}: y or gx differs from the plain "
+             f"version")
+    err = 0.0
+    for k in (2, 3):
+        if ref[k] is None:
+            continue
+        e = float((got[0][k] - ref[k]).abs().max())
+        if not math.isfinite(e) or e > 1e-5 * float(ref[k].abs().max()):
+            fail(f"fake_quant factored {name}: scale gradient {k - 2} "
+                 f"max_abs_err {e}")
+        err = max(err, e)
+    if not all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(got[0], got[1])):
+        fail(f"fake_quant factored {name}: two runs differ")
+    del got, ref
+    # the operators on the 2-D views, as _FactoredFakeQuant hands them over
+    P, g, cs = factored_geometry(w, s_wl, s_wr)
+    n_wr = s_wr.numel()
+    w2, g2 = w.reshape(R, C), gy.reshape(R, C)
+    wl = None if s_wl is None else s_wl.reshape(-1)
+    wr = s_wr.reshape(R // g, C if cs else 1)
+
+    def new():
+        fake_quant_factored_fwd(w2, wl, wr, bits, code)
+        fake_quant_factored_bwd(g2, w2, wl, wr, bits)
+
+    wt = w.clone().requires_grad_()
+    lt = None if s_wl is None else s_wl.clone().requires_grad_()
+    rt = s_wr.clone().requires_grad_()
+    ins = (wt, rt) if lt is None else (wt, lt, rt)
+
+    def old():
+        s = factored_scale(wt.shape, lt, rt)
+        y = dof.weight_fake_quant(wt, s, bits, use_kernels=True)
+        torch.autograd.grad(y.to(out_dtype), ins, gy)
+
+    def plain():
+        y = fake_quant_factored_ref(wt, lt, rt, bits, out_dtype)
+        torch.autograd.grad(y, ins, gy)
+
+    ms = time_ms(new)
+    dev_ms, launches = _device_profile(new)
+    old_ms = time_ms(old)
+    old_dev_ms, old_launches = _device_profile(old)
+    plain_ms = time_ms(plain, iters=5)
+    n = R * C
+    ob = out_dtype.itemsize
+    # forward: w read, y written; backward: the gradient and w read, gx
+    # written; the factors read twice and their gradients written
+    nbytes = n * (4 + ob) + n * (ob + 4 + 4) + 4 * 3 * (P + n_wr)
+    b_ms, b_by = bound(nbytes, 18 * n, "f32")
+    say(f"[kernel] fake_quant factored {name} R={R} C={C} P={P} "
+        f"s_wr={tuple(s_wr.shape)} out={str(out_dtype).split('.')[-1]} "
+        f"{bits}b max_abs_err={err:.3e} y,gx=identical fwd+bwd ms={ms:.4f} "
+        f"device_ms={dev_ms if dev_ms is None else f'{dev_ms:.4f}'} "
+        f"launches={launches} old_route_ms={old_ms:.4f} old_device_ms="
+        f"{old_dev_ms if old_dev_ms is None else f'{old_dev_ms:.4f}'} "
+        f"old_launches={old_launches} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / n:.2f} B/elem) "
+        f"x_bound={(dev_ms or ms) / b_ms:.2f} "
+        f"old/new={(old_dev_ms or old_ms) / (dev_ms or ms):.2f}")
+    return {"R": R, "C": C, "P": P, "s_wr": list(s_wr.shape),
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "launches": launches, "old_route_ms": old_ms,
+            "old_route_device_ms": old_dev_ms,
+            "old_route_launches": old_launches, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_fake_quant_factored(cfg, moe, ds, encdec,
+                              tp: int = TP_SHARDS) -> dict:
+    """K3's factored entry at the train path's weights, bf16 out, each
+    beside the old route and the 16 B/elem bound: qwen3-8b's seven layer
+    weights under DCHW (S_wL from the input stream, S_wR per output
+    channel), wq and wo under group:128; a qwen2-moe expert stack
+    ``[E, 2048, 1408]`` (the stream's S_wL shared by the experts,
+    ``S_wR [E, 1408]``); deepseek-v2's kv_down; seamless-m4t's up; the
+    qwen3-8b shards a tp-16 rank runs.  Returns {row: record}."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(36)
+
+    def factors(lead, K, N, group=None):
+        """w near an MMSE-like grid (~3 sigma at qmax), s_wl [K], s_wr in
+        log_swr's shape."""
+        s_wl = torch.rand((K,), generator=gen, device=dev) + 0.5
+        wr_shape = lead + ((K // group, N) if group else (N,))
+        s_wr = (torch.rand(wr_shape, generator=gen, device=dev) + 0.5) * (
+            3 * K ** -0.5 / 7)
+        w = torch.randn(lead + (K, N), generator=gen, device=dev) * K ** -0.5
+        return w, s_wl, s_wr
+
+    d, hq, hkv, ff = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                      cfg.n_kv_heads * cfg.head_dim, cfg.d_ff)
+    rows = [(f"qwen3-8b {n}", (), K, N, None) for n, K, N in (
+        ("wq", d, hq), ("wk", d, hkv), ("wv", d, hkv), ("wo", hq, d),
+        ("gate", d, ff), ("up", d, ff), ("down", ff, d))]
+    rows += [(f"qwen3-8b {n} group:128", (), K, N, 128)
+             for n, K, N in (("wq", d, hq), ("wo", hq, d))]
+    e = moe.moe
+    rows.append(("qwen2-moe gate/up stack", (e.n_experts_padded,),
+                 moe.d_model, e.d_ff_expert, None))
+    m = ds.mla
+    rows.append(("deepseek-v2 kv_down", (), ds.d_model, m.kv_lora + m.d_rope,
+                 None))
+    rows.append((f"{encdec.name} up", (), encdec.d_model, encdec.d_ff, None))
+    c = cfg.with_padding(tp=tp)
+    hq_s = c.n_heads_padded * c.head_dim // tp
+    hkv_s = max(c.n_kv_heads_padded * c.head_dim // tp, c.head_dim)
+    rows += [(f"qwen3-8b tp{tp} {n}", (), K, N, None) for n, K, N in (
+        ("wq", c.d_model, hq_s), ("wk/wv (a KV head)", c.d_model, hkv_s),
+        ("wo", hq_s, c.d_model), ("gate/up", c.d_model, c.d_ff // tp),
+        ("down", c.d_ff // tp, c.d_model))]
+    out = {}
+    for name, lead, K, N, group in rows:
+        w, s_wl, s_wr = factors(lead, K, N, group)
+        out[name] = _ff_row(name, w, s_wl, s_wr)
+        del w, s_wl, s_wr
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small model, card (kernels) vs CPU (plain route)
 # ---------------------------------------------------------------------------
@@ -1548,12 +1750,14 @@ def _serve(engine, reqs, timing: dict) -> list[list[int]]:
 
 
 def _profile(run, what: str, steps: int, watch: tuple = (),
-             ranges: tuple = ()) -> None:
+             ranges: tuple = ()) -> dict:
     """Run ``run()`` (``steps`` steps of work) under torch.profiler: the
     device's busy share of the window, the kernels by device time, the
     share of each ``watch`` name (kernels whose name holds it) and the
     device span of each ``ranges`` name (a ``record_function`` range: from
-    its first kernel's start to its last's end, gaps included)."""
+    its first kernel's start to its last's end, gaps included).  Returns
+    the step's device busy ms, kernel launches and each ``watch`` name's
+    (ms, launches); empty if the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1580,7 +1784,7 @@ def _profile(run, what: str, steps: int, watch: tuple = (),
     busy = sum(r[0] for r in rows)
     if busy == 0:
         say("[profile] torch.profiler recorded no device time")
-        return
+        return {}
     rows.sort(reverse=True)
     say(f"[profile] {steps} {what}: wall {wall_us / steps / 1e3:.3f} ms/step,"
         f" device busy {busy / steps / 1e3:.3f} ms/step "
@@ -1589,9 +1793,12 @@ def _profile(run, what: str, steps: int, watch: tuple = (),
     for dev_us, count, key in rows[:8]:
         say(f"[profile]   {100 * dev_us / busy:5.1f}% {dev_us / steps:9.1f} "
             f"us/step x{count // steps:<4d} {key[:90]}")
+    summary = {"busy_ms": busy / steps / 1e3,
+               "launches": sum(r[1] for r in rows) / steps, "watch": {}}
     for name in watch:
         us = sum(r[0] for r in rows if name in r[2])
         n = sum(r[1] for r in rows if name in r[2])
+        summary["watch"][name] = (us / steps / 1e3, n / steps)
         say(f"[profile]   {name}: {100 * us / busy:.2f}% of device time, "
             f"{us / steps:.1f} us/step over {n // steps} launches/step")
     for name in ranges:
@@ -1600,6 +1807,7 @@ def _profile(run, what: str, steps: int, watch: tuple = (),
             f"its device span {us / steps:.1f} us/step over {n // steps} "
             f"calls/step, {100 * us / busy:.2f}% of the kernels' device "
             f"time" if us else "device time not measured"))
+    return summary
 
 
 def profile_decode(engine, cfg, steps: int = 4) -> None:
@@ -1999,6 +2207,10 @@ def _counters() -> dict:
     from repro_torch.kernels.quant_matmul import quant_matmul
     return {"fake_quant_fwd": (fake_quant_kernel, "launches_fwd"),
             "fake_quant_bwd": (fake_quant_kernel, "launches_bwd"),
+            "fake_quant_factored_fwd": (fake_quant_kernel,
+                                        "launches_factored_fwd"),
+            "fake_quant_factored_bwd": (fake_quant_kernel,
+                                        "launches_factored_bwd"),
             "quant_matmul": (quant_matmul, "launches"),
             "quant_matmul_dequant": (quant_matmul, "launches_dequant"),
             "quant_matmul_int8": (quant_matmul, "launches_int8"),
@@ -2161,17 +2373,104 @@ def _parity_nodes(cfg, student, exported) -> list:
     return out
 
 
+@contextlib.contextmanager
+def _old_fake_quant_route():
+    """effective_weight as it ran before K3's factored entry: every weight
+    through the assembled ``S_wL ⊗ S_wR``, the broadcast entry and the
+    cast (``core.dof``'s route for a shape outside the factored form)."""
+    from repro_torch.core import dof
+    geometry = dof.factored_geometry
+    dof.factored_geometry = lambda *a: None
+    try:
+        yield
+    finally:
+        dof.factored_geometry = geometry
+
+
+def _chain_profile(cfg, qcfg, student, layers: int) -> dict:
+    """The fake-quant chain of layer 0's seven weights in isolation, each
+    through ``effective_weight`` on the kernel route as a microbatch runs
+    it (bf16 out, its stream's S_wL): forward alone and forward +
+    backward, device ms and launches under the profiler, on the new route
+    and the old one; scaled to a microbatch under remat, where each
+    layer's weights run forward twice and backward once: ``layers`` x
+    (forward + forward-and-backward)."""
+    import torch
+    from repro_torch.core import dof
+    from repro_torch.models.transformer import layer_slice
+    lay = layer_slice(student["layers"], 0)
+    weights = []
+    for mod, names in (("attn", ("wq", "wk", "wv", "wo")),
+                       ("mlp", ("gate", "up", "down"))):
+        node = lay[mod]
+        for n in names:
+            stream = node.get("out_stream" if n == "wo" else
+                              "act_stream" if n == "down" else "in_stream")
+            weights.append((node[n], None if stream is None
+                            else stream["log_sa"]))
+    gen = torch.Generator(device=DEVICE).manual_seed(61)
+    grads = [torch.randn(p["w"].shape, generator=gen, device=DEVICE).to(
+        torch.bfloat16) for p, _ in weights]
+    leaves = [({"w": p["w"].detach().clone().requires_grad_(),
+                "log_swr": p["log_swr"].detach().clone().requires_grad_()},
+               None if lsa is None else lsa.detach().clone()
+               .requires_grad_()) for p, lsa in weights]
+
+    def forward():
+        with torch.no_grad():
+            for p, lsa in leaves:
+                dof.effective_weight(p, qcfg, lsa, torch.bfloat16,
+                                     use_kernels=True)
+
+    def both():
+        for (p, lsa), gy in zip(leaves, grads):
+            y = dof.effective_weight(p, qcfg, lsa, torch.bfloat16,
+                                     use_kernels=True)
+            ins = [p["w"], p["log_swr"]] + ([] if lsa is None else [lsa])
+            torch.autograd.grad(y, ins, gy)
+
+    out = {}
+    for route in ("new", "old"):
+        with (_old_fake_quant_route() if route == "old"
+              else contextlib.nullcontext()):
+            f_ms, f_n = _device_profile(forward, iters=5)
+            b_ms, b_n = _device_profile(both, iters=5)
+        if f_ms is None or b_ms is None:
+            say("[train] the fake-quant chain: the profiler recorded no "
+                "device time")
+            return {}
+        out[route] = {"fwd_ms": f_ms, "fwd_launches": f_n,
+                      "fwd_bwd_ms": b_ms, "fwd_bwd_launches": b_n,
+                      "microbatch_ms": layers * (f_ms + b_ms),
+                      "microbatch_launches": layers * (f_n + b_n)}
+    new, old = out["new"], out["old"]
+    say(f"[train] the fake-quant chain of a layer's 7 weights (device, "
+        f"profiler), new route vs old: forward {new['fwd_ms']:.4f} ms / "
+        f"{new['fwd_launches']:.0f} launches vs {old['fwd_ms']:.4f} / "
+        f"{old['fwd_launches']:.0f}; forward + backward "
+        f"{new['fwd_bwd_ms']:.4f} / {new['fwd_bwd_launches']:.0f} vs "
+        f"{old['fwd_bwd_ms']:.4f} / {old['fwd_bwd_launches']:.0f}; a "
+        f"microbatch under remat ({layers} layers x (forward + forward and "
+        f"backward)): {new['microbatch_ms']:.3f} ms / "
+        f"{new['microbatch_launches']:.0f} launches vs "
+        f"{old['microbatch_ms']:.3f} / {old['microbatch_launches']:.0f}")
+    return out
+
+
 def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
                microbatches: int = TRAIN_MICROBATCHES,
                data_cfg: dict = TRAIN_DATA, augment=None,
-               shape: str = "") -> dict:
+               shape: str = "", chain_ab: bool = False) -> dict:
     """QFT at full width, ``layers`` deep: prepare, ``steps`` steps of the
     batch in ``microbatches``, export and serve (the encoder-decoder: its
     cache-mode forward, and the engine's refusal), the plain-route
     comparison.  The batches are ``data_cfg``'s token batches, each passed
     through ``augment`` (the VLM's patch embeddings and positions, the
     encoder-decoder's frames) when given; ``shape`` describes them.
-    Returns the kernels' launch counts."""
+    With ``chain_ab`` the profiled microbatch runs again on the old
+    fake-quant route, and the chain is profiled alone
+    (:func:`_chain_profile`).  Returns the kernels' launch counts (and the
+    chain's profile under ``"fake_quant_chain"``)."""
     import torch
     from repro_torch.core import dof
     from repro_torch.core.qconfig import QuantConfig
@@ -2285,6 +2584,19 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
         fail(f"fake_quant launched {run_counts['fake_quant_fwd']} forward / "
              f"{run_counts['fake_quant_bwd']} backward, want {want_fwd} / "
              f"{want}")
+    # every weight but the embedding (a per-row scale: the broadcast
+    # entry, once each way a microbatch) through the factored entry
+    emb = steps * microbatches
+    factored = (run_counts["fake_quant_factored_fwd"],
+                run_counts["fake_quant_factored_bwd"])
+    say(f"[train] fake_quant's factored entry: {factored[0]} forward / "
+        f"{factored[1]} backward of those launches; the broadcast entry "
+        f"{run_counts['fake_quant_fwd'] - factored[0]} / "
+        f"{run_counts['fake_quant_bwd'] - factored[1]} (the embedding)")
+    if factored != (want_fwd - emb, want - emb):
+        fail(f"fake_quant's factored entry launched {factored}, want "
+             f"{(want_fwd - emb, want - emb)}: every weight but the "
+             f"embedding")
 
     # --- export the trained student and serve it
     plan = make_deploy_plan(qcfg, arch=cfg.name, family=cfg.family,
@@ -2425,9 +2737,27 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
     rows = data_cfg["batch_size"] // microbatches
     mb = {k: v[:rows] for k, v in batch.items()}
     vg = make_value_and_grad(cfg, qcfg, plan=qplan)
-    _profile(lambda: vg(student, teacher, mb), f"microbatch forward+"
-             f"backward ({rows} rows of the {shape} batch, kernel route, "
-             f"teacher included, no optimizer)", 1, watch=("fa_", "fq_"))
+    prof = _profile(lambda: vg(student, teacher, mb), f"microbatch forward+"
+                    f"backward ({rows} rows of the {shape} batch, kernel "
+                    f"route, teacher included, no optimizer)", 1,
+                    watch=("fa_", "fq_"))
+    chain = {}
+    if chain_ab:
+        with _old_fake_quant_route():
+            prof_old = _profile(lambda: vg(student, teacher, mb),
+                                "microbatch forward+backward, the old "
+                                "fake-quant route", 1, watch=("fa_", "fq_"))
+        if prof and prof_old:
+            chain["microbatch"] = {"new": prof, "old": prof_old}
+            say(f"[train] the profiled microbatch, new fake-quant route vs "
+                f"old: device busy {prof['busy_ms']:.3f} vs "
+                f"{prof_old['busy_ms']:.3f} ms, {prof['launches']:.0f} vs "
+                f"{prof_old['launches']:.0f} launches; K3's kernels "
+                f"{prof['watch']['fq_'][0]:.3f} ms / "
+                f"{prof['watch']['fq_'][1]:.0f} vs "
+                f"{prof_old['watch']['fq_'][0]:.3f} ms / "
+                f"{prof_old['watch']['fq_'][1]:.0f}")
+        chain.update(_chain_profile(cfg, qcfg, student, L))
     grads = {}
     for use in (True, False):
         before = _counts()
@@ -2458,7 +2788,7 @@ def train_path(cfg, layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS,
         fail(f"train loss kernel route {float(lk)} vs plain {float(lp)}")
     if worst > 1e-4:
         fail(f"gradient of {worst_at}: rel L2 {worst} > 1e-4")
-    return counts
+    return dict(counts, fake_quant_chain=chain) if chain else counts
 
 
 # ---------------------------------------------------------------------------
@@ -3665,13 +3995,15 @@ def _threaded_ranks(world: int, fn, timeout_s: float = 600.0) -> list:
 @contextlib.contextmanager
 def _per_rank_launches(record: dict):
     """Record each rank's fake_quant forward and flash_attention calls
-    (the kernels' wrappers, called as the model code calls them) with
-    their shapes: ``record[rank] = {"fake_quant": [...], "flash_attention":
-    [...]}``.  The wrappers count as they always do."""
+    (the kernels' wrappers, called as the model code calls them: K3's
+    factored entry by its weight's 2-D view, the broadcast entry for the
+    embedding) with their shapes: ``record[rank] = {"fake_quant": [...],
+    "flash_attention": [...]}``.  The wrappers count as they always do."""
     import torch.distributed as dist
     from repro_torch.core import dof
     from repro_torch.models import attention as attn_mod
-    fq, fa = dof.fake_quant_kernel, attn_mod.attention_prefill
+    fq, ff, fa = (dof.fake_quant_kernel, dof.fake_quant_factored,
+                  attn_mod.attention_prefill)
 
     def mine():
         return record.setdefault(dist.get_rank(), {"fake_quant": [],
@@ -3681,15 +4013,22 @@ def _per_rank_launches(record: dict):
         mine()["fake_quant"].append(tuple(x.shape))
         return fq(x, s, bits, rule=rule)
 
+    def ff_rec(w, s_wl, s_wr, bits=4, out_dtype=None):
+        mine()["fake_quant"].append((w.numel() // w.shape[-1],
+                                     w.shape[-1]))
+        return ff(w, s_wl, s_wr, bits, out_dtype)
+
     def fa_rec(q, k, v, causal=True):
         mine()["flash_attention"].append((tuple(q.shape), tuple(k.shape)))
         return fa(q, k, v, causal=causal)
 
-    dof.fake_quant_kernel, attn_mod.attention_prefill = fq_rec, fa_rec
+    dof.fake_quant_kernel, dof.fake_quant_factored = fq_rec, ff_rec
+    attn_mod.attention_prefill = fa_rec
     try:
         yield record
     finally:
-        dof.fake_quant_kernel, attn_mod.attention_prefill = fq, fa
+        dof.fake_quant_kernel, dof.fake_quant_factored = fq, ff
+        attn_mod.attention_prefill = fa
 
 
 def _grad_distances(got: dict, f32: dict, bf16: dict) -> tuple:
@@ -3946,6 +4285,7 @@ def main() -> int:
     fa_zamba = check_flash_attention_fma(ZAMBA2)
     fq_vl_ed = check_fake_quant_vlm_encdec(QWEN2_VL, SEAMLESS)
     fq_tp = check_fake_quant_tp(CONFIG)
+    fq_factored = check_fake_quant_factored(CONFIG, MOE, DS, SEAMLESS)
     c16 = CONFIG.with_padding(tp=TP_SHARDS)
     fa_tp = check_flash_attention_at(
         f"qwen3-8b tp{TP_SHARDS} shard", 16, 512, 512,
@@ -3964,7 +4304,7 @@ def main() -> int:
         SEAMLESS.n_kv_heads, SEAMLESS.head_dim, False, "wgmma", seed=23)}
     check_reference()
     launches = main_path(CONFIG)
-    train = train_path(CONFIG)
+    train = train_path(CONFIG, chain_ab=True)
     pipeline = pipeline_path(CONFIG)
     cnn = cnn_path(CNN)
     t9 = time.perf_counter()
@@ -4109,6 +4449,10 @@ def main() -> int:
          "launches": train["fake_quant_fwd"] + train["fake_quant_bwd"],
          "launches_fwd": train["fake_quant_fwd"],
          "launches_bwd": train["fake_quant_bwd"], **fq,
+         "launches_factored_fwd": train["fake_quant_factored_fwd"],
+         "launches_factored_bwd": train["fake_quant_factored_bwd"],
+         "factored": fq_factored,
+         "chain": train.get("fake_quant_chain", {}),
          "qwen3_8b_layers": fq_layers,
          "remat": {"launches_fwd": remat_counts["fake_quant_fwd"],
                    "launches_bwd": remat_counts["fake_quant_bwd"],

@@ -19,7 +19,9 @@ from typing import Any
 import torch
 
 from ..kernels._library import on_card
-from ..kernels.fake_quant import fake_quant_kernel
+from ..kernels.fake_quant import (factored_geometry, fake_quant_factored,
+                                  fake_quant_kernel)
+from ..kernels.ref import factored_scale
 from .fakequant import (expand_group_scale, fake_quant, fake_quant_act,
                         pack_int4, quantize, unpack_int4)
 from .mmse import apq_scales, ppq_scale, ppq_scale_grouped
@@ -97,28 +99,13 @@ def init_qlinear(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def _swr_dense(p: Params) -> torch.Tensor:
-    """exp(log_swr) broadcastable against ``w`` under any layout."""
-    w, log_swr = p["w"], p["log_swr"]
-    kind = swr_layout_kind(w, log_swr)
-    if kind == "layerwise":
-        s = torch.exp(log_swr)
-        return s[..., None, None] if log_swr.ndim else s
-    if kind == "channel":
-        return torch.exp(log_swr)[..., None, :]
-    return expand_group_scale(torch.exp(log_swr), w.shape[-2], axis=-2)
-
-
 def weight_scale(p: Params, log_sa_in: torch.Tensor | None) -> torch.Tensor:
-    """S_w = S_wL ⊗ S_wR with S_wL = 1/S_a_in (Eq. 2)."""
-    s_wr = _swr_dense(p)
-    if log_sa_in is None:
-        return (torch.broadcast_to(s_wr, p["w"].shape) if p["w"].ndim >= 3
-                else s_wr)
-    s_wl = torch.exp(-log_sa_in)[..., :, None]
-    while s_wl.ndim < p["w"].ndim:
-        s_wl = s_wl.unsqueeze(-3)
-    return s_wl * s_wr
+    """S_w = S_wL ⊗ S_wR with S_wL = 1/S_a_in (Eq. 2), assembled as the
+    fake-quant kernel's plain version assembles it
+    (``kernels.ref.factored_scale``): ``exp(log_swr)`` at the layout its
+    shape gives, broadcastable against ``w``."""
+    s_wl = None if log_sa_in is None else torch.exp(-log_sa_in)
+    return factored_scale(p["w"].shape, s_wl, torch.exp(p["log_swr"]))
 
 
 def weight_fake_quant(w: torch.Tensor, s: torch.Tensor, bits: int,
@@ -148,13 +135,26 @@ def effective_weight(p: Params, cfg: QuantConfig | None,
                      bits: int | None = None,
                      use_kernels: bool = False) -> torch.Tensor:
     """The fake-quantized (deploy-equivalent) weight; ``cfg=None`` is the FP
-    path (teacher, deploy view)."""
+    path (teacher, deploy view).  A CUDA weight with ``use_kernels`` takes
+    the ``fake_quant`` kernel's factored entry where its index form holds
+    (``kernels.fake_quant.factored_geometry``, checked on the shapes before
+    the launch): ``S_wL ⊗ S_wR`` is formed inside the kernel from
+    ``exp(-log_sa_in)`` and ``exp(log_swr)`` (computed here, the plain
+    route's bits) and the output comes in ``compute_dtype``.  Any other
+    weight takes :func:`weight_fake_quant` on the assembled scale, then the
+    cast.  The forward is the same bits on every route."""
     w = p["w"]
     if cfg is None:
         return w.to(compute_dtype)
+    bits = bits or cfg.w_bits
+    if (use_kernels and on_card(w)
+            and compute_dtype in (torch.float32, torch.bfloat16)
+            and factored_geometry(w, log_sa_in, p["log_swr"]) is not None):
+        s_wl = None if log_sa_in is None else torch.exp(-log_sa_in)
+        return fake_quant_factored(w, s_wl, torch.exp(p["log_swr"]), bits,
+                                   compute_dtype)
     s = weight_scale(p, log_sa_in)
-    return weight_fake_quant(w, s, bits or cfg.w_bits,
-                             use_kernels).to(compute_dtype)
+    return weight_fake_quant(w, s, bits, use_kernels).to(compute_dtype)
 
 
 def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.fakequant import expand_group_scale, unpack_int4
+from ..core.fakequant import expand_group_scale, fake_quant, unpack_int4
 
 _NEG = -1e30
 _RULES = ("kernel", "ste")
@@ -162,3 +162,42 @@ def fake_quant_grad_ref(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         gx = gf * s * c / s
         gs = gf * (q - c * ratio)
     return gx.to(x.dtype), gs.sum_to_size(scale.shape).to(scale.dtype)
+
+
+def factored_scale(w_shape: tuple, s_wl: torch.Tensor | None,
+                   s_wr: torch.Tensor) -> torch.Tensor:
+    """``S_w = S_wL ⊗ S_wR`` broadcastable against a weight of
+    ``w_shape``, in f32 (``core.dof.weight_scale``): ``s_wr`` in
+    ``log_swr``'s shape, its layout read off the difference in rank
+    (layerwise: per stacked linear; channel: ``[..., out]``; group:
+    ``[..., in/g, out]`` repeated over each group's rows); ``s_wl``
+    ``[..., in]``, shared by the weight's stacked axes between, or None
+    for S_wL ≡ 1."""
+    diff = len(w_shape) - s_wr.ndim
+    if diff == 2:                        # layerwise
+        s = s_wr[..., None, None] if s_wr.ndim else s_wr
+    elif diff == 1:                      # channel
+        s = s_wr[..., None, :]
+    elif diff == 0:                      # group
+        s = expand_group_scale(s_wr, w_shape[-2], axis=-2)
+    else:
+        raise ValueError(f"s_wr {tuple(s_wr.shape)} does not fit a weight "
+                         f"{tuple(w_shape)}")
+    if s_wl is None:
+        return torch.broadcast_to(s, w_shape) if len(w_shape) >= 3 else s
+    wl = s_wl[..., :, None]
+    while wl.ndim < len(w_shape):
+        wl = wl.unsqueeze(-3)
+    return wl * s
+
+
+def fake_quant_factored_ref(w: torch.Tensor, s_wl: torch.Tensor | None,
+                            s_wr: torch.Tensor, bits: int,
+                            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The factored fake-quant as the plain composition
+    ``core.dof.effective_weight`` runs: :func:`factored_scale`, the STE
+    fake-quant ``core.fakequant.fake_quant`` (forward:
+    :func:`fake_quant_ref`'s bits), then the cast to ``out_dtype``.  Its
+    gradient is autograd's."""
+    return fake_quant(w, factored_scale(w.shape, s_wl, s_wr), bits,
+                      signed=True).to(out_dtype)

@@ -96,6 +96,18 @@ def _fq_bwd_flops(g, x, s, bits, rule, out_shape=None, **kw) -> int:
     return 8 * x[0] * x[1]
 
 
+def _ffq_fwd_flops(w, s_wl, s_wr, bits, out_dtype, out_shape=None,
+                   **kw) -> int:
+    """The factored forward: the scale's product, then fake_quant's 4."""
+    return 5 * w[0] * w[1]
+
+
+def _ffq_bwd_flops(gy, w, s_wl, s_wr, bits, out_shape=None, **kw) -> int:
+    """The factored backward: the scale's product, the "ste" gradient's
+    8, and each factor's product and sum (4; 1 without S_wL)."""
+    return (9 + (4 if s_wl is not None else 1)) * w[0] * w[1]
+
+
 def _register() -> None:
     ops = torch.ops.repro_torch
     for op, fn in ((ops.quant_matmul, _qmm_flops),
@@ -105,7 +117,9 @@ def _register() -> None:
                    (ops.decode_attention_paged, _decode_paged_flops),
                    (ops.flash_attention, _flash_flops),
                    (ops.fake_quant_fwd, _fq_fwd_flops),
-                   (ops.fake_quant_bwd, _fq_bwd_flops)):
+                   (ops.fake_quant_bwd, _fq_bwd_flops),
+                   (ops.fake_quant_factored_fwd, _ffq_fwd_flops),
+                   (ops.fake_quant_factored_bwd, _ffq_bwd_flops)):
         register_flop_formula(op)(fn)
 
 

@@ -200,8 +200,10 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
                qcfg: QuantConfig | None, device=None) -> Params:
     """Random parameters from ``gen`` (or a seed) on ``device`` (``None`` →
     the card; ``"meta"`` → a skeleton of shapes, nothing allocated, the
-    seed unused).  Key order follows the JAX package, so the resolved
-    plan's JSON is the same for a converted tree and for one built here."""
+    seed unused).  Keys are sorted at every level, as the JAX package's
+    trees come back from ``jax.eval_shape`` and ``jax.device_get``, so the
+    resolved plan's JSON and every walk of the tree are the same for a
+    converted tree and for one built here (F23)."""
     _require_family(cfg)
     dev = resolve_device(device)
     if dev.type == "meta":
@@ -242,7 +244,7 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig,
     else:
         params["layers"] = _init_attn_layers(gen, cfg, qcfg,
                                              (cfg.n_layers,))
-    return params
+    return _sorted(params)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -461,3 +461,47 @@ def test_roofline_terms_take_the_h100_constants():
     slow = H.roofline_terms(1.0, 1.0, 1.0, 1.0, 1, peak_flops=1.0,
                             hbm_bw=0.5, link_bw=2.0)
     assert slow["dominant"] == "memory"
+
+
+# ---------------------------------------------------------------------------
+# F23: the port's trees in the JAX package's key order
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-medium"
+
+
+def test_int8dot_skips_name_the_jax_first_paths():
+    """F23: ``trace.int8dot`` names a skipped weight signature by the first
+    path of the exported tree that has it; on seamless-m4t-medium's plain
+    route (three int4 signatures the JAX package's Pallas blocks do not
+    tile) the port's skips name the JAX package's paths (its shape-only
+    trees come back key-sorted from ``jax.eval_shape``), value for
+    value."""
+    def skips(diags):
+        return sorted(str(d.value) for d in diags
+                      if d.check == "trace.int8dot" and d.severity == "skip")
+    port = skips(analyze_config(SEAMLESS, use_kernels=False))
+    assert len(port) == 3
+    assert port == skips(j_analyze_config(SEAMLESS, use_pallas=False))
+
+
+def test_port_built_plan_json_matches_jax_eval_shape_tree():
+    """F23: the plan resolved from a tree the port builds (``init_model``
+    on the meta device) is the JAX package's, resolved from its
+    ``jax.eval_shape`` tree, byte for byte; the top-level keys are
+    sorted."""
+    import jax
+    from repro.core.plan import resolve_plan as j_resolve_plan
+    from repro.core.qconfig import QuantConfig as JQ
+    from repro.configs import registry as j_registry
+    from repro.models import init_model as j_init_model
+    from repro_torch.core.plan import resolve_plan
+    from repro_torch.models import init_model
+    jc = j_registry.get_config(SEAMLESS, smoke=True)
+    tc = get_config(SEAMLESS, smoke=True)
+    jskel = jax.eval_shape(lambda k: j_init_model(k, jc, JQ()),
+                           jax.random.PRNGKey(0))
+    tree = init_model(0, tc, QuantConfig(), device="meta")
+    assert list(tree) == sorted(tree) == list(jskel)
+    assert resolve_plan(QuantConfig(), tree, model_cfg=tc).to_json() == \
+        j_resolve_plan(JQ(), jskel, model_cfg=jc).to_json()

@@ -204,17 +204,19 @@ def test_mmse_grouped_and_apq_parity():
 ])
 def test_resolve_plan_json_equal(qkw):
     """The SMOKE tree's plan JSON is the JAX package's, byte for byte: for
-    each package's own init tree, and for the same converted tree."""
+    each package's own init tree — the JAX package's key-sorted, as every
+    JAX transformation (``jax.device_get``, ``jax.eval_shape``, a jitted
+    step) returns it and as the port's ``init_model`` builds it (F23) —
+    and for the same converted tree."""
     jq, tq = j_qc.QuantConfig(**qkw), t_qc.QuantConfig(**qkw)
     jp = j_init_model(jax.random.PRNGKey(0), j_qwen.SMOKE, jq)
-    want = j_resolve_plan(jq, jp, model_cfg=j_qwen.SMOKE).to_json()
+    npt = jax.device_get(jp)
+    want = j_resolve_plan(jq, npt, model_cfg=j_qwen.SMOKE).to_json()
     tp = init_model(0, t_qwen.SMOKE, tq, device="cpu")
     got = resolve_plan(tq, tp, model_cfg=t_qwen.SMOKE)
     assert got.to_json() == want
-    npt = jax.device_get(jp)
     assert resolve_plan(tq, from_numpy_tree(npt, "cpu"),
-                        model_cfg=t_qwen.SMOKE).to_json() == \
-        j_resolve_plan(jq, npt, model_cfg=j_qwen.SMOKE).to_json()
+                        model_cfg=t_qwen.SMOKE).to_json() == want
     assert plan_from_array(plan_to_array(got)) == got
 
 

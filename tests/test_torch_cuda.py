@@ -15,7 +15,8 @@ from repro_torch.core.fakequant import pack_int4, unpack_int4  # noqa: E402
 from repro_torch.kernels import decode_attention as fd  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_paged)
-from repro_torch.kernels.fake_quant import fake_quant_kernel  # noqa: E402
+from repro_torch.kernels.fake_quant import (  # noqa: E402
+    fake_quant_factored, fake_quant_kernel)
 from repro_torch.kernels.ops import qlinear_deployed  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_prefill, flash_attention)
@@ -25,6 +26,7 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
 from repro_torch.kernels.ref import (attention_prefill_ref,  # noqa: E402
                                      decode_attention_paged_ref,
                                      decode_attention_ref,
+                                     fake_quant_factored_ref,
                                      fake_quant_grad_ref, fake_quant_ref,
                                      flash_attention_ref,
                                      quant_matmul_int8_ref, quant_matmul_ref)
@@ -796,9 +798,12 @@ def _route_step_gap(qcfg, device):
     through the plain route, both on the same teacher targets (computed
     once, through flash_attention), so the gap measures fake_quant alone;
     asserts one forward and one backward launch per quantized weight and
-    microbatch.  Returns (loss pair, gradient pair)."""
+    microbatch, and under remat (SMOKE's default) one more forward launch
+    per layer weight and microbatch for the recompute.  Returns (loss
+    pair, gradient pair)."""
     from repro_torch.configs.qwen3_8b import SMOKE
     from repro_torch.models import forward, init_model
+    from repro_torch.models.transformer import remat_configured
     from repro_torch.train.steps import make_value_and_grad
     teacher = init_model(0, SMOKE, None, device=device)
     student = init_model(1, SMOKE, qcfg, device=device)
@@ -819,7 +824,9 @@ def _route_step_gap(qcfg, device):
         assert flash_attention.launches == fa     # the teacher is not run
         torch.cuda.synchronize()
         n = (1 + 7 * SMOKE.n_layers) * 2 if use else 0
-        assert fake_quant_kernel.launches_fwd - fwd == n
+        again = 7 * SMOKE.n_layers * 2 if use and remat_configured(SMOKE) \
+            else 0
+        assert fake_quant_kernel.launches_fwd - fwd == n + again
         assert fake_quant_kernel.launches_bwd - bwd == n
     return out[True], out[False]
 
@@ -1561,3 +1568,219 @@ def test_decode_attention_refuses_g_above_16(cuda):
     with pytest.raises(ValueError, match="CUDA kernel"):
         decode_attention(q, kv, kv, torch.ones(2, dtype=torch.int32,
                                                device=cuda))
+
+
+
+# ---------------------------------------------------------------------------
+# K3's factored entry: S_wL ⊗ S_wR formed in the kernel, the compute type
+# out, both scale gradients reduced in the kernel
+# ---------------------------------------------------------------------------
+
+FF_LAYOUTS = ("channel", "group", "layerwise")
+
+
+def _ff_case(K, N, layout, stream, E, device, seed, group=40):
+    """An f32 master ``[E?, K, N]`` near its grid (a quarter of it on and
+    half a step around the clip bounds), ``s_wl [K]`` or None, ``s_wr``
+    in ``log_swr``'s shape for the layout, an upstream gradient."""
+    rng = np.random.default_rng(seed)
+    lead = (E,) if E else ()
+    s_wr = np.asarray(np.exp(rng.normal(size=lead + {
+        "channel": (N,), "group": (K // group, N), "layerwise": ()}[layout])
+        * 0.3 - 3.0), np.float32)
+    s_wl = (np.exp(rng.normal(size=(K,)) * 0.3).astype(np.float32)
+            if stream else None)
+    sw = (s_wr[..., None, None] if layout == "layerwise" else
+          s_wr[..., None, :] if layout == "channel" else
+          np.repeat(s_wr, group, axis=-2))
+    s = sw * (1.0 if s_wl is None else s_wl[:, None])
+    shape = lead + (K, N)
+    ratio = rng.normal(size=shape) * 7 * 0.6
+    special = rng.choice([6.5, 7.0, 7.5, 9.0], size=shape)
+    ratio = np.where(rng.random(shape) < 0.25,
+                     special * rng.choice([-1, 1], size=shape), ratio)
+    w = torch.from_numpy((ratio * s).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+    return w, dev(s_wl), dev(s_wr), g
+
+
+def _offset_copy(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def _ff_run(fn, w, s_wl, s_wr, g, out_dtype, copy=torch.clone):
+    """``fn(w, s_wl, s_wr)`` forward and backward on fresh leaves (``w``
+    through ``copy``) → (y, gw, gs_wl, gs_wr); the gradient enters in
+    ``out_dtype``."""
+    wt, wrt = copy(w).requires_grad_(), s_wr.clone().requires_grad_()
+    wlt = None if s_wl is None else s_wl.clone().requires_grad_()
+    y = fn(wt, wlt, wrt)
+    y.backward(g.to(out_dtype))
+    torch.cuda.synchronize()
+    return (y.detach(), wt.grad, None if wlt is None else wlt.grad,
+            wrt.grad)
+
+
+def _ff_check(w, s_wl, s_wr, g, out_dtype, bits=4, copy=torch.clone):
+    """The factored kernel twice against its plain version (the master
+    through ``copy``): y and gx bit for bit, gs_wl/gs_wr within 1e-5 x
+    max|ref|, the two runs bitwise identical, one launch each way a
+    run."""
+    def counts():
+        k = fake_quant_kernel
+        return (k.launches_fwd, k.launches_bwd, k.launches_factored_fwd,
+                k.launches_factored_bwd)
+    runs = []
+    for _ in range(2):
+        before = counts()
+        runs.append(_ff_run(
+            lambda a, b, c: fake_quant_factored(a, b, c, bits, out_dtype),
+            w, s_wl, s_wr, g, out_dtype, copy))
+        assert tuple(a - b for a, b in zip(counts(), before)) == (1,) * 4
+    ref = _ff_run(
+        lambda a, b, c: fake_quant_factored_ref(a, b, c, bits, out_dtype),
+        w, s_wl, s_wr, g, out_dtype)
+    y, gx, gwl, gwr = runs[0]
+    assert y.dtype == out_dtype and gx.dtype == torch.float32
+    assert torch.equal(y, ref[0])
+    assert torch.equal(gx, ref[1])
+    for got, want in ((gwl, ref[2]), (gwr, ref[3])):
+        if want is None:
+            assert got is None
+            continue
+        assert got.shape == want.shape
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+    for a, b in zip(runs[0], runs[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("stream", [True, False])
+@pytest.mark.parametrize("layout", FF_LAYOUTS)
+def test_factored_kernel_against_plain(cuda, layout, stream, stacked, dtype):
+    """K3's factored entry at every layout, with and without S_wL, on a
+    2-D weight and on a stacked ``[3, K, N]`` one (S_wL shared by the
+    experts), bf16 and f32 out: K 200 (five groups of 40, a group shorter
+    than a tile's 64 rows), N 300 (a partial column tile), 16-byte body."""
+    w, s_wl, s_wr, g = _ff_case(200, 300, layout, stream, 3 if stacked else 0,
+                                cuda, seed=FF_LAYOUTS.index(layout))
+    _ff_check(w, s_wl, s_wr, g, getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("layout", FF_LAYOUTS)
+@pytest.mark.parametrize("edge", ["odd_columns", "unaligned_view"])
+def test_factored_kernel_scalar_body(cuda, layout, edge):
+    """The scalar body, chosen before the launch where 16-byte accesses
+    do not fit: N 301 (not a multiple of 4), and a contiguous master that
+    starts one element past an aligned address; bf16 out."""
+    N = 301 if edge == "odd_columns" else 256
+    w, s_wl, s_wr, g = _ff_case(200, N, layout, True, 0, cuda, seed=7)
+    copy = _offset_copy if edge == "unaligned_view" else torch.clone
+    assert (copy(w).data_ptr() % 16 != 0) == (edge == "unaligned_view")
+    _ff_check(w, s_wl, s_wr, g, torch.bfloat16, copy=copy)
+
+
+@pytest.mark.parametrize("view", ["qwen3-8b wk", "qwen3-8b wq group:128",
+                                  "qwen2-moe expert stack", "tp-16 shard"])
+def test_factored_kernel_at_model_views(cuda, view):
+    """The factored entry at the train path's shapes, bf16 out: qwen3-8b's
+    wk ``[4096, 1024]`` (channel with its stream), wq under group:128, a
+    qwen2-moe expert stack ``[60, 2048, 1408]`` with the shared stream and
+    ``S_wR [60, 1408]``, a tp-16 KV-head shard ``[4096, 128]``."""
+    K, N, layout, E, group = {
+        "qwen3-8b wk": (4096, 1024, "channel", 0, 40),
+        "qwen3-8b wq group:128": (4096, 4096, "group", 0, 128),
+        "qwen2-moe expert stack": (2048, 1408, "channel", 60, 40),
+        "tp-16 shard": (4096, 128, "channel", 0, 40)}[view]
+    w, s_wl, s_wr, g = _ff_case(K, N, layout, True, E, cuda, seed=K + N,
+                                group=group)
+    _ff_check(w, s_wl, s_wr, g, torch.bfloat16)
+
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_effective_weight_takes_the_factored_entry(cuda, stream):
+    """``core.dof.effective_weight`` with ``use_kernels`` on a CUDA weight:
+    one factored launch each way, the same y and gx as the plain route
+    (``use_kernels=False``), its log-scale gradients within 1e-5 x
+    max|ref|; the plain route launches nothing."""
+    from repro_torch.core.dof import effective_weight
+    from repro_torch.core.qconfig import QuantConfig
+    rng = np.random.default_rng(31)
+    K, N = 256, 512
+    w = (_rand((K, N), 32, cuda) * K ** -0.5).contiguous()
+    log_swr = torch.from_numpy((rng.normal(size=(N,)) * 0.2 - 4.6).astype(
+        np.float32)).to(cuda)
+    log_sa = torch.from_numpy((rng.normal(size=(K,)) * 0.2).astype(
+        np.float32)).to(cuda) if stream else None
+    g = _rand((K, N), 33, cuda).to(torch.bfloat16)
+    out = {}
+    for use in (True, False):
+        before = (fake_quant_kernel.launches_fwd,
+                  fake_quant_kernel.launches_bwd)
+        p = {"w": w.clone().requires_grad_(),
+             "log_swr": log_swr.clone().requires_grad_()}
+        lsa = None if log_sa is None else log_sa.clone().requires_grad_()
+        y = effective_weight(p, QuantConfig(), lsa, torch.bfloat16, bits=4,
+                             use_kernels=use)
+        y.backward(g)
+        torch.cuda.synchronize()
+        n = 1 if use else 0
+        assert (fake_quant_kernel.launches_fwd - before[0],
+                fake_quant_kernel.launches_bwd - before[1]) == (n, n)
+        out[use] = (y.detach(), p["w"].grad, p["log_swr"].grad,
+                    None if lsa is None else lsa.grad)
+    (yk, gk, lwrk, lsak), (yp, gp, lwrp, lsap) = out[True], out[False]
+    assert torch.equal(yk, yp) and torch.equal(gk, gp)
+    for got, want in ((lwrk, lwrp), (lsak, lsap)):
+        if want is not None:
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_broadcast_entry_at_an_embedding_view(cuda, dtype):
+    """The broadcast entry's 16-byte body at an embedding's per-row scale
+    (``[32768, 1024]``, 8 bits, ``s [V, 1]``): forward and gx bit for bit,
+    the row sums within 1e-5 x max|ref|, both rules."""
+    R, C = 32768, 1024
+    x, s, g = _fq_case(R, C, (R, 1), 8, cuda, seed=41)
+    x, g = x.to(getattr(torch, dtype)), g.to(getattr(torch, dtype))
+    for rule in ("kernel", "ste"):
+        xt, st = x.clone().requires_grad_(), s.clone().requires_grad_()
+        y = fake_quant_kernel(xt, st, 8, rule=rule)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert torch.equal(y.detach(), fake_quant_ref(x, s, 8))
+        gx_ref, gs_ref = fake_quant_grad_ref(g, x, s, 8, rule)
+        assert torch.equal(xt.grad, gx_ref)
+        err = float((st.grad - gs_ref).abs().max())
+        assert err <= 1e-5 * float(gs_ref.abs().max()), err
+
+
+@pytest.mark.parametrize("scale", ["full", "row", "col"])
+def test_broadcast_entry_scalar_body_on_an_unaligned_view(cuda, scale):
+    """The broadcast entry's scalar body, taken where x starts off a
+    16-byte boundary: bit for bit forward and gx, gs as the vector body."""
+    R, C = 70, 1000
+    x, s, g = _fq_case(R, C, FQ_SCALES[scale](R, C), 4, cuda, seed=43)
+    xt, st = _offset_copy(x).requires_grad_(), s.clone().requires_grad_()
+    assert xt.data_ptr() % 16 and xt.is_contiguous()
+    y = fake_quant_kernel(xt, st, 4, rule="ste")
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach(), fake_quant_ref(x, s, 4))
+    gx_ref, gs_ref = fake_quant_grad_ref(g, x, s, 4, "ste")
+    assert torch.equal(xt.grad, gx_ref)
+    if scale == "full":
+        assert torch.equal(st.grad, gs_ref)
+    else:
+        err = float((st.grad - gs_ref).abs().max())
+        assert err <= 1e-5 * float(gs_ref.abs().max()), err

@@ -175,10 +175,10 @@ def test_gelu_mlp_matches_jax(qname):
 
 @pytest.mark.parametrize("student", [False, True])
 def test_init_model_keys_and_shapes(student):
-    """init_model: the JAX package's top-level keys in its insertion order
-    (``embed`` after the head), each stacked subtree's keys sorted, and
-    every shape (``enc_layers`` ``[2, ...]``, ``dec_layers`` with
-    ``norm_x`` and ``cross``)."""
+    """init_model: the JAX package's top-level keys, sorted as its
+    ``jax.eval_shape`` tree returns them (F23), each stacked subtree's keys
+    sorted, and every shape (``enc_layers`` ``[2, ...]``, ``dec_layers``
+    with ``norm_x`` and ``cross``)."""
     jq, tq = _qcfgs("dchw" if student else None)
     jskel = jax.eval_shape(lambda k: j_init_model(k, J_SMOKE, jq),
                            jax.random.PRNGKey(0))
@@ -186,7 +186,7 @@ def test_init_model_keys_and_shapes(student):
     want_top = ["final_norm", "lm_head"] + (["head_stream"] if student
                                             else []) + [
         "embed", "frame_proj", "enc_layers", "dec_layers", "enc_final_norm"]
-    assert list(tp) == want_top
+    assert list(tp) == sorted(want_top) == list(jskel)
     assert sorted((p, tuple(v.shape)) for p, v in tree_items(tp)) == sorted(
         (p, tuple(s.shape)) for p, s in tree_items(_np_zeros(jskel)))
     assert list(tp["dec_layers"]) == ["attn", "cross", "mlp", "norm1",
