@@ -242,6 +242,20 @@ Phases, each fatal on failure:
    shards (wq's and gate/up's columns, wo's and down's rows, a whole KV
    head, the embedding's vocabulary rows) and flash_attention at a tp-16
    rank's 2 query heads over 1 KV head.
+26. tensor parallelism in the forward with a cache, ranks as threads as
+   in phase 25: a 2-layer full-width qwen3-8b's exported artifact stored
+   as params_shardings places it (its q leaves over model only), the
+   monolithic bf16 cache (4 rows x depth 1024) as cache_shardings places
+   it; 4 rows prefilled with 512 tokens each at scalar pos, then 16
+   decode steps at per-slot pos through forward on the kernel route: at
+   tp 2 and 4 the KV heads split, every rank launching decode_attention
+   on its own [4, 1024, 8/tp, 128] cache in every layer of every step; at
+   tp 16 the cache split over the sequence (the dry-run's decode_32k
+   layout) with its cross-rank combine.  The logits, gathered over the
+   vocabulary for the check only, within twice the bf16 unsharded steps'
+   distance from the f32 ones (all fed the f32 steps' greedy tokens);
+   decode_attention at a tp rank's shard (4 x 1024, Hkv 4 and 2, G 4)
+   against its plain version.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -367,11 +381,20 @@ ELASTIC_FAIL_AT = 3
 TP_SIZES = (2, 4)
 TP_LAYERS = 2
 TP_SHARDS = 16
+#: phase 26: the forward with a cache on shards, ranks as threads; the KV
+#: heads split at TP_SIZES, the sequence at TP_SEQ (decode_32k's layout)
+TP_SEQ = 16
+TP_SERVE = dict(rows=4, prompt=512, depth=1024, steps=16)
+#: each row's first decode position (per-slot pos): a row may rewrite the
+#: tail of its prefilled prompt
+TP_SERVE_POS = (512, 448, 384, 320)
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
 MARGIN_ULPS = 4
 DEVICE = "cuda"
+#: the card's name and power limit (nvidia-smi), read by probe()
+CARD = "not read"
 
 
 def fail(msg: str) -> None:
@@ -414,7 +437,9 @@ def probe() -> None:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    say(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    say(CARD)
     say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
@@ -4211,6 +4236,267 @@ def tp_path(cfg) -> dict:
     return out
 
 
+def _k2_rank_row(rows: int, Hkv: int, G: int, hd: int, T: int,
+                 lengths) -> dict:
+    """K2's slot-view entry at a tensor-parallel rank's shard of the cache
+    (``rows`` x ``T``, its ``Hkv`` KV heads, bf16) against its plain
+    version: error, events and profiler time, the plain version's, SDPA's
+    and the bound (each K/V row up to its length read once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    g = torch.Generator(device=DEVICE).manual_seed(26)
+    q = torch.randn((rows, Hkv, G, hd), generator=g,
+                    device=DEVICE).bfloat16()
+    k = torch.randn((rows, T, Hkv, hd), generator=g,
+                    device=DEVICE).bfloat16()
+    v = torch.randn((rows, T, Hkv, hd), generator=g,
+                    device=DEVICE).bfloat16()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=DEVICE)
+    out = decode_attention(q, k, v, lens)
+    ref = decode_attention_ref(q, k, v, lens)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = 1e-2 * float(ref.float().abs().max())
+    if not math.isfinite(err) or err > tol:
+        fail(f"decode_attention tp shard Hkv {Hkv}: max_abs_err {err} > "
+             f"{tol}")
+    mask = (torch.arange(T, device=DEVICE)[None, :]
+            < lens[:, None])[:, None, None, :]
+    qh = q.reshape(rows, Hkv * G, 1, hd)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    ms = time_ms(lambda: decode_attention(q, k, v, lens))
+    dev_ms = device_ms(lambda: decode_attention(q, k, v, lens),
+                       ("fd_split", "fd_combine"))
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lens), iters=5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kt, vt, attn_mask=mask, enable_gqa=G > 1))
+    live = int(lens.clamp(max=T).sum())
+    b_ms, b_by = bound(2 * live * Hkv * hd * 2 + 2 * q.numel() * 2
+                       + rows * 4, 4 * live * Hkv * G * hd, "bf16")
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+    say(f"[kernel] decode_attention tp shard S={rows} Hkv={Hkv} G={G} "
+        f"hd={hd} T={T} max_abs_err={err:.3e} (tol {tol:.3e}) "
+        f"ms={ms:.4f} device_ms={dev_txt} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{CARD}]")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+@contextlib.contextmanager
+def _per_rank_decode(record: dict):
+    """Record each rank's decode_attention calls (the model code's, on
+    the slot view) with the shapes of its q and its cache shard:
+    ``record[rank] = [(q shape, k shape), ...]``.  The wrapper counts as
+    it always does."""
+    import torch.distributed as dist
+    from repro_torch.models import attention as attn_mod
+    fd = attn_mod.decode_attention
+
+    def rec(q, k, v, lengths, *a):
+        record.setdefault(dist.get_rank(), []).append(
+            (tuple(q.shape), tuple(k.shape)))
+        return fd(q, k, v, lengths, *a)
+
+    attn_mod.decode_attention = rec
+    try:
+        yield record
+    finally:
+        attn_mod.decode_attention = fd
+
+
+def tp_serve_path(cfg) -> dict:
+    """Tensor parallelism over ``model`` in the forward with a cache
+    (``sharding.tp``'s deployed views, ``models.attention``'s split
+    caches), the ranks threads of this process on a (data 1, model tp)
+    mesh as in phase 25.  A 2-layer full-width ``cfg`` student's exported
+    artifact is stored as ``params_shardings`` places it and the
+    monolithic bf16 cache as ``cache_shardings`` places it: at
+    ``TP_SIZES`` over KV heads, at ``TP_SEQ`` over the sequence.
+    ``TP_SERVE``'s rows are prefilled at scalar pos
+    (``make_prefill_step``), then decoded at per-slot pos through
+    ``forward`` on the kernel route, fed the tokens the f32 unsharded
+    steps choose greedily.  The logits, gathered over the vocabulary for
+    the check only, must lie within twice the bf16 unsharded steps'
+    distance from the f32 ones; every rank of a KV-head split must launch
+    decode_attention on its own shard in every layer of every decode
+    step.  Threads share the GIL: no time here is a tensor-parallel
+    speed."""
+    import threading
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.plan import PLAN_KEY
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch.mesh import make_elastic_mesh
+    from repro_torch.launch.train import place
+    from repro_torch.models import forward, init_cache, init_model
+    from repro_torch.pipeline.adapters import resolve_quant_plan
+    from repro_torch.serve.deploy import (deploy_view, export_for_layers,
+                                          make_deploy_plan)
+    from repro_torch.sharding import tp as tp_lib
+    from repro_torch.sharding.partition import (ShardingPolicy,
+                                                cache_shardings,
+                                                params_shardings)
+    from repro_torch.train.steps import make_prefill_step
+    c = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    R, P, T, N = (TP_SERVE[k] for k in ("rows", "prompt", "depth", "steps"))
+    qcfg = QuantConfig()
+    pol = ShardingPolicy()
+    with torch.no_grad():
+        student = init_model(torch.Generator(device=DEVICE).manual_seed(26),
+                             c, qcfg, device=DEVICE)
+        plan = make_deploy_plan(qcfg, arch=c.name, family=c.family,
+                                quant_plan=resolve_quant_plan(c, qcfg))
+        art = export_for_layers(student, plan, device=DEVICE)
+    del student
+    art.pop(PLAN_KEY)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=DEVICE).manual_seed(27)
+    prompt = torch.randint(0, c.vocab, (R, P), generator=g, device=DEVICE)
+    pos0 = torch.tensor(TP_SERVE_POS, dtype=torch.int32, device=DEVICE)
+
+    def unsharded(dtype, tokens=None):
+        """The plain route on the whole artifact: logits of the prefill and
+        of each decode step (host f32), and the greedy tokens (fed
+        ``tokens`` instead where given)."""
+        params = deploy_view(art, plan, dtype=dtype)
+        cache = init_cache(c, R, T, dtype=dtype, device=DEVICE)
+        out, fed = [], []
+        with torch.no_grad():
+            o = forward(params, c, None, {"tokens": prompt}, cache=cache,
+                        compute_dtype=dtype)
+            cache["pos"] = pos0.clone()
+            out.append(o["logits"][:, -1].float().cpu())
+            for i in range(N):
+                t = (out[-1].argmax(-1) if tokens is None
+                     else tokens[i]).to(DEVICE)[:, None]
+                fed.append(t[:, 0].cpu())
+                o = forward(params, c, None, {"tokens": t}, cache=cache,
+                            compute_dtype=dtype)
+                out.append(o["logits"][:, -1].float().cpu())
+        del params, cache
+        torch.cuda.empty_cache()
+        return torch.stack(out), fed
+
+    f32, tokens = unsharded(torch.float32)
+    b16, _ = unsharded(torch.bfloat16, tokens)
+    d_16 = float((b16 - f32).norm())
+    out = {"rank_rows": {}}
+    for tp in TP_SIZES + (TP_SEQ,):
+        shared = {"art": art}
+        placed = threading.Barrier(tp)
+
+        def rank_fn(rank):
+            mesh = make_elastic_mesh(tp, tp, DEVICE)
+            ex = place(shared["art"], params_shardings(shared["art"], c,
+                                                       mesh, pol), mesh)
+            whole = init_cache(c, R, T, device=DEVICE)
+            cache = place(whole, cache_shardings(whole, c, mesh, pol), mesh)
+            del whole
+            placed.wait()
+            kv = tp_lib.cache_view(cache)[1]
+            shard = tuple(cache["k"].to_local().shape)
+            logits = []
+
+            def keep(local):           # over the vocabulary, for the check
+                parts = [torch.empty_like(local) for _ in range(tp)]
+                dist.all_gather(parts, local.contiguous())
+                if rank == 0:
+                    logits.append(torch.cat(parts, -1).float().cpu())
+            with torch.no_grad():
+                lg, cache = make_prefill_step(c, None)(
+                    ex, cache, {"tokens": prompt})
+                keep(lg)
+                cache["pos"] = pos0.clone()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(N):
+                    o = forward(ex, c, None,
+                                {"tokens": tokens[i].to(DEVICE)[:, None]},
+                                cache=cache, use_kernels=True)
+                    cache = o["cache"]
+                    keep(o["logits"][:, -1])
+                torch.cuda.synchronize()
+            return {"kv": kv, "shard": shard, "logits": logits,
+                    "ms": 1e3 * (time.perf_counter() - t0) / N}
+
+        record: dict = {}
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _per_rank_decode(record):
+            res = _threaded_ranks(tp, rank_fn)
+        counts = _counts()
+        del shared
+        torch.cuda.empty_cache()
+        got = torch.stack(res[0]["logits"])
+        d_tp = float((got - f32).norm())
+        worst = max(float((got[i] - f32[i]).norm())
+                    / max(float((b16[i] - f32[i]).norm()), 1e-30)
+                    for i in range(N + 1))
+        greedy = got[1:].argmax(-1).T.tolist()
+        same = sum(int(a == b) for row, ref in zip(greedy, torch.stack(
+            tokens[1:] + [f32[-1].argmax(-1)]).T.tolist())
+                   for a, b in zip(row, ref))
+        kvs = {r["kv"] for r in res}
+        want_kv = "heads" if tp in TP_SIZES else "seq"
+        per_rank = {r: len(v) for r, v in sorted(record.items())}
+        shapes = {r: sorted(set(v)) for r, v in sorted(record.items())}
+        say(f"[tp-serve] {c.name} full width, {c.n_layers} layers, mesh "
+            f"(data 1, model {tp}), ranks as threads: cache split "
+            f"{want_kv}, rank 0's shard {res[0]['shard']}; {R} rows x "
+            f"{P}-token prefill at scalar pos, {N} decode steps at "
+            f"per-slot pos {list(TP_SERVE_POS)}: logits |tp - f32| "
+            f"{d_tp:.4e} against |bf16 - f32| {d_16:.4e} "
+            f"({d_tp / max(d_16, 1e-30):.3f}x; worst step {worst:.3f}x); "
+            f"greedy tokens equal to the f32 steps' {same}/{R * N}; "
+            f"decode_attention launches {counts['decode_attention']}; "
+            f"peak {_gib():.2f} GiB; rank 0's decode step "
+            f"{res[0]['ms']:.1f} ms (threads share the GIL: not a speed) "
+            f"[{CARD}]")
+        say(f"[tp-serve]   greedy tokens, row by row: {greedy}")
+        for r in sorted(record):
+            say(f"[tp-serve]   rank {r}: decode_attention {per_rank[r]} "
+                f"launches at (q, k) {shapes[r]}")
+        if kvs != {want_kv}:
+            fail(f"tp-serve {tp}: the cache was split {kvs}, not "
+                 f"{want_kv}")
+        if d_tp > 2 * d_16:
+            fail(f"tp-serve {tp}: logits |tp - f32| {d_tp} > 2 x {d_16}")
+        if want_kv == "heads":
+            want = {r: c.n_layers * N for r in range(tp)}
+            k_shape = (R, T, c.n_kv_heads_padded // tp, c.head_dim)
+            if per_rank != want or any(
+                    {k for _, k in v} != {k_shape} for v in shapes.values()):
+                fail(f"tp-serve {tp}: decode_attention per rank {per_rank} "
+                     f"at {shapes}; want {want} at k {k_shape}")
+            if counts["decode_attention"] != sum(want.values()):
+                fail(f"tp-serve {tp}: the wrapper counted "
+                     f"{counts['decode_attention']} launches, the ranks "
+                     f"called it {sum(want.values())} times")
+        elif counts["decode_attention"] or record:
+            fail(f"tp-serve {tp}: decode_attention launched on a cache "
+                 f"split over the sequence: {per_rank}")
+        out[f"tp{tp}"] = {
+            "kv": want_kv, "shard_rank0": list(res[0]["shard"]),
+            "launches": counts["decode_attention"],
+            "launches_per_rank": per_rank,
+            "shapes_rank0": [list(map(list, s))
+                             for s in shapes.get(0, [])],
+            "logits_distance_ratio": d_tp / max(d_16, 1e-30),
+            "worst_step_ratio": worst, "greedy_equal": same,
+            "peak_gib": _gib()}
+        del res, got
+        torch.cuda.empty_cache()
+    lengths = [p + N for p in TP_SERVE_POS]
+    for hkv in sorted({c.n_kv_heads_padded // tp for tp in TP_SIZES},
+                      reverse=True):
+        out["rank_rows"][f"Hkv{hkv}"] = _k2_rank_row(
+            R, hkv, c.n_heads_padded // c.n_kv_heads_padded, c.head_dim, T,
+            lengths)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4387,6 +4673,10 @@ def main() -> int:
     tp = tp_path(CONFIG)
     say(f"[main] phase 25 (tensor parallelism, ranks as threads) "
         f"{time.perf_counter() - t25:.1f} s")
+    t26 = time.perf_counter()
+    tp_serve = tp_serve_path(CONFIG)
+    say(f"[main] phase 26 (tensor parallelism with a cache, ranks as "
+        f"threads) {time.perf_counter() - t26:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -4423,7 +4713,7 @@ def main() -> int:
                           "check_predicted_per_step":
                               launch["check_predicted"],
                           "real_per_step": launch["check_real"]},
-         "operator_layer": dispatch},
+         "operator_layer": dispatch, "tp": tp_serve},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",

@@ -179,6 +179,35 @@ def qlinear(x: torch.Tensor, p: Params, cfg: QuantConfig | None,
     return y
 
 
+def _shard_right(p: Params, key: str, kind: str, axis: str, rank: int,
+                 size: int, rows: int, cols: int) -> Params:
+    """``p`` with its right scale ``p[key]`` (of layout ``kind``) and bias
+    sliced to a ``"col"``/``"row"`` shard of ``rows`` x ``cols``: a column
+    shard's S_wR columns and bias; a row shard's groups of its rows, which
+    must be whole groups (its bias stays whole: it is added after the
+    reduce)."""
+    out = dict(p)
+    if axis == "col":
+        sl = slice(rank * cols, (rank + 1) * cols)
+        if "b" in p:
+            out["b"] = p["b"][..., sl]
+        if key in p and kind != "layerwise":
+            out[key] = p[key][..., sl]
+        return out
+    if key in p and kind == "group":
+        n_g = p[key].shape[-2]
+        K = rows * size
+        g = K // n_g
+        if K % n_g or rows % g:
+            raise ValueError(
+                f"a group-wise S_wR of group {K / n_g:g} over a {K}-row "
+                f"weight does not split into whole groups on {size} "
+                f"row-parallel shards of {rows} rows")
+        k = rows // g
+        out[key] = p[key][..., rank * k:(rank + 1) * k, :]
+    return out
+
+
 def shard_qlinear(p: Params, axis: str, rank: int, size: int) -> Params:
     """A quantized linear on a tensor-parallel shard: ``p["w"]`` is already
     the shard (``"col"``: output columns ``[rank·c, (rank+1)·c)`` of
@@ -191,28 +220,27 @@ def shard_qlinear(p: Params, axis: str, rank: int, size: int) -> Params:
     whole weight's, so its bits are the matching slice of the whole
     weight's."""
     w = p["w"]
-    out = dict(p)
-    if axis == "col":
-        c = w.shape[-1]
-        cols = slice(rank * c, (rank + 1) * c)
-        if "b" in p:
-            out["b"] = p["b"][..., cols]
-        if "log_swr" in p and swr_layout_kind(w, p["log_swr"]) != \
-                "layerwise":
-            out["log_swr"] = p["log_swr"][..., cols]
-        return out
-    if "log_swr" in p and swr_layout_kind(w, p["log_swr"]) == "group":
-        rows = w.shape[-2]
-        n_g = p["log_swr"].shape[-2]
-        K = rows * size
-        g = K // n_g
-        if K % n_g or rows % g:
-            raise ValueError(
-                f"a group-wise S_wR of group {K / n_g:g} over a {K}-row "
-                f"weight does not split into whole groups on {size} "
-                f"row-parallel shards of {rows} rows")
-        k = rows // g
-        out["log_swr"] = p["log_swr"][..., rank * k:(rank + 1) * k, :]
+    kind = ("layerwise" if "log_swr" not in p
+            else swr_layout_kind(w, p["log_swr"]))
+    return _shard_right(p, "log_swr", kind, axis, rank, size, w.shape[-2],
+                        w.shape[-1])
+
+
+def shard_export(ex: Params, axis: str, rank: int, size: int) -> Params:
+    """An exported linear (:func:`export_qlinear`) on a tensor-parallel
+    shard, as :func:`shard_qlinear` for the trained one: ``ex["q"]`` is
+    already the shard, nibble-packed along the in-dim or not (a row
+    shard's packed rows are its input rows in pairs); ``s_wr`` and the
+    bias are sliced as ``log_swr`` and the bias are there, and a row
+    shard takes its rows of ``s_wl``.  Its dequantized weight
+    (:func:`dequantize_export`) is the matching slice of the whole one's,
+    bit for bit."""
+    q = ex["q"]
+    rows = q.shape[-2] * (2 if q.dtype == torch.uint8 else 1)
+    kind = swr_layout_kind(q, ex["s_wr"])
+    out = _shard_right(ex, "s_wr", kind, axis, rank, size, rows, q.shape[-1])
+    if axis == "row" and ex.get("s_wl") is not None:
+        out["s_wl"] = ex["s_wl"][..., rank * rows:(rank + 1) * rows]
     return out
 
 
@@ -362,3 +390,23 @@ def dequantize_export(ex: Params, compute_dtype=torch.bfloat16,
             s_wl = s_wl.unsqueeze(-3)
         s = s_wl * s
     return (w * s).to(compute_dtype)
+
+
+def is_exported(node) -> bool:
+    """Whether ``node`` is an exported linear (``q``, ``s_wr``) or an
+    exported embedding (``q``, its per-row ``s``)."""
+    return isinstance(node, dict) and "q" in node and (
+        "s_wr" in node or "s" in node)
+
+
+def deploy_node(ex: Params, compute_dtype=torch.bfloat16) -> Params:
+    """One exported node's deploy view (``serve.deploy.deploy_view`` of an
+    unstacked node): an embedding's f32 rows ``q · s``; a linear's weight
+    dequantized to ``compute_dtype``, with its bias."""
+    if "s" in ex:
+        return {"w": ex["q"].to(torch.float32) * ex["s"]}
+    out: Params = {"w": dequantize_export(
+        ex, compute_dtype, packed=ex["q"].dtype == torch.uint8)}
+    if "b" in ex:
+        out["b"] = ex["b"]
+    return out

@@ -20,20 +20,27 @@ The step of a cell:
   batch; the forward gathers each layer's leaves in that layer's body;
   remat on), with the paper's recipe (bf16 moments for the 100B+ models);
 - prefill / decode: the deployed artifact's step (``export_for_layers``
-  then ``deploy_view`` under the resolved plan), the view stored as
-  DTensors by the same specs and gathered a layer at a time by the same
-  forward, over the rank's rows of the batch (all rows where they do not
-  divide) and their cache.
+  under the resolved plan, then ``make_prefill_step``/``make_decode_step``
+  on it): the artifact stored as DTensors as the JAX package's
+  ``param_spec`` places it (its ``q`` leaves over ``model`` only, no ZeRO
+  over ``data``; scales and biases replicated), each rank dequantizing its
+  shard of a layer inside the layer's body; the rank's rows of the batch
+  (all rows where they do not divide) and their cache as
+  ``cache_shardings`` places it (:func:`serve_cache_specs`); the logits
+  the rank's slice of the vocabulary.
 
 Where this moves other bytes than the JAX package's GSPMD compute, it
-reports what the port does.  In a train cell the ``model`` axis computes
+reports what the port does.  In every cell the ``model`` axis computes
 the dense attention, the dense MLP and the embedding on shards
-(``sharding.tp``): per-layer all-gathers over ``data``, the KV-group
-gathers, the *f*/*g* all-reduces over ``model`` and the gradient
-reductions; the MoE experts, MLA, Mamba2, the hybrid's shared block and
+(``sharding.tp``): in a train cell with per-layer all-gathers over
+``data``, the KV-group gathers, the *f*/*g* all-reduces over ``model``
+and the gradient reductions; in an inference cell with no collective over
+``data``: *f*/*g*, and where the cache is split over the sequence this
+step's q/k/v gathered over ``model`` and the flash-decoding combine's
+all-reduces.  The MoE experts, MLA, Mamba2, the hybrid's shared block and
 the encoder-decoder's layers are gathered whole and repeated by every rank
-of a model group (ROADMAP Queue 1).  The inference cells gather every
-layer whole.
+of a model group, and their caches are whole over ``model`` (ROADMAP
+Queue 1).  ``collectives.per_axis`` splits the traffic by mesh axis.
 
 The port's graphs are unrolled.  A cell is traced at 1 and 2 layer units
 (a hybrid's unit is ``attn_every`` layers; an encoder-decoder's one encoder
@@ -63,12 +70,13 @@ import torch.distributed as dist
 
 from ..configs.registry import (ARCH_IDS, SHAPES, get_config, input_specs,
                                 skip_reason)
-from ..core.plan import resolve_plan
+from ..core.plan import PLAN_KEY, resolve_plan
 from ..core.qconfig import deployment_oriented
 from ..models import init_cache, init_model
 from ..optim.adam import paper_recipe
-from ..serve.deploy import deploy_view, export_for_layers, make_deploy_plan
-from ..sharding.partition import (ShardingPolicy, opt_state_shardings,
+from ..serve.deploy import export_for_layers, make_deploy_plan
+from ..sharding.partition import (ShardingPolicy, axis_size,
+                                  cache_shardings, opt_state_shardings,
                                   params_shardings, spec_at, to_placements)
 from ..train.steps import make_decode_step, make_prefill_step
 from ..tree import tree_from_items, tree_items
@@ -134,6 +142,60 @@ def _local_bytes(tree, specs, mesh) -> int:
     return n
 
 
+def serve_cache_specs(cache, cfg, mesh, pol: ShardingPolicy):
+    """``cache_shardings``'s specs, with ``model`` dropped from every leaf
+    but the top-level ``k``/``v`` of a family whose attention runs on
+    shards (dense, VLM, and the MoE family's GQA): the MLA latent cache,
+    the SSM state, the hybrid's shared attention and the
+    encoder-decoder's caches stay whole over ``model``, as their blocks
+    are gathered whole."""
+    specs = cache_shardings(cache, cfg, mesh, pol)
+    keep = cfg.family in ("dense", "vlm", "moe")
+
+    def one(path):
+        spec = spec_at(specs, path)
+        if spec is None or (keep and path in (("k",), ("v",))):
+            return spec
+        return tuple(None if e == pol.tp else e for e in spec)
+
+    return tree_from_items((p, one(p)) for p, _ in tree_items(cache))
+
+
+def _local_shape(shape, spec, mesh) -> tuple:
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            out[d] //= axis_size(mesh, a)
+    return tuple(out)
+
+
+def local_cache(cache, specs, mesh):
+    """The rank's shards of ``cache`` placed by ``specs``: shape-only
+    tensors on the meta device (other leaves as they are)."""
+    return tree_from_items(
+        (p, torch.empty(_local_shape(t.shape, spec_at(specs, p), mesh),
+                        dtype=t.dtype, device="meta")
+         if isinstance(t, torch.Tensor) else t)
+        for p, t in tree_items(cache))
+
+
+def as_dtensors(local, specs, shapes, mesh):
+    """``local`` (the rank's shards) as DTensors of the shapes and strides
+    of the tensors of ``shapes``, placed by ``specs``: views, nothing is
+    copied."""
+    from torch.distributed.tensor import DTensor
+
+    def one(path, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        whole = spec_at(shapes, path)
+        return DTensor.from_local(
+            t, mesh, to_placements(spec_at(specs, path), mesh),
+            run_check=False, shape=whole.shape, stride=whole.stride())
+
+    return tree_from_items((p, one(p, t)) for p, t in tree_items(local))
+
+
 def build_cell(arch: str, shape: str, mesh, pol: ShardingPolicy,
                n_layer_units: int | None = None, qcfg=None):
     """``(fn, args, cfg, state)``: ``fn(*args)`` is one rank's step of the
@@ -171,16 +233,20 @@ def build_cell(arch: str, shape: str, mesh, pol: ShardingPolicy,
             cfg, state
 
     # inference cells run the deployed artifact under the same resolved
-    # plan the train cells fake-quant against
+    # plan the train cells fake-quant against, stored as the JAX package's
+    # param_spec places it (its q leaves over model only) and dequantized
+    # a layer's shard at a time inside the step; the cache placed by
+    # cache_shardings (serve_cache_specs), the logits the rank's slice of
+    # the vocabulary
     dplan = make_deploy_plan(qcfg, arch=arch, family=cfg.family,
                              quant_plan=qplan)
     with torch.no_grad():
-        view = deploy_view(export_for_layers(student, dplan, device="meta"),
-                           dplan)
-    specs = params_shardings(view, cfg, mesh, pol)
-    view_dt = place(view, specs, mesh)
+        exported = export_for_layers(student, dplan, device="meta")
+    exported.pop(PLAN_KEY, None)
+    specs = params_shardings(exported, cfg, mesh, pol)
+    ex_dt = place(exported, specs, mesh)
     rows = local_rows(batch, mesh, pol)
-    B = next(iter(rows.values())).shape[0]
+    B = next(iter(batch.values())).shape[0]
     if sp.kind == "prefill":
         cache = init_cache(cfg, B, sp.seq_len + 8, device="meta")
         inner = make_prefill_step(cfg, None)
@@ -189,14 +255,17 @@ def build_cell(arch: str, shape: str, mesh, pol: ShardingPolicy,
                            enc_len=sp.seq_len if cfg.family == "encdec"
                            else None)
         inner = make_decode_step(cfg, None)
+    c_specs = serve_cache_specs(cache, cfg, mesh, pol)
+    local = local_cache(cache, c_specs, mesh)
 
     def fn(c, b):
         with torch.no_grad():
-            return inner(view_dt, c, b)
+            logits, _ = inner(ex_dt, as_dtensors(c, c_specs, cache, mesh), b)
+        return logits, c
 
-    state = {"param_bytes": _local_bytes(view, specs, mesh),
-             "optimizer_bytes": 0, "batch": rows, "cache": cache}
-    return fn, (cache, rows), cfg, state
+    state = {"param_bytes": _local_bytes(exported, specs, mesh),
+             "optimizer_bytes": 0, "batch": rows, "cache": local}
+    return fn, (local, rows), cfg, state
 
 
 def _model_flops(arch: str, shape: str) -> float:
@@ -238,6 +307,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     pol = pol or ShardingPolicy(dp=("pod", "data") if multi_pod
                                 else ("data",))
+    axes = H.mesh_axes(mesh)
     t0 = time.time()
     try:
         units = _layer_units(_cfg_for(arch))
@@ -250,14 +320,16 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
                 raise RuntimeError(f"the step did not trace: "
                                    f"{tr.untraceable}")
             cost = H.cost_summary(tr)
-            coll = H.collective_stats(tr, n_chips)
+            coll = H.collective_stats(tr, n_chips, axes)
             probes[n] = {"flops": cost["flops"], "bytes": cost["bytes"],
                          "collective_bytes": coll["collective_bytes"],
                          "activation_peak_bytes":
                              float(H.activation_peak(tr)),
                          "n_collectives": float(coll["n_ops"]),
                          **{f"coll:{k}": v
-                            for k, v in coll["per_kind"].items()}}
+                            for k, v in coll["per_kind"].items()},
+                         **{f"axis:{k}": v
+                            for k, v in coll["per_axis"].items()}}
             keys = set(probes[n])
             if n == 2:
                 for k in keys | set(probes[1]):
@@ -282,6 +354,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
             "collective_bytes": total["collective_bytes"],
             "per_kind": {k[5:]: v for k, v in total.items()
                          if k.startswith("coll:")},
+            "per_axis": {k[5:]: v for k, v in total.items()
+                         if k.startswith("axis:")},
             "n_ops": int(total["n_collectives"]),
             "per_layer_unit_bytes": layer["collective_bytes"]}
         out["roofline"] = H.roofline_terms(

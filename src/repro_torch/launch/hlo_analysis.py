@@ -247,10 +247,35 @@ def _group_size(node, n_devices: int) -> int:
     return n_devices
 
 
-def collective_stats(tr, n_devices: int) -> dict[str, Any]:
+def _group_ranks(name: str) -> tuple | None:
+    try:
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        return tuple(dist.get_process_group_ranks(
+            _resolve_process_group(name)))
+    except (RuntimeError, ValueError, KeyError):
+        return None
+
+
+def mesh_axes(mesh) -> dict:
+    """This rank's group of each axis of ``mesh``, as its ranks → the
+    axis name: what :func:`collective_stats` names a collective's group
+    by (a mesh made again over the same ranks has new group names)."""
+    import torch.distributed as dist
+    return {tuple(dist.get_process_group_ranks(mesh.get_group(a))): a
+            for a in mesh.mesh_dim_names}
+
+
+def collective_stats(tr, n_devices: int,
+                     axes: dict | None = None) -> dict[str, Any]:
     """Per-rank collective traffic in bytes (the reference's ring model),
-    from the graph's functional collectives."""
+    from the graph's functional collectives; with ``axes``
+    (:func:`mesh_axes`) also ``per_axis``, the traffic by
+    ``"<kind>/<axis>"`` (a group that is no mesh axis's by its size,
+    ``size<g>``)."""
     per_kind: dict[str, float] = {}
+    per_axis: dict[str, float] = {}
     total = 0.0
     ops = 0
     for node in tr.nodes():
@@ -263,9 +288,17 @@ def collective_stats(tr, n_devices: int) -> dict[str, Any]:
         g = _group_size(node, n_devices)
         traffic = _nbytes(node_val(node)) * ring(g) if g > 1 else 0.0
         per_kind[kind] = per_kind.get(kind, 0.0) + traffic
+        if axes is not None:
+            names = [a for a in node.args if isinstance(a, str)]
+            axis = axes.get(_group_ranks(names[-1])) if names else None
+            key = f"{kind}/{axis or f'size{g}'}"
+            per_axis[key] = per_axis.get(key, 0.0) + traffic
         total += traffic
         ops += 1
-    return {"collective_bytes": total, "per_kind": per_kind, "n_ops": ops}
+    out = {"collective_bytes": total, "per_kind": per_kind, "n_ops": ops}
+    if axes is not None:
+        out["per_axis"] = per_axis
+    return out
 
 
 def roofline_terms(flops_dev: float, bytes_dev: float, coll_dev: float,

@@ -69,10 +69,15 @@ def place(tree, specs, mesh) -> Any:
     """Each leaf of ``tree`` as a DTensor on ``mesh`` with its spec's
     placements.  A DTensor already so placed is kept; any other (a plain
     tensor, or a DTensor on another mesh after a remesh or restore) is
-    distributed from its whole value.  ``requires_grad`` carries over."""
+    distributed from its whole value.  ``requires_grad`` carries over.
+    A leaf that is no tensor (a cache's ``pos``, its unfilled ``None``) is
+    kept as it is."""
     dt = _dtensor()
     out = []
     for path, leaf in tree_items(tree):
+        if not isinstance(leaf, torch.Tensor):
+            out.append((path, leaf))
+            continue
         want = to_placements(spec_at(specs, path), mesh)
         if isinstance(leaf, dt.DTensor):
             if leaf.device_mesh == mesh and tuple(leaf.placements) == want:

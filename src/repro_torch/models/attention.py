@@ -117,12 +117,94 @@ def _write_rows(c: torch.Tensor, u: torch.Tensor, pos) -> None:
         c[:, pos:pos + n] = u[:, :n].to(c.dtype)
 
 
+def _write_chunk(c: torch.Tensor, u: torch.Tensor, pos, off: int,
+                 T: int) -> None:
+    """:func:`_write_rows` on the chunk ``c [B, Tc, ...]`` of a ``T``-deep
+    cache split over the sequence, holding positions ``[off, off + Tc)``:
+    only the rows that fall in it are written.  Per-slot offsets write
+    without a host read: a slot's rows outside the chunk repeat a write
+    of the chunk's (the same value) or write back what is there."""
+    B, Sq = u.shape[:2]
+    Tc = c.shape[1]
+    if not _is_vector(pos):
+        n = min(Sq, T - pos)
+        a, b = max(pos, off), min(pos + n, off + Tc)
+        if a < b:
+            c[:, a - off:b - off] = u[:, a - pos:b - pos].to(c.dtype)
+        return
+    dev = u.device
+    start = torch.clamp(pos, 0, T - Sq)
+    lo = torch.clamp(start - off, 0, Tc)
+    n = torch.clamp(start + Sq - off, 0, Tc) - lo          # rows in the chunk
+    j = torch.minimum(torch.arange(Sq, device=dev)[None],
+                      torch.clamp(n - 1, min=0)[:, None])
+    dst = torch.clamp(lo[:, None] + j, max=Tc - 1)
+    src = torch.clamp(lo[:, None] + off - start[:, None] + j, 0, Sq - 1)
+    rows = torch.arange(B, device=dev)[:, None]
+    hit = (n > 0).reshape((B,) + (1,) * (u.ndim - 1))
+    c[rows, dst] = torch.where(hit, u[rows, src].to(c.dtype), c[rows, dst])
+
+
+def _sdpa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, q_offset, kv_len, k_offset: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_sdpa` over one chunk of the keys (at positions ``k_offset +
+    [0, Skv)``), unnormalized: ``(o, m, l)``, f32, ``o [B, Sq, H, hd]`` the
+    probabilities ``exp(logit - m)`` times v, ``m``/``l [B, Sq, H, 1]``
+    the row max and the sum of those probabilities.  A chunk a row sees
+    none of has ``m = -1e30``, and its share vanishes in the combine."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) * (hd ** -0.5)
+    mask = _mask(q_offset, Sq, Skv, causal, kv_len, q.device, k_offset)
+    if _is_vector(q_offset):
+        mask = mask[:, None, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+
+    def per_head(t):                      # [B, Hkv, G, Sq, 1] → [B, Sq, H, 1]
+        return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, 1)
+    return o.reshape(B, Sq, H, hd), per_head(m), per_head(
+        torch.sum(p, dim=-1, keepdim=True))
+
+
+def _seq_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cache: Params, tp) -> torch.Tensor:
+    """Attention over a cache split over the sequence (``tp.kv ==
+    "seq"``): ``q``/``k``/``v`` hold every head; the rank writes the rows
+    that fall in its chunk, attends over the chunk for every head, and a
+    flash-decoding combine over the group (an all-reduce of the row max,
+    then of the rescaled outputs and sums) gives the softmax over the
+    whole sequence.  Returns the rank's query heads' output, in the
+    cache's dtype."""
+    pos, ck, cv = cache["pos"], cache["k"], cache["v"]
+    Sq, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    Tc = ck.shape[1]
+    off = tp.rank * Tc
+    _write_chunk(ck, k, pos, off, Tc * tp.size)
+    _write_chunk(cv, v, pos, off, Tc * tp.size)
+    o, m, l = _sdpa_partial(q, ck, cv, causal=Sq > 1, q_offset=pos,
+                            kv_len=pos + Sq, k_offset=off)
+    w = torch.exp(m - tp.all_reduce(m, "max"))
+    ol = tp.all_reduce(torch.cat([o * w, l * w], dim=-1))
+    h = H // tp.size
+    own = slice(tp.rank * h, (tp.rank + 1) * h)
+    return (ol[:, :, own, :hd] / ol[:, :, own, hd:]).to(cv.dtype)
+
+
 def _mask(q_offset, Sq: int, Skv: int, causal: bool, kv_len,
-          device) -> torch.Tensor:
+          device, k_offset: int = 0) -> torch.Tensor:
     """Which keys each query sees: ``[B, Sq, Skv]`` for per-slot ``[B]``
     offsets (serving: every slot at its own offset, each attending its own
-    valid prefix ``kv_len``), else ``[Sq, Skv]``."""
-    pos_k = torch.arange(Skv, device=device)
+    valid prefix ``kv_len``), else ``[Sq, Skv]``.  The keys sit at
+    positions ``k_offset + [0, Skv)`` (a chunk of a cache split over the
+    sequence)."""
+    pos_k = k_offset + torch.arange(Skv, device=device)
     ar_q = torch.arange(Sq, device=device)
     if _is_vector(q_offset):
         pos_q = q_offset[:, None] + ar_q[None, :]                 # [B, Sq]
@@ -239,27 +321,55 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     fake-quant through the ``fake_quant`` kernel.  ``taps`` records
     ``{prefix}.pre_o``.
 
-    ``tp`` (a ``sharding.tp.Group``, cache-free forwards only): ``p`` is
-    the rank's shard (``sharding.tp.layer_view``): ``wq`` the columns of
-    its query heads, ``wk``/``wv`` those of the KV heads they read,
-    ``wo`` its rows; the input passes *f*, ``wo``'s product *g*.  The head
-    counts are read off the weights' shapes, so one code serves both."""
+    ``tp`` (a ``sharding.tp.Group``): ``p`` is the rank's shard
+    (``sharding.tp.layer_view``): ``wq`` the columns of its query heads,
+    ``wk``/``wv`` those of the KV heads they read (or, where a KV head
+    lies on several ranks and the weight was not gathered, the rank's
+    share of its columns), ``wo`` its rows; the input passes *f*, ``wo``'s
+    product *g*.  The head counts are read off the weights' shapes, so one
+    code serves both.  Where the rank's k/v columns are not whole heads,
+    this step's k/v activations are gathered over the group (never the
+    weights) and the rank's query heads read their KV heads of them.  A
+    monolithic cache is split over the group as ``tp.kv`` says
+    (``sharding.tp.cache_view``):
+
+    - ``"heads"``: the rank writes and reads its KV heads of the cache;
+      the per-slot decode takes ``decode_route``'s kernel on them;
+    - ``"seq"``: q/k/v of every head are gathered, the rank writes the
+      rows that fall in its chunk of the sequence and the chunks' partial
+      softmaxes are combined over the group (:func:`_seq_split`, plain
+      PyTorch, as the JAX package's GSPMD computes it);
+    - None: each rank holds the whole cache; the new k/v are gathered to
+      write it, and the rank's query heads attend their KV heads of it."""
     B, Sq, _ = x.shape
     hd = cfg.head_dim
     pv = plan_view(plan)
     ins = p.get("in_stream")
+    mode = None
     if tp is not None:
         if cache is not None:
-            raise ValueError("a forward with a cache gathers its layers "
-                             "whole; tensor parallelism is for the "
-                             "cache-free forward")
+            if "pt" in cache:
+                raise ValueError("the paged cache is served on one rank; "
+                                 "tensor parallelism takes a monolithic "
+                                 "cache")
+            mode = tp.kv or "whole"
         x = tp.copy_to(x)
     q = dof.qlinear(x, p["wq"], qcfg, stream=ins, bits=pv.bits("wq"),
-                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
+                    use_kernels=use_kernels)
     k = dof.qlinear(x, p["wk"], qcfg, stream=ins, bits=pv.bits("wk"),
-                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
+                    use_kernels=use_kernels)
     v = dof.qlinear(x, p["wv"], qcfg, stream=ins, bits=pv.bits("wv"),
-                    use_kernels=use_kernels).reshape(B, Sq, -1, hd)
+                    use_kernels=use_kernels)
+    # this step's k/v of every KV head, gathered over the group
+    kv_all = tp is not None and (mode in ("seq", "whole")
+                                 or k.shape[-1] % hd != 0)
+    if kv_all:
+        k, v = tp.gather_cols(k), tp.gather_cols(v)
+        if mode == "seq":
+            q = tp.gather_cols(q)
+    q = q.reshape(B, Sq, -1, hd)
+    k = k.reshape(B, Sq, -1, hd)
+    v = v.reshape(B, Sq, -1, hd)
     H, Hkv = q.shape[2], k.shape[2]
     if cfg.qk_norm:
         q, k = rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
@@ -269,8 +379,16 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # the KV heads the rank's query heads read, of every head gathered
+    own_kv = None
+    if kv_all and mode != "seq":
+        G = cfg.n_heads_padded // cfg.n_kv_heads_padded
+        first = tp.rank * H // G
+        own_kv = slice(first, first + max(H // G, 1))
 
     if cache is None:
+        if own_kv is not None:
+            k, v = k[:, :, own_kv], v[:, :, own_kv]
         # a quantized model (the student) keeps _sdpa, the route it trains on
         if qcfg is None and prefill_route(q, k, v, use_kernels):
             out = attention_prefill(q, k, v, causal=True)
@@ -278,12 +396,22 @@ def attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
             out = _sdpa(q, k, v, causal=True, q_offset=0)
     elif "pt" in cache:
         out = _paged_decode(q, k, v, cache, cfg, use_kernels).to(x.dtype)
+    elif mode == "seq":
+        out = _seq_split(q, k, v, cache, tp)
+        H = out.shape[2]
     else:
         pos, ck, cv = cache["pos"], cache["k"], cache["v"]
         T = ck.shape[1]
+        if ck.shape[2] != Hkv:
+            raise ValueError(f"a cache of {ck.shape[2]} KV heads for "
+                             f"{Hkv} KV heads of k/v")
         _write_rows(ck, k, pos)
         _write_rows(cv, v, pos)
-        if Sq == 1 and _is_vector(pos) and decode_route(cfg, T, use_kernels):
+        if own_kv is not None:
+            out = _sdpa(q, ck[:, :, own_kv], cv[:, :, own_kv],
+                        causal=Sq > 1, q_offset=pos, kv_len=pos + Sq)
+        elif Sq == 1 and _is_vector(pos) and decode_route(cfg, T,
+                                                          use_kernels):
             qd = q[:, 0].reshape(B, Hkv, H // Hkv, hd).contiguous()
             od = decode_attention(qd, ck, cv, pos + 1)
             out = od.reshape(B, 1, H, hd).to(x.dtype)

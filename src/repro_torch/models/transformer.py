@@ -24,22 +24,28 @@ dots_with_no_batch_dims_saveable`` does, and recomputes batched products
 everything.  A recompute runs the weights' fake-quant forward again.
 
 A DTensor leaf (``launch.train``'s sharded step stores the student and the
-teacher so) is taken where it is used, as ``sharding.tp`` views it: a
-layer's leaves at the start of that layer's body, inside the remat region
-(so under remat only one layer's weights live at a time, and the backward
-takes them again), the embedding, head and final norms at the start of
-the forward.  In a cache-free forward (the train step's) on a mesh whose
-``model`` axis has more than one rank, the dense attention (not MLA) and
-the dense MLP (not MoE) of a stacked layer run on the rank's shards —
-columns, rows and heads, with *f*/*g* over ``model`` — and the embedding
-on its vocabulary rows (``sharding.tp.layer_view``, ``embed_view``);
-every other leaf is gathered whole: the MoE experts, MLA, Mamba2, the
-hybrid's shared block, the encoder-decoder's layers, the head, the norms.
-A forward with a cache (prefill and decode: the engine, the dry-run's
-inference cells) gathers every leaf whole.  Each view states how its
-gradient relates to the model group's (``sharding.tp``'s rule).  The
-batch itself is split over the ``dp`` axes before the forward
-(``launch.train.local_rows``).
+teacher so, the dry-run's inference cells the exported artifact) is taken
+where it is used, as ``sharding.tp`` views it: a layer's leaves at the
+start of that layer's body, inside the remat region (so under remat only
+one layer's weights live at a time, and the backward takes them again),
+the embedding, head and final norms at the start of the forward.  On a
+mesh whose ``model`` axis has more than one rank, the dense attention (not
+MLA) and the dense MLP (not MoE) of a stacked layer run on the rank's
+shards — columns, rows and heads, with *f*/*g* over ``model`` — and the
+embedding on its vocabulary rows (``sharding.tp.layer_view``,
+``embed_view``); an exported layer is dequantized there, each rank its own
+shard.  Every other leaf is gathered whole: the MoE experts, MLA, Mamba2,
+the hybrid's shared block, the encoder-decoder's layers, the norms, and in
+a cache-free forward the head.  A forward with a cache (prefill and
+decode: the dry-run's inference cells) takes its DTensor cache leaves as
+the rank's local shards (``sharding.tp.cache_view``): the dense attention
+writes and reads the k/v as they are split over ``model`` (by KV heads,
+by the sequence, or whole on every rank; ``models.attention``), and the
+head is vocabulary-parallel, so the logits are the rank's slice of the
+vocabulary.  Each view states how its gradient relates to the model
+group's (``sharding.tp``'s rule).  The batch itself is split over the
+``dp`` axes before the forward (``launch.train.local_rows``); a cache
+holds those rows, and a per-slot ``pos`` is theirs.
 """
 from __future__ import annotations
 
@@ -313,11 +319,16 @@ def unstack(tree) -> list:
 
 
 def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
-                prefix):
-    if cache is None:
-        lp, attn_tp, mlp_tp = tp_lib.layer_view(lp, cfg)
-    else:
-        lp, attn_tp, mlp_tp = tp_lib.gather(lp), None, None
+                prefix, kv=None):
+    """One pre-norm attention + MLP layer; ``kv`` is how ``cache``'s k/v
+    are split over ``model`` (``sharding.tp.cache_view``)."""
+    lp, attn_tp, mlp_tp = tp_lib.layer_view(lp, cfg, x.dtype,
+                                            cache=cache is not None)
+    if attn_tp is not None and cache is not None:
+        attn_tp = dataclasses.replace(attn_tp, kv=kv)
+    elif kv is not None:
+        raise ValueError(f"a cache split over model ({kv}) for an "
+                         f"attention block gathered whole")
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".attn_in", h)
     if cfg.mla is not None:           # taps nothing inside, as the JAX package
@@ -345,7 +356,7 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
 
 
 def _ssm_layer(x, lp, cfg, qcfg, c, pv, use_kernels, taps, prefix):
-    lp = tp_lib.gather(lp)
+    lp = tp_lib.gather(lp, x.dtype)
     h = rmsnorm(x, lp["norm1"])
     tap(taps, prefix + ".ssm_in", h)
     y = ssm_block(h, lp["ssm"], cfg, qcfg, c, taps=taps,
@@ -423,9 +434,10 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     ``logits=False`` skips the head (``logits`` is then None), as XLA drops
     it from a step whose loss reads only the hidden states.
 
-    DTensor parameters (the sharded step's) are computed on the rank's
-    shards where the module docstring says; with a cache every leaf is
-    gathered whole.
+    DTensor parameters (the sharded step's, or an exported artifact
+    stored so) and a DTensor cache are computed on the rank's shards where
+    the module docstring says; with a cache the logits are then the
+    rank's vocabulary slice.
 
     The batch holds ``tokens [B, S]``, and may hold ``positions`` (``[B,
     S]``, or ``[B, 3, S]`` under M-RoPE); the VLM's ``patch_embeds [B,
@@ -436,20 +448,33 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
     slot), the three M-RoPE streams equal.
     """
     _require_family(cfg)
-    embed_tp = None
-    if cache is None and not (logits and cfg.tie_embeddings):
-        params = {**params}
-        params["embed"], embed_tp = tp_lib.embed_view(params["embed"])
-    params = {k: v if k in _STACKS or (k == "embed" and embed_tp)
+    store = cache
+    cache, kv = tp_lib.cache_view(cache)
+    params = {**params}
+    viewed = set()
+    # with a cache the logits are the rank's vocabulary slice
+    if cache is not None or not (logits and cfg.tie_embeddings):
+        params["embed"], embed_tp = tp_lib.embed_view(params["embed"],
+                                                      compute_dtype)
+        viewed.add("embed")
+    else:
+        embed_tp = None
+    if cache is not None and logits and "lm_head" in params:
+        params["lm_head"], _ = tp_lib.head_view(params["lm_head"],
+                                                compute_dtype)
+        viewed.add("lm_head")
+    params = {k: v if k in _STACKS or k in viewed
               or (not logits and k in ("lm_head", "head_stream"))
-              else tp_lib.gather(v) for k, v in params.items()}
+              else tp_lib.gather(v, compute_dtype)
+              for k, v in params.items()}
     pv = plan_view(plan)
     taps: dict | None = {} if collect_taps else None
     if cfg.family == "encdec":
         h, enc_out = _forward_encdec(params, cfg, qcfg, batch, cache, pv,
                                      use_kernels, compute_dtype, embed_tp)
         out = _head(params, cfg, qcfg, h, pv, use_kernels) if logits else None
-        return {"hidden": h, "logits": out, "cache": cache, "taps": taps,
+        tp_lib.sync_cache(store, cache)
+        return {"hidden": h, "logits": out, "cache": store, "taps": taps,
                 "enc_out": enc_out}
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -490,12 +515,13 @@ def forward(params: Params, cfg: ModelConfig, qcfg: QuantConfig | None,
                 **{k: v[i] for k, v in cache.items()
                    if k not in ("pos", "pt")}, **shared}
             x = block(x, lp, cfg, qcfg, positions, c, lpv, use_kernels, taps,
-                      f"L{i}")
+                      f"L{i}", kv)
         if cache is not None:
             cache["pos"] = cache["pos"] + S
     h = rmsnorm(x, params["final_norm"])
     out = _head(params, cfg, qcfg, h, pv, use_kernels) if logits else None
-    return {"hidden": h, "logits": out, "cache": cache, "taps": taps}
+    tp_lib.sync_cache(store, cache)
+    return {"hidden": h, "logits": out, "cache": store, "taps": taps}
 
 
 def _head(params, cfg, qcfg, h, pv, use_kernels) -> torch.Tensor:
@@ -534,7 +560,7 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
             torch.arange(Se, device=e.device)[None], (Be, Se))
 
         def enc_layer(e, lp):
-            lp = tp_lib.gather(lp)
+            lp = tp_lib.gather(lp, e.dtype)
             e = e + attention(rmsnorm(e, lp["norm1"]), lp["attn"], cfg,
                               qcfg, epos, None, plan=epv.child("attn"),
                               use_kernels=use_kernels)
@@ -558,7 +584,7 @@ def _forward_encdec(params, cfg, qcfg, batch, cache, pv, use_kernels,
     new_k, new_v = [], []
 
     def dec_layer(x, lp, sc, kv):
-        lp = tp_lib.gather(lp)
+        lp = tp_lib.gather(lp, x.dtype)
         x = x + attention(rmsnorm(x, lp["norm1"]), lp["attn"], cfg, qcfg,
                           positions, sc, plan=dpv.child("attn"),
                           use_kernels=use_kernels)

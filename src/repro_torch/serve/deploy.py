@@ -271,13 +271,11 @@ def export_for_layers(params: Params, plan_or_qcfg, device=None) -> Params:
     return out
 
 
-def _dequant(ex: Params, dtype, stacked: bool) -> torch.Tensor:
-    """dequantize_export, one layer at a time when ``stacked`` (the layer
+def _dequant(ex: Params, dtype) -> torch.Tensor:
+    """dequantize_export of a layer stack, one layer at a time (the layer
     axis only: an expert stack's ``s_wl`` is shared by its experts and
     broadcasts over them in ``dequantize_export``)."""
     packed = ex["q"].dtype == torch.uint8
-    if not stacked:
-        return dof.dequantize_export(ex, dtype, packed=packed)
     return torch.stack([dof.dequantize_export(layer_slice(ex, i), dtype,
                                               packed=packed)
                         for i in range(ex["q"].shape[0])])
@@ -286,15 +284,17 @@ def _dequant(ex: Params, dtype, stacked: bool) -> torch.Tensor:
 def deploy_view(exported: Params, plan_or_qcfg,
                 dtype=torch.bfloat16) -> Params:
     """Artifact → forward()-compatible tree of dequantized weights (use
-    with ``qcfg=None`` in forward), on the artifact's device."""
+    with ``qcfg=None`` in forward), on the artifact's device.  Each node
+    is ``core.dof.deploy_node``'s view, a stacked one's a layer at a
+    time."""
     _as_plan(plan_or_qcfg, artifact=exported)
 
     def walk(tree, stacked: bool):
         if isinstance(tree, dict):
-            if "q" in tree and "s" in tree:          # embedding
-                return {"w": tree["q"].to(torch.float32) * tree["s"]}
-            if "q" in tree and "s_wr" in tree:
-                out: Params = {"w": _dequant(tree, dtype, stacked)}
+            if dof.is_exported(tree):
+                if not (stacked and "s_wr" in tree):
+                    return dof.deploy_node(tree, dtype)
+                out: Params = {"w": _dequant(tree, dtype)}
                 if "b" in tree:
                     out["b"] = tree["b"]
                 return out

@@ -26,6 +26,18 @@ region): a ``model``-sharded weight keeps its shard and is gathered over
 the other axes only; a replicated leaf is taken whole and sliced as its
 weight's shard needs (``core.dof.shard_qlinear``, ``shard_stream``).
 
+**The deployed artifact** (the serving cells): an exported linear's ``q``
+(nibble-packed along the in-dim or int8) is stored over ``model`` only,
+its ``s_wl``/``s_wr``/bias replicated; the view dequantizes the rank's
+shard with its slices of the scales (``core.dof.shard_export``,
+``deploy_node``), an exported embedding's rows times their ``s``, the
+``lm_head``'s vocabulary columns (:func:`head_view`), so the logits are
+the rank's slice of the vocabulary.  No gradient is taken there.  A
+forward with a cache takes the cache's DTensor leaves as the rank's
+shards (:func:`cache_view`), the k/v split over ``model`` by KV heads, by
+the sequence, or not at all (``Group.kv``); ``models.attention`` then
+gathers this step's k/v activations where it needs them, never a weight.
+
 **The gradient rule** (:data:`SHARD`, :data:`PARTIAL`, :data:`WHOLE`):
 each view declares how the rank's gradient of the leaf relates to its
 ``model`` group's, as the placement on ``model`` of the view's gradient.
@@ -173,16 +185,28 @@ class Group:
     """A rank's ``model`` group, for a block computed on shards: the
     compute side (``models.attention``, ``models.layers``) calls
     :meth:`copy_to` on a block's input and :meth:`reduce_from` on a
-    row-parallel product; ``rank`` places the embedding's rows."""
+    row-parallel product; ``rank`` places the embedding's rows.  ``kv``
+    says how a cache given with the group is split over it: ``"heads"``
+    (each rank its KV heads), ``"seq"`` (each rank a chunk of the
+    sequence) or None (each rank holds it whole)."""
     group: Any
     size: int
     rank: int
+    kv: str | None = None
 
     def copy_to(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to(x, self.group)
 
     def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
         return reduce_from(x, self.group)
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's column blocks of an activation side by side."""
+        return gather_kv(x, self.group, self.size)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``op`` (``"sum"``, ``"max"``) over the group, no gradient."""
+        return _wait(_funcol().all_reduce(x.contiguous(), op, self.group))
 
 
 #: the KV groups made for a model group: its process group's id → (the
@@ -215,10 +239,11 @@ def prepare(mesh, cfg) -> None:
     """Make the process groups the forward of ``cfg`` on ``mesh`` will ask
     for (the KV groups, where ``cfg`` has fewer KV heads than ``model``
     has ranks), so a traced step finds them made: making them reads the
-    mesh's rank tensor, which a ``make_fx`` trace cannot."""
+    mesh's rank tensor, which a ``make_fx`` trace cannot.  A family with no
+    attention (``n_kv_heads_padded`` 0) needs none."""
     size = model_size(mesh)
     hkv = cfg.n_kv_heads_padded
-    if size > 1 and hkv < size and size % hkv == 0:
+    if size > 1 and 0 < hkv < size and size % hkv == 0:
         _kv_group(mesh, size // hkv)
 
 
@@ -248,14 +273,20 @@ def view(t, kind: str) -> torch.Tensor:
     return t.to_local(grad_placements=grad)
 
 
-def gather(tree):
+def gather(tree, dtype=None):
     """``tree`` with each DTensor leaf gathered to its whole value (a plain
-    tensor); plain leaves are kept.  On a mesh whose ``model`` axis has
-    more than one rank the gather's gradient is ``WHOLE`` (every rank of
-    the group runs the block in full); else a partial sum over every axis,
-    the gather at ``model`` size 1."""
+    tensor); plain leaves are kept.  With ``dtype`` an exported linear or
+    embedding among them (``core.dof.is_exported``) is taken as its deploy
+    view, the weight dequantized to ``dtype`` (``core.dof.deploy_node``).
+    On a mesh whose ``model`` axis has more than one rank the gather's
+    gradient is ``WHOLE`` (every rank of the group runs the block in
+    full); else a partial sum over every axis, the gather at ``model``
+    size 1."""
     if isinstance(tree, dict):
-        return {k: gather(v) for k, v in tree.items()}
+        out = {k: gather(v, dtype) for k, v in tree.items()}
+        if dtype is not None and dof.is_exported(out):
+            return dof.deploy_node(out, dtype)
+        return out
     if not is_dtensor(tree):
         return tree
     if model_size(tree.device_mesh) > 1:
@@ -298,6 +329,12 @@ def _leaves(tree):
             yield v
 
 
+def _weight(p: dict):
+    """A linear's or embedding's weight leaf: the trained ``w`` or the
+    exported ``q``."""
+    return p["w"] if "w" in p else p["q"]
+
+
 def _qlinear_view(p: dict, axis: str, rank: int, size: int,
                   w: torch.Tensor | None = None) -> dict:
     """A quantized linear's views on a ``"col"``/``"row"`` shard: the weight
@@ -314,6 +351,24 @@ def _qlinear_view(p: dict, axis: str, rank: int, size: int,
     return dof.shard_qlinear(out, axis, rank, size)
 
 
+def _export_view(p: dict, axis: str, rank: int, size: int, dtype) -> dict:
+    """An exported linear's deploy view on a ``"col"``/``"row"`` shard:
+    the rank's ``q`` (stored on ``model`` only, so nothing is gathered),
+    its slices of ``s_wl``/``s_wr`` and the bias, dequantized to
+    ``dtype``.  No gradient is taken here."""
+    if dtype is None:
+        raise ValueError("an exported linear's view needs the dtype to "
+                         "dequantize to")
+    ex = {k: view(t, SHARD if k == "q" else WHOLE) for k, t in p.items()}
+    return dof.deploy_node(dof.shard_export(ex, axis, rank, size), dtype)
+
+
+def _linear_view(p: dict, axis: str, rank: int, size: int, dtype) -> dict:
+    if "q" in p:
+        return _export_view(p, axis, rank, size, dtype)
+    return _qlinear_view(p, axis, rank, size)
+
+
 def _stream_view(s: dict, rank: int | None = None, size: int = 1) -> dict:
     """A stream's ``PARTIAL`` views, sliced to the rank's channels when
     ``rank`` is given (a row-parallel weight's input stream)."""
@@ -326,12 +381,13 @@ def _attn_split(p: dict, hd: int, size: int) -> int | None:
     whole KV heads), or None where the attention block cannot run on
     shards: a weight not split on ``model`` as the layout has it, or heads
     that do not fall whole onto ranks."""
-    dims = {n: _model_shard_dim(p[n]["w"]) for n in ("wq", "wk", "wv", "wo")}
+    dims = {n: _model_shard_dim(_weight(p[n]))
+            for n in ("wq", "wk", "wv", "wo")}
     if dims != {"wq": -1, "wk": -1, "wv": -1, "wo": -2}:
         return None
-    if p["wq"]["w"].shape[-1] % (size * hd):
+    if _weight(p["wq"]).shape[-1] % (size * hd):
         return None
-    cols = p["wk"]["w"].shape[-1] // size
+    cols = _weight(p["wk"]).shape[-1] // size
     if cols % hd == 0:
         return 1
     if hd % cols == 0 and size % (hd // cols) == 0:
@@ -339,13 +395,19 @@ def _attn_split(p: dict, hd: int, size: int) -> int | None:
     return None
 
 
-def _attn_view(p: dict, g: Group, mesh, hd: int, split: int) -> dict:
-    out = {"wq": _qlinear_view(p["wq"], "col", g.rank, g.size),
-           "wo": _qlinear_view(p["wo"], "row", g.rank, g.size)}
-    kv = None if split == 1 else _kv_group(mesh, split)
+def _attn_view(p: dict, g: Group, mesh, split: int, dtype,
+               cache: bool) -> dict:
+    out = {"wq": _linear_view(p["wq"], "col", g.rank, g.size, dtype),
+           "wo": _linear_view(p["wo"], "row", g.rank, g.size, dtype)}
+    # a KV head over several ranks: the trained weight's columns are
+    # gathered over its ranks in a cache-free forward; an exported weight,
+    # or any forward with a cache, keeps its column shard and the
+    # attention gathers this step's k/v activations instead
+    kv = (None if split == 1 or cache or "q" in p["wk"]
+          else _kv_group(mesh, split))
     for n in ("wk", "wv"):
         if kv is None:
-            out[n] = _qlinear_view(p[n], "col", g.rank, g.size)
+            out[n] = _linear_view(p[n], "col", g.rank, g.size, dtype)
         else:           # the whole KV head, from the ranks that share it
             w = gather_kv(view(p[n]["w"], SHARD), kv, split)
             out[n] = _qlinear_view(p[n], "col", g.rank // split,
@@ -366,16 +428,17 @@ def _attn_view(p: dict, g: Group, mesh, hd: int, split: int) -> dict:
 
 def _mlp_fits(p: dict) -> bool:
     want = {"up": -1, "gate": -1, "down": -2}
-    return all(_model_shard_dim(p[n]["w"]) == d for n, d in want.items()
+    return all(_model_shard_dim(_weight(p[n])) == d
+               for n, d in want.items()
                if n in p) and "up" in p and "down" in p
 
 
-def _mlp_view(p: dict, g: Group) -> dict:
+def _mlp_view(p: dict, g: Group, dtype) -> dict:
     out = {}
     for n in ("up", "gate"):
         if n in p:
-            out[n] = _qlinear_view(p[n], "col", g.rank, g.size)
-    out["down"] = _qlinear_view(p["down"], "row", g.rank, g.size)
+            out[n] = _linear_view(p[n], "col", g.rank, g.size, dtype)
+    out["down"] = _linear_view(p["down"], "row", g.rank, g.size, dtype)
     if "in_stream" in p:
         out["in_stream"] = _stream_view(p["in_stream"])
     if "act_stream" in p:
@@ -387,17 +450,21 @@ def _mlp_view(p: dict, g: Group) -> dict:
     return out
 
 
-def layer_view(lp: dict, cfg) -> tuple[dict, Group | None, Group | None]:
+def layer_view(lp: dict, cfg, dtype=None, cache: bool = False
+               ) -> tuple[dict, Group | None, Group | None]:
     """``(tree, attn, mlp)``: one layer's leaves as the rank computes them,
     and the ``Group`` its attention and its MLP run on shards over (None
     for a block gathered whole).  The dense attention (not MLA) runs on
     shards where its four weights are split on ``model`` as the layout has
     them and its heads fall whole onto ranks (or one KV head over ``tp /
     Hkv`` ranks); the dense MLP (not MoE) where its weights are split so.
-    Every other leaf is gathered whole (:func:`gather`)."""
+    Every other leaf is gathered whole (:func:`gather`).  An exported
+    layer (the deployed artifact's ``q`` leaves) is dequantized to
+    ``dtype`` here, each rank its own shard; ``cache`` says the forward
+    holds a cache."""
     found = _group_of(lp)
     if found is None:
-        return gather(lp), None, None
+        return gather(lp, dtype), None, None
     mesh, g = found
     attn = mlp = None
     out = {}
@@ -405,32 +472,112 @@ def layer_view(lp: dict, cfg) -> tuple[dict, Group | None, Group | None]:
         if k == "attn" and cfg.mla is None:
             split = _attn_split(v, cfg.head_dim, g.size)
             if split is not None:
-                out[k], attn = _attn_view(v, g, mesh, cfg.head_dim, split), g
+                out[k] = _attn_view(v, g, mesh, split, dtype, cache)
+                attn = g
                 continue
         if k == "mlp" and cfg.moe is None and _mlp_fits(v):
-            out[k], mlp = _mlp_view(v, g), g
+            out[k], mlp = _mlp_view(v, g, dtype), g
             continue
-        out[k] = gather(v)
+        out[k] = gather(v, dtype)
     return out, attn, mlp
 
 
-def embed_view(p: dict) -> tuple[dict, Group | None]:
+def embed_view(p: dict, dtype=None) -> tuple[dict, Group | None]:
     """``(tree, group)``: the embedding's rows of this rank (``w``
-    ``SHARD``, ``log_s``'s rows ``PARTIAL``) and its ``Group`` where the
-    table is split by vocabulary rows over ``model``; else the whole table
-    and None."""
+    ``SHARD``, ``log_s``'s rows ``PARTIAL``; an exported table's ``q``
+    rows times their ``s``) and its ``Group`` where the table is split by
+    vocabulary rows over ``model``; else the whole table and None."""
     found = _group_of(p)
-    if found is None or _model_shard_dim(p["w"]) != -2:
-        return gather(p), None
+    if found is None or _model_shard_dim(_weight(p)) != -2:
+        return gather(p, dtype), None
     _, g = found
-    w = view(p["w"], SHARD)
-    out = {"w": w}
-    if "log_s" in p:
-        rows = w.shape[0]
-        out["log_s"] = view(p["log_s"], PARTIAL)[
-            g.rank * rows:(g.rank + 1) * rows]
-    unknown = set(p) - set(out)
+    if "q" in p:
+        q = view(p["q"], SHARD)
+        rows = q.shape[0]
+        out = dof.deploy_node({"q": q, "s": view(p["s"], WHOLE)[
+            g.rank * rows:(g.rank + 1) * rows]})
+        known = {"q", "s"}
+    else:
+        w = view(p["w"], SHARD)
+        out = {"w": w}
+        if "log_s" in p:
+            rows = w.shape[0]
+            out["log_s"] = view(p["log_s"], PARTIAL)[
+                g.rank * rows:(g.rank + 1) * rows]
+        known = set(out)
+    unknown = set(p) - known
     if unknown:
         raise ValueError(f"embedding leaves with no tensor-parallel view: "
                          f"{sorted(unknown)}")
     return out, g
+
+
+def head_view(p: dict, dtype=None) -> tuple[dict, Group | None]:
+    """``(tree, group)``: the ``lm_head``'s vocabulary columns of this rank
+    (so the logits are the rank's vocabulary slice) and its ``Group``
+    where the weight is split so over ``model``; else the whole head and
+    None."""
+    found = _group_of(p)
+    if found is None or _model_shard_dim(_weight(p)) != -1:
+        return gather(p, dtype), None
+    _, g = found
+    return _linear_view(p, "col", g.rank, g.size, dtype), g
+
+
+# --------------------------------------------------------------------------
+# the cache of a forward on shards
+# --------------------------------------------------------------------------
+
+#: a k/v cache leaf ``[L, B, T, Hkv, hd]``'s dimension → its split
+_KV_SPLIT = {3: "heads", 2: "seq"}
+
+
+def cache_view(cache) -> tuple[Any, str | None]:
+    """``(local, kv)``: ``cache`` with each DTensor leaf replaced by the
+    rank's local tensor — its rows of the batch, and its part over
+    ``model`` — which shares the DTensor's storage, so the forward's
+    in-place writes land in it; ``kv`` is how the top-level ``k``/``v``
+    are split over ``model``: ``"heads"``, ``"seq"`` or None (whole).  No
+    other leaf may be split over ``model``.  A cache with no DTensor leaf
+    is returned as it is."""
+    if cache is None or not any(is_dtensor(t) for t in _leaves(cache)):
+        return cache, None
+    from torch.distributed.tensor import Shard
+    kv = set()
+
+    def local(node, path):
+        if isinstance(node, dict):
+            return {k: local(v, path + (k,)) for k, v in node.items()}
+        if not is_dtensor(node):
+            return node
+        names = node.device_mesh.mesh_dim_names
+        pl = node.placements[names.index(AXIS)] if AXIS in names else None
+        if isinstance(pl, Shard) and model_size(node.device_mesh) > 1:
+            if path not in (("k",), ("v",)) or pl.dim not in _KV_SPLIT:
+                raise ValueError(f"cache leaf {'.'.join(path)} is split "
+                                 f"over {AXIS!r} on dimension {pl.dim}; "
+                                 f"only the top-level k/v may be, on "
+                                 f"their heads or sequence")
+            kv.add(_KV_SPLIT[pl.dim])
+        elif path in (("k",), ("v",)):
+            kv.add(None)
+        return node.to_local()
+
+    out = local(cache, ())
+    if len(kv) > 1:
+        raise ValueError(f"the cache's k and v are split differently: {kv}")
+    return out, (kv.pop() if kv else None)
+
+
+def sync_cache(cache, local) -> None:
+    """Write ``local``'s plain entries (``pos``, a cross K/V the forward
+    filled) back into ``cache``, whose DTensor leaves share storage with
+    ``local``'s (:func:`cache_view`)."""
+    if local is cache:
+        return
+    for k, v in local.items():
+        if isinstance(v, dict) and isinstance(cache.get(k), dict):
+            sync_cache(cache[k], v)
+        elif not is_dtensor(cache.get(k)):
+            cache[k] = v
+

@@ -1,11 +1,13 @@
 """``repro_torch.launch.dryrun`` over 256 fake ranks, and its accounting.
 
 The dry-run runs in a subprocess under ``torch.distributed``'s ``fake``
-backend, so no process group leaks into the test worker: one train cell
-and one decode cell of qwen3-8b at full config, and one skipped cell,
-each with the JAX package's schema, the H100 roofline terms, the
-port's per-layer gathers and, in the train cell, the tensor-parallel
-compute over ``model``; ``_model_flops`` equals the JAX package's
+backend, so no process group leaks into the test worker: one train cell,
+the decode and prefill cells of qwen3-8b at full config, and one skipped
+cell, each with the JAX package's schema, the H100 roofline terms, the
+port's per-layer gathers and the tensor-parallel compute over ``model``
+(in the inference cells on the artifact's shards and the cache as
+``cache_shardings`` places it, with bounds from the JAX package's
+dry-run); ``_model_flops`` equals the JAX package's
 arithmetic on every (arch × shape) cell (the JAX dry-run module is
 imported in a subprocess too: it sets ``XLA_FLAGS`` when imported).
 """
@@ -25,7 +27,7 @@ from repro_torch.launch import dryrun, hlo_analysis  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = [("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
-         ("qwen3-8b", "long_500k")]
+         ("qwen3-8b", "prefill_32k"), ("qwen3-8b", "long_500k")]
 
 
 def _python(code: str, timeout: int = 240) -> str:
@@ -86,8 +88,13 @@ def test_train_cell_traces_over_256_fake_ranks(cells):
 def test_decode_cell_and_skipped_cell(cells):
     c = cells[("qwen3-8b", "decode_32k")]
     assert c["status"] == "OK", c.get("error")
-    # the deploy view gathered a layer at a time, nothing reduced
-    assert set(c["collectives"]["per_kind"]) == {"all-gather"}
+    # each rank dequantizes its shards of the artifact: over model the
+    # step gathers this step's activations (the cache is split over the
+    # sequence) and reduces (g, the combine); nothing goes over data
+    assert set(c["collectives"]["per_kind"]) == {"all-gather",
+                                                 "all-reduce"}
+    assert set(c["collectives"]["per_axis"]) == {"all-gather/model",
+                                                 "all-reduce/model"}
     assert c["memory"]["cache_bytes"] > 0 and c["memory"][
         "optimizer_bytes"] == 0
     assert c["roofline"]["memory_s"] == pytest.approx(
@@ -96,6 +103,54 @@ def test_decode_cell_and_skipped_cell(cells):
     assert s["status"] == "SKIP"
     assert s["reason"] == skip_reason("qwen3-8b", "long_500k")
     assert "memory" not in s
+
+
+def _cache_bytes_a_rank(shape: str) -> float:
+    """A rank's bytes of the cell's cache on 16 x 16 as
+    ``cache_shardings`` places it."""
+    from repro_torch.models import init_cache
+    from repro_torch.sharding.partition import (ShardingPolicy,
+                                                cache_shardings)
+
+    class Mesh:
+        shape = {"data": 16, "model": 16}
+    cfg = dryrun._cfg_for("qwen3-8b")
+    sp = SHAPES[shape]
+    depth = sp.seq_len + (8 if sp.kind == "prefill" else 0)
+    cache = init_cache(cfg, sp.global_batch, depth, device="meta")
+    specs = cache_shardings(cache, cfg, Mesh, ShardingPolicy())
+    n = 0.0
+    for name in ("k", "v"):
+        div = 1
+        for entry in specs[name]:
+            div *= 16 if entry in ("data", "model") else 1
+        n += cache[name].numel() * cache[name].element_size() / div
+    return n, specs["k"]
+
+
+@pytest.mark.parametrize("shape,bounds", [
+    ("decode_32k", {"flops": 9.6e10, "useful": 0.08, "coll": 0.2e9,
+                    "peak": 15.6e9, "seq": "model"}),
+    ("prefill_32k", {"flops": 2.15e14, "useful": 0.29, "coll": 251e9,
+                     "peak": 80e9, "seq": None})])
+def test_inference_cells_compute_on_shards(cells, shape, bounds):
+    """qwen3-8b's inference cells on 16 x 16, rank 0, within 1.5x the JAX
+    package's FLOPs (6.43e10 decode, 1.43e14 prefill) and collective bytes
+    (prefill 167.5 GB), the cache a rank as ``cache_shardings`` places it
+    (decode: 1/16 of the rows' cache, over the sequence; prefill: all of
+    it, 32 776 not being a multiple of 16), no all-gather over data, and
+    a peak that fits a card."""
+    c = cells[("qwen3-8b", shape)]
+    assert c["status"] == "OK", c.get("error")
+    want_cache, k_spec = _cache_bytes_a_rank(shape)
+    assert k_spec == (None, "data", bounds["seq"], None, None)
+    assert c["memory"]["cache_bytes"] == want_cache
+    assert c["cost"]["corrected_total"]["flops"] <= bounds["flops"]
+    assert c["roofline"]["useful_flops_ratio"] >= bounds["useful"]
+    assert c["collectives"]["collective_bytes"] <= bounds["coll"]
+    assert not any(k.endswith("/data")
+                   for k in c["collectives"]["per_axis"]), c["collectives"]
+    assert c["memory"]["peak_bytes"] < bounds["peak"]
 
 
 def test_model_flops_match_jax():
@@ -125,3 +180,18 @@ def test_extrapolation_and_layer_units():
     assert dryrun.RESULTS_DIR.name == "dryrun_results"
     assert "benchmarks" not in dryrun.RESULTS_DIR.parts
     assert len(SHAPES) == 4 and len(ARCH_IDS) == 10
+
+
+def test_prepare_makes_no_kv_group_for_a_family_with_no_attention():
+    """mamba2 (no KV head) on a model axis of 16: nothing to make (its
+    train cell raised ZeroDivisionError here before)."""
+    from repro_torch.sharding import tp
+
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+
+        def size(self, i):
+            return 16
+    cfg = dryrun._cfg_for("mamba2-1.3b")
+    assert cfg.n_kv_heads_padded == 0
+    assert tp.prepare(Mesh(), cfg) is None
