@@ -256,6 +256,22 @@ Phases, each fatal on failure:
    distance from the f32 ones (all fed the f32 steps' greedy tokens);
    decode_attention at a tp rank's shard (4 x 1024, Hkv 4 and 2, G 4)
    against its plain version.
+27. the MoE experts and MLA in the forward with a cache on shards, ranks
+   as threads as in phase 26: a 2-layer full-width qwen2-moe artifact
+   (phase 10's capacity factor 15) at tp 2 and 4 — each rank its 30 or 15
+   experts and its shared experts' columns and rows, one g a layer, its
+   KV heads of the cache with decode_attention on them in every layer of
+   every decode step — and a 2-layer full-width deepseek-v2 artifact
+   (phase 12's capacity factor 27) at tp 2 and 4 with the latent cache
+   whole on every rank (the dry-run's prefill_32k layout) and at tp 16
+   split over the sequence (decode_32k's: k_up/v_up gathered, the
+   flash-decoding combine), and in the absorbed form over the sequence at
+   tp 4 (each rank's latent queries gathered); phase 26's rows,
+   prompt, per-slot pos and 16 decode steps.  The logits, gathered over
+   the vocabulary for the check only, within twice the bf16 unsharded
+   steps' distance from the f32 ones, the sharded steps replaying the
+   unsharded bf16 step's expert choices; rank 0's free choice is counted
+   where it differs.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record.  Exits non-zero, printing no result, without a
@@ -388,6 +404,19 @@ TP_SERVE = dict(rows=4, prompt=512, depth=1024, steps=16)
 #: each row's first decode position (per-slot pos): a row may rewrite the
 #: tail of its prefilled prompt
 TP_SERVE_POS = (512, 448, 384, 320)
+#: phase 27: the MoE experts and MLA in the forward with a cache on shards,
+#: TP_SERVE's rows, prompt and steps on 2-layer full-width artifacts
+#: (qwen2-moe at phase 10's capacity factor, deepseek-v2 at phase 12's:
+#: dropless at 4 rows and at the 2048-token prefill).  qwen2-moe at tp 2
+#: and 4 (its 16 KV heads split, K2 on each rank's); deepseek-v2 at tp 2
+#: and 4 with the latent cache whole on every rank (prefill_32k's layout)
+#: and at tp 16 split over the sequence (decode_32k's); the absorbed form
+#: over the sequence at tp 4 (at tp 16 its 16 threads took 39.4 s of the
+#: phase's 130.1 on an H100).  Each entry: (tp, the cache's split,
+#: mla_absorb)
+TP_MOE_LAYOUTS = ((2, "heads", False), (4, "heads", False))
+TP_MLA_LAYOUTS = ((2, None, False), (4, None, False), (16, "seq", False),
+                  (4, "seq", True))
 MAIN_PROMPTS = (17, 130, 300, 1000)
 NEW_TOKENS = 16
 MAIN_SERVE = dict(max_slots=8, max_len=2048, prefill_chunk=128)
@@ -4306,23 +4335,55 @@ def _per_rank_decode(record: dict):
         attn_mod.decode_attention = fd
 
 
-def tp_serve_path(cfg) -> dict:
-    """Tensor parallelism over ``model`` in the forward with a cache
-    (``sharding.tp``'s deployed views, ``models.attention``'s split
-    caches), the ranks threads of this process on a (data 1, model tp)
-    mesh as in phase 25.  A 2-layer full-width ``cfg`` student's exported
-    artifact is stored as ``params_shardings`` places it and the
-    monolithic bf16 cache as ``cache_shardings`` places it: at
-    ``TP_SIZES`` over KV heads, at ``TP_SEQ`` over the sequence.
+@contextlib.contextmanager
+def _routing_by_rank(replay: list, free: list):
+    """Within the block, each thread's MoE routing calls
+    (``models.moe.top_k``) take the recorded expert indices ``replay`` in
+    order, each rank (thread) its own pass over them; rank 0 appends to
+    ``free`` how many of the call's tokens would have chosen another
+    expert set from this run's probabilities."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import moe
+    top_k = moe.top_k
+    passes: dict = {}
+
+    def routed(probs, k):
+        rank = dist.get_rank()
+        i = next(passes.setdefault(rank, iter(replay)))
+        if rank == 0:
+            mine = top_k(probs, k)[1]
+            free.append(int((torch.sort(mine, -1).values
+                             != torch.sort(i, -1).values).any(-1).sum()))
+        return probs.gather(-1, i), i
+    moe.top_k = routed
+    try:
+        yield
+    finally:
+        moe.top_k = top_k
+
+
+def _tp_serve(c, layouts, seed: int, tag: str) -> dict:
+    """The forward with a cache on the rank's shards (``sharding.tp``'s
+    deployed views, ``models.attention``'s split caches, ``models.moe``'s
+    partial combine), the ranks threads of this process on (data 1, model
+    tp) meshes as in phase 25.  A 2-layer full-width ``c`` student's
+    exported artifact is stored as ``params_shardings`` places it;
     ``TP_SERVE``'s rows are prefilled at scalar pos
     (``make_prefill_step``), then decoded at per-slot pos through
     ``forward`` on the kernel route, fed the tokens the f32 unsharded
-    steps choose greedily.  The logits, gathered over the vocabulary for
-    the check only, must lie within twice the bf16 unsharded steps'
-    distance from the f32 ones; every rank of a KV-head split must launch
+    steps choose greedily.  The unsharded f32 and bf16 steps take the
+    plain route on the artifact itself, each layer dequantized in its
+    body.  For each ``(tp, kv, absorb)`` of ``layouts`` the monolithic
+    bf16 cache is placed as ``cache_shardings`` places it, with ``model``
+    dropped where ``kv`` is None, and ``c.mla_absorb`` is ``absorb``; a
+    MoE model's sharded steps replay the unsharded bf16 step's expert
+    choices.  The logits, gathered over the vocabulary for the check
+    only, must lie within twice the bf16 unsharded steps' distance from
+    the f32 ones; every rank of a KV-head split must launch
     decode_attention on its own shard in every layer of every decode
-    step.  Threads share the GIL: no time here is a tensor-parallel
-    speed."""
+    step, and no other layout may launch it.  Threads share the GIL: no
+    time here is a tensor-parallel speed."""
     import threading
     import torch
     import torch.distributed as dist
@@ -4332,39 +4393,42 @@ def tp_serve_path(cfg) -> dict:
     from repro_torch.launch.train import place
     from repro_torch.models import forward, init_cache, init_model
     from repro_torch.pipeline.adapters import resolve_quant_plan
-    from repro_torch.serve.deploy import (deploy_view, export_for_layers,
-                                          make_deploy_plan)
+    from repro_torch.serve.deploy import export_for_layers, make_deploy_plan
     from repro_torch.sharding import tp as tp_lib
     from repro_torch.sharding.partition import (ShardingPolicy,
                                                 cache_shardings,
                                                 params_shardings)
     from repro_torch.train.steps import make_prefill_step
-    c = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    from repro_torch.tree import tree_items
+    c = dataclasses.replace(c, n_layers=TP_LAYERS)
     R, P, T, N = (TP_SERVE[k] for k in ("rows", "prompt", "depth", "steps"))
     qcfg = QuantConfig()
     pol = ShardingPolicy()
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        student = init_model(torch.Generator(device=DEVICE).manual_seed(26),
+        student = init_model(torch.Generator(device=DEVICE).manual_seed(seed),
                              c, qcfg, device=DEVICE)
         plan = make_deploy_plan(qcfg, arch=c.name, family=c.family,
                                 quant_plan=resolve_quant_plan(c, qcfg))
         art = export_for_layers(student, plan, device=DEVICE)
+    n_params = sum(t.numel() for _, t in tree_items(student))
     del student
     art.pop(PLAN_KEY)
     torch.cuda.empty_cache()
-    g = torch.Generator(device=DEVICE).manual_seed(27)
+    export_gib = _gib()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     prompt = torch.randint(0, c.vocab, (R, P), generator=g, device=DEVICE)
     pos0 = torch.tensor(TP_SERVE_POS, dtype=torch.int32, device=DEVICE)
+    leaf = "ckv" if c.mla is not None else "k"
 
-    def unsharded(dtype, tokens=None):
-        """The plain route on the whole artifact: logits of the prefill and
-        of each decode step (host f32), and the greedy tokens (fed
-        ``tokens`` instead where given)."""
-        params = deploy_view(art, plan, dtype=dtype)
-        cache = init_cache(c, R, T, dtype=dtype, device=DEVICE)
+    def unsharded(cfg, dtype, tokens=None, record=None):
+        """The plain route on the artifact: the logits of the prefill and
+        of each decode step (host f32) and the greedy tokens (``tokens``
+        fed instead where given); ``record`` takes the expert choices."""
+        cache = init_cache(cfg, R, T, dtype=dtype, device=DEVICE)
         out, fed = [], []
-        with torch.no_grad():
-            o = forward(params, c, None, {"tokens": prompt}, cache=cache,
+        with torch.no_grad(), _routing(record=record):
+            o = forward(art, cfg, None, {"tokens": prompt}, cache=cache,
                         compute_dtype=dtype)
             cache["pos"] = pos0.clone()
             out.append(o["logits"][:, -1].float().cpu())
@@ -4372,31 +4436,44 @@ def tp_serve_path(cfg) -> dict:
                 t = (out[-1].argmax(-1) if tokens is None
                      else tokens[i]).to(DEVICE)[:, None]
                 fed.append(t[:, 0].cpu())
-                o = forward(params, c, None, {"tokens": t}, cache=cache,
+                o = forward(art, cfg, None, {"tokens": t}, cache=cache,
                             compute_dtype=dtype)
                 out.append(o["logits"][:, -1].float().cpu())
-        del params, cache
+        del cache
         torch.cuda.empty_cache()
         return torch.stack(out), fed
 
-    f32, tokens = unsharded(torch.float32)
-    b16, _ = unsharded(torch.bfloat16, tokens)
-    d_16 = float((b16 - f32).norm())
-    out = {"rank_rows": {}}
-    for tp in TP_SIZES + (TP_SEQ,):
+    refs: dict = {}
+    res_all: dict = {"parameters": n_params, "export_peak_gib": export_gib}
+    for tp, kv, absorb in layouts:
+        cfg = dataclasses.replace(c, mla_absorb=absorb)
+        if absorb not in refs:
+            torch.cuda.reset_peak_memory_stats()
+            f32, tokens = unsharded(cfg, torch.float32)
+            routes: list = []
+            b16, _ = unsharded(cfg, torch.bfloat16, tokens, record=routes)
+            refs[absorb] = (f32, tokens, b16, routes, _gib())
+        f32, tokens, b16, routes, ref_gib = refs[absorb]
+        d_16 = float((b16 - f32).norm())
         shared = {"art": art}
         placed = threading.Barrier(tp)
+        t0 = time.perf_counter()
 
         def rank_fn(rank):
             mesh = make_elastic_mesh(tp, tp, DEVICE)
-            ex = place(shared["art"], params_shardings(shared["art"], c,
+            ex = place(shared["art"], params_shardings(shared["art"], cfg,
                                                        mesh, pol), mesh)
-            whole = init_cache(c, R, T, device=DEVICE)
-            cache = place(whole, cache_shardings(whole, c, mesh, pol), mesh)
+            whole = init_cache(cfg, R, T, device=DEVICE)
+            specs = cache_shardings(whole, cfg, mesh, pol)
+            if kv is None:            # the cache whole over model
+                specs = {k: v if k == "pos" else tuple(
+                    None if e == "model" else e for e in v)
+                    for k, v in specs.items()}
+            cache = place(whole, specs, mesh)
             del whole
             placed.wait()
-            kv = tp_lib.cache_view(cache)[1]
-            shard = tuple(cache["k"].to_local().shape)
+            got_kv = tp_lib.cache_view(cache)[1]
+            shard = tuple(cache[leaf].to_local().shape)
             logits = []
 
             def keep(local):           # over the vocabulary, for the check
@@ -4405,28 +4482,30 @@ def tp_serve_path(cfg) -> dict:
                 if rank == 0:
                     logits.append(torch.cat(parts, -1).float().cpu())
             with torch.no_grad():
-                lg, cache = make_prefill_step(c, None)(
+                lg, cache = make_prefill_step(cfg, None)(
                     ex, cache, {"tokens": prompt})
                 keep(lg)
                 cache["pos"] = pos0.clone()
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
+                t1 = time.perf_counter()
                 for i in range(N):
-                    o = forward(ex, c, None,
+                    o = forward(ex, cfg, None,
                                 {"tokens": tokens[i].to(DEVICE)[:, None]},
                                 cache=cache, use_kernels=True)
                     cache = o["cache"]
                     keep(o["logits"][:, -1])
                 torch.cuda.synchronize()
-            return {"kv": kv, "shard": shard, "logits": logits,
-                    "ms": 1e3 * (time.perf_counter() - t0) / N}
+            return {"kv": got_kv, "shard": shard, "logits": logits,
+                    "ms": 1e3 * (time.perf_counter() - t1) / N}
 
         record: dict = {}
+        free: list = []
         _zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        with _per_rank_decode(record):
+        with _per_rank_decode(record), _routing_by_rank(routes, free):
             res = _threaded_ranks(tp, rank_fn)
         counts = _counts()
+        secs = time.perf_counter() - t0
         del shared
         torch.cuda.empty_cache()
         got = torch.stack(res[0]["logits"])
@@ -4439,62 +4518,100 @@ def tp_serve_path(cfg) -> dict:
             tokens[1:] + [f32[-1].argmax(-1)]).T.tolist())
                    for a, b in zip(row, ref))
         kvs = {r["kv"] for r in res}
-        want_kv = "heads" if tp in TP_SIZES else "seq"
         per_rank = {r: len(v) for r, v in sorted(record.items())}
         shapes = {r: sorted(set(v)) for r, v in sorted(record.items())}
-        say(f"[tp-serve] {c.name} full width, {c.n_layers} layers, mesh "
-            f"(data 1, model {tp}), ranks as threads: cache split "
-            f"{want_kv}, rank 0's shard {res[0]['shard']}; {R} rows x "
-            f"{P}-token prefill at scalar pos, {N} decode steps at "
-            f"per-slot pos {list(TP_SERVE_POS)}: logits |tp - f32| "
-            f"{d_tp:.4e} against |bf16 - f32| {d_16:.4e} "
-            f"({d_tp / max(d_16, 1e-30):.3f}x; worst step {worst:.3f}x); "
-            f"greedy tokens equal to the f32 steps' {same}/{R * N}; "
-            f"decode_attention launches {counts['decode_attention']}; "
-            f"peak {_gib():.2f} GiB; rank 0's decode step "
-            f"{res[0]['ms']:.1f} ms (threads share the GIL: not a speed) "
-            f"[{CARD}]")
-        say(f"[tp-serve]   greedy tokens, row by row: {greedy}")
+        form = " absorbed" if absorb else ""
+        routing = ""
+        if c.moe is not None:
+            routing = (f"; the unsharded bf16 step's expert choices "
+                       f"replayed, rank 0's free choice differing in "
+                       f"{sum(free)} of {sum(int(i.shape[0]) for i in routes)}"
+                       f" token-layer expert sets")
+        say(f"[{tag}] {c.name}{form} full width, {c.n_layers} layers "
+            f"({n_params / 1e9:.2f} B parameters), mesh (data 1, model "
+            f"{tp}), ranks as threads: cache split {kv}, rank 0's {leaf} "
+            f"shard {res[0]['shard']}; {R} rows x {P}-token prefill at "
+            f"scalar pos, {N} decode steps at per-slot pos "
+            f"{list(TP_SERVE_POS)}: logits |tp - f32| {d_tp:.4e} against "
+            f"|bf16 - f32| {d_16:.4e} ({d_tp / max(d_16, 1e-30):.3f}x; "
+            f"worst step {worst:.3f}x); greedy tokens equal to the f32 "
+            f"steps' {same}/{R * N}{routing}; decode_attention launches "
+            f"{counts['decode_attention']}; peak {_gib():.2f} GiB (the "
+            f"unsharded steps' {ref_gib:.2f}, export {export_gib:.2f}); "
+            f"rank 0's decode step {res[0]['ms']:.1f} ms (threads share "
+            f"the GIL: not a speed); {secs:.1f} s [{CARD}]")
+        say(f"[{tag}]   greedy tokens, row by row: {greedy}")
         for r in sorted(record):
-            say(f"[tp-serve]   rank {r}: decode_attention {per_rank[r]} "
+            say(f"[{tag}]   rank {r}: decode_attention {per_rank[r]} "
                 f"launches at (q, k) {shapes[r]}")
-        if kvs != {want_kv}:
-            fail(f"tp-serve {tp}: the cache was split {kvs}, not "
-                 f"{want_kv}")
-        if d_tp > 2 * d_16:
-            fail(f"tp-serve {tp}: logits |tp - f32| {d_tp} > 2 x {d_16}")
-        if want_kv == "heads":
+        what = f"{tag} {c.name}{form} tp {tp}"
+        if kvs != {kv}:
+            fail(f"{what}: the cache was split {kvs}, not {kv}")
+        if len(free) != len(routes):
+            fail(f"{what}: rank 0 routed {len(free)} times, the unsharded "
+                 f"step {len(routes)}")
+        if not d_tp <= 2 * d_16:
+            fail(f"{what}: logits |tp - f32| {d_tp} > 2 x {d_16}")
+        if kv == "heads":
             want = {r: c.n_layers * N for r in range(tp)}
             k_shape = (R, T, c.n_kv_heads_padded // tp, c.head_dim)
             if per_rank != want or any(
                     {k for _, k in v} != {k_shape} for v in shapes.values()):
-                fail(f"tp-serve {tp}: decode_attention per rank {per_rank} "
-                     f"at {shapes}; want {want} at k {k_shape}")
+                fail(f"{what}: decode_attention per rank {per_rank} at "
+                     f"{shapes}; want {want} at k {k_shape}")
             if counts["decode_attention"] != sum(want.values()):
-                fail(f"tp-serve {tp}: the wrapper counted "
+                fail(f"{what}: the wrapper counted "
                      f"{counts['decode_attention']} launches, the ranks "
                      f"called it {sum(want.values())} times")
         elif counts["decode_attention"] or record:
-            fail(f"tp-serve {tp}: decode_attention launched on a cache "
-                 f"split over the sequence: {per_rank}")
-        out[f"tp{tp}"] = {
-            "kv": want_kv, "shard_rank0": list(res[0]["shard"]),
+            fail(f"{what}: decode_attention launched on a cache split "
+                 f"{kv}: {per_rank}")
+        res_all[f"tp{tp}_{kv or 'whole'}{'_absorbed' if absorb else ''}"] = {
+            "kv": kv, "shard_rank0": list(res[0]["shard"]),
             "launches": counts["decode_attention"],
             "launches_per_rank": per_rank,
             "shapes_rank0": [list(map(list, s))
                              for s in shapes.get(0, [])],
             "logits_distance_ratio": d_tp / max(d_16, 1e-30),
             "worst_step_ratio": worst, "greedy_equal": same,
-            "peak_gib": _gib()}
+            "free_sets_differ": sum(free), "peak_gib": _gib(),
+            "reference_peak_gib": ref_gib, "seconds": secs}
         del res, got
         torch.cuda.empty_cache()
-    lengths = [p + N for p in TP_SERVE_POS]
-    for hkv in sorted({c.n_kv_heads_padded // tp for tp in TP_SIZES},
-                      reverse=True):
-        out["rank_rows"][f"Hkv{hkv}"] = _k2_rank_row(
-            R, hkv, c.n_heads_padded // c.n_kv_heads_padded, c.head_dim, T,
-            lengths)
+    del art
+    torch.cuda.empty_cache()
+    return res_all
+
+
+def tp_serve_path(cfg) -> dict:
+    """Phase 26: the dense forward with a cache on the rank's shards
+    (:func:`_tp_serve`): the KV heads split at ``TP_SIZES``, the sequence
+    at ``TP_SEQ``; then decode_attention at a rank's shard of the cache
+    against its plain version."""
+    out = _tp_serve(cfg, tuple((tp, "heads", False) for tp in TP_SIZES)
+                    + ((TP_SEQ, "seq", False),), 26, "tp-serve")
+    c = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    lengths = [p + TP_SERVE["steps"] for p in TP_SERVE_POS]
+    out["rank_rows"] = {
+        f"Hkv{hkv}": _k2_rank_row(
+            TP_SERVE["rows"], hkv, c.n_heads_padded // c.n_kv_heads_padded,
+            c.head_dim, TP_SERVE["depth"], lengths)
+        for hkv in sorted({c.n_kv_heads_padded // tp for tp in TP_SIZES},
+                          reverse=True)}
     return out
+
+
+def tp_serve_moe_path(moe_cfg, mla_cfg) -> dict:
+    """Phase 27: the MoE experts and MLA in the forward with a cache on
+    the rank's shards (``sharding.tp``'s ``_moe_view``/``_mla_view``;
+    :func:`_tp_serve`): qwen2-moe at ``TP_MOE_LAYOUTS``, deepseek-v2 at
+    ``TP_MLA_LAYOUTS``.  No kernel source is new: K2 runs on each
+    qwen2-moe rank's KV heads; MLA and the experts' products run none, in
+    either package."""
+    return {"qwen2_moe": _tp_serve(moe_cfg, TP_MOE_LAYOUTS, 28,
+                                   "tp-serve-moe"),
+            "deepseek_v2": _tp_serve(mla_cfg, TP_MLA_LAYOUTS, 30,
+                                     "tp-serve-moe")}
 
 
 def main() -> int:
@@ -4677,6 +4794,10 @@ def main() -> int:
     tp_serve = tp_serve_path(CONFIG)
     say(f"[main] phase 26 (tensor parallelism with a cache, ranks as "
         f"threads) {time.perf_counter() - t26:.1f} s")
+    t27 = time.perf_counter()
+    tp_moe = tp_serve_moe_path(MOE, DS)
+    say(f"[main] phase 27 (the MoE experts and MLA with a cache on shards, "
+        f"ranks as threads) {time.perf_counter() - t27:.1f} s")
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -4713,7 +4834,8 @@ def main() -> int:
                           "check_predicted_per_step":
                               launch["check_predicted"],
                           "real_per_step": launch["check_real"]},
-         "operator_layer": dispatch, "tp": tp_serve},
+         "operator_layer": dispatch, "tp": tp_serve,
+         "tp_moe_mla": tp_moe},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:67",

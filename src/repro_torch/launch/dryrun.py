@@ -37,10 +37,15 @@ the dense attention, the dense MLP and the embedding on shards
 and the gradient reductions; in an inference cell with no collective over
 ``data``: *f*/*g*, and where the cache is split over the sequence this
 step's q/k/v gathered over ``model`` and the flash-decoding combine's
-all-reduces.  The MoE experts, MLA, Mamba2, the hybrid's shared block and
-the encoder-decoder's layers are gathered whole and repeated by every rank
-of a model group, and their caches are whole over ``model`` (ROADMAP
-Queue 1).  ``collectives.per_axis`` splits the traffic by mesh axis.
+all-reduces.  In an inference cell the MoE experts run on the rank's
+experts (one *g* a layer) and MLA on its heads, over its chunk of the
+latent cache where the sequence divides ``model`` (the default form then
+gathers ``k_up``/``v_up``'s ``q`` over ``model``, the one weight that
+moves); in a train cell they are gathered whole.  Mamba2, the hybrid's
+shared block and the encoder-decoder's layers are gathered whole and
+repeated by every rank of a model group in every cell, and their caches
+are whole over ``model`` (ROADMAP Queue 1).  ``collectives.per_axis``
+splits the traffic by mesh axis.
 
 The port's graphs are unrolled.  A cell is traced at 1 and 2 layer units
 (a hybrid's unit is ``attn_every`` layers; an encoder-decoder's one encoder
@@ -142,19 +147,25 @@ def _local_bytes(tree, specs, mesh) -> int:
     return n
 
 
+#: the cache leaves kept split over ``model`` where the family's attention
+#: runs on shards: the k/v of the dense, VLM and MoE families' GQA, MLA's
+#: latent ``ckv``/``kr``
+_SHARDED_CACHE = {"dense": (("k",), ("v",)), "vlm": (("k",), ("v",)),
+                  "moe": (("k",), ("v",)), "mla_moe": (("ckv",), ("kr",))}
+
+
 def serve_cache_specs(cache, cfg, mesh, pol: ShardingPolicy):
     """``cache_shardings``'s specs, with ``model`` dropped from every leaf
-    but the top-level ``k``/``v`` of a family whose attention runs on
-    shards (dense, VLM, and the MoE family's GQA): the MLA latent cache,
-    the SSM state, the hybrid's shared attention and the
-    encoder-decoder's caches stay whole over ``model``, as their blocks
-    are gathered whole."""
+    but the top-level k/v of a family whose GQA runs on shards (dense, VLM,
+    MoE) and MLA's latent ``ckv``/``kr``: the SSM state, the hybrid's
+    shared attention and the encoder-decoder's caches stay whole over
+    ``model``, as their blocks are gathered whole."""
     specs = cache_shardings(cache, cfg, mesh, pol)
-    keep = cfg.family in ("dense", "vlm", "moe")
+    keep = _SHARDED_CACHE.get(cfg.family, ())
 
     def one(path):
         spec = spec_at(specs, path)
-        if spec is None or (keep and path in (("k",), ("v",))):
+        if spec is None or path in keep:
             return spec
         return tuple(None if e == pol.tp else e for e in spec)
 

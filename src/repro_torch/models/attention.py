@@ -525,7 +525,7 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
 def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
                   qcfg: QuantConfig | None, positions: torch.Tensor,
                   cache: Params | None = None, plan=None,
-                  use_kernels: bool = False) -> torch.Tensor:
+                  use_kernels: bool = False, tp=None) -> torch.Tensor:
     """MLA forward; writes this step's latent ``ckv``/``kr`` into ``cache``
     (in place) when one is given.  Cache modes: none (full sequence,
     causal); a scalar ``pos`` (batch prefill); a per-slot ``pos [B]``
@@ -537,20 +537,43 @@ def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     The attention itself is plain einsums, as in the JAX package (f32
     logits, the ``-1e30`` mask, softmax in f32 cast to ``x.dtype``): no
     kernel of the repo computes it.  ``use_kernels`` routes the weights'
-    fake-quant through the ``fake_quant`` kernel."""
+    fake-quant through the ``fake_quant`` kernel.
+
+    ``tp`` (a ``sharding.tp.Group``): ``p`` is the rank's shard
+    (``sharding.tp.layer_view``): ``q_up`` the columns of its heads, ``wo``
+    their rows, ``q_down``/``kv_down`` whole, so the latent ``ckv``/``kr``
+    are computed whole on every rank; the input passes *f*, ``wo``'s
+    product *g*.  The head count is read off ``q_up``'s shape.  The cache
+    is split over the group as ``tp.kv`` says
+    (``sharding.tp.cache_view``):
+
+    - None (or no cache): the rank writes the whole latent cache and its
+      heads attend over all of it, ``k_up``/``v_up`` its heads' columns;
+    - ``"seq"``: the rank writes the rows that fall in its chunk of the
+      sequence and attends over the chunk for every head — this step's
+      queries of every head gathered over the group (in the absorbed form
+      its heads' latent queries ``q_c``; in the default form ``k_up``/
+      ``v_up`` are then whole, to expand the chunk for every head) — and
+      the chunks' partial softmaxes are combined over the group
+      (flash-decoding, as :func:`_seq_split`); the rank keeps its heads'
+      context for ``v_up``/``wo``."""
     m = cfg.mla
     B, Sq, _ = x.shape
-    H = cfg.n_heads_padded
     pv = plan_view(plan)
     ins = p.get("in_stream")
+    seq = tp is not None and cache is not None and tp.kv == "seq"
+    if tp is not None:
+        x = tp.copy_to(x)
 
-    def lin(inp, name, stream):
+    def lin(inp, name, stream, reduce=None):
         return dof.qlinear(inp, p[name], qcfg, stream=stream,
-                           bits=pv.bits(name), use_kernels=use_kernels)
+                           bits=pv.bits(name), use_kernels=use_kernels,
+                           reduce=reduce)
 
     ql = rmsnorm(lin(x, "q_down", ins), p["q_norm"])
     q = lin(ql, "q_up", p.get("q_stream"))
-    q = q.reshape(B, Sq, H, m.d_nope + m.d_rope)
+    q = q.reshape(B, Sq, -1, m.d_nope + m.d_rope)
+    H = q.shape[2]
     q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -559,10 +582,17 @@ def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     ckv = rmsnorm(ckv, p["kv_norm"])
     kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
+    off = 0
     if cache is not None:
         pos = cache["pos"]
-        _write_rows(cache["ckv"], ckv, pos)
-        _write_rows(cache["kr"], kr, pos)
+        if seq:
+            Tc = cache["ckv"].shape[1]
+            off = tp.rank * Tc
+            _write_chunk(cache["ckv"], ckv, pos, off, Tc * tp.size)
+            _write_chunk(cache["kr"], kr, pos, off, Tc * tp.size)
+        else:
+            _write_rows(cache["ckv"], ckv, pos)
+            _write_rows(cache["kr"], kr, pos)
         ckv_all, kr_all = cache["ckv"], cache["kr"]
         kv_len, q_offset = pos + Sq, pos
     else:
@@ -575,29 +605,60 @@ def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
     def absorbed(name, width):
         w = dof.effective_weight(p[name], qcfg, log_sa, compute_dtype=x.dtype,
                                  bits=pv.bits(name), use_kernels=use_kernels)
-        return w.reshape(m.kv_lora, H, width)
+        return w.reshape(m.kv_lora, -1, width)
+
+    def heads(t):            # [B, Sq, h, w] → the group's [B, Sq, H, w]
+        w = t.shape[-1]
+        return tp.gather_cols(t.reshape(B, Sq, -1)).reshape(B, Sq, -1, w)
 
     if cfg.mla_absorb:
         q_c = _einsum("bqhn,chn->bqhc", q_nope, absorbed("k_up", m.d_nope))
+        if seq:
+            q_c, q_rope = heads(torch.cat([q_c, q_rope], -1)).split(
+                [m.kv_lora, m.d_rope], -1)
         logits = _einsum("bqhc,bsc->bhqs", q_c, ckv_all, f32=True)
     else:
+        if seq:
+            q_nope, q_rope = heads(torch.cat([q_nope, q_rope], -1)).split(
+                [m.d_nope, m.d_rope], -1)
         k_nope = lin(ckv_all, "k_up", p.get("kv_stream")).reshape(
-            B, Skv, H, m.d_nope)
+            B, Skv, -1, m.d_nope)
         logits = _einsum("bqhn,bshn->bhqs", q_nope, k_nope, f32=True)
     logits = (logits + _einsum("bqhr,bsr->bhqs", q_rope, kr_all,
                                f32=True)) * scale
 
-    mask = _mask(q_offset, Sq, Skv, True, kv_len, x.device)
+    mask = _mask(q_offset, Sq, Skv, True, kv_len, x.device, off)
     if _is_vector(q_offset):
         mask = mask[:, None]
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-
-    if cfg.mla_absorb:
-        ctx_c = _einsum("bhqs,bsc->bqhc", probs, ckv_all)     # latent context
-        ctx = _einsum("bqhc,chv->bqhv", ctx_c, absorbed("v_up", m.d_v))
+    if seq:
+        # each value row over the rank's chunk, every head: the latent
+        # context (absorbed) or the expanded v; the chunks' softmaxes
+        # combined over the group, the rank's heads kept
+        mx = torch.amax(logits, dim=-1, keepdim=True)
+        pr = torch.exp(logits - mx)
+        if cfg.mla_absorb:
+            o = torch.einsum("bhqs,bsc->bqhc", pr, ckv_all.float())
+        else:
+            v = lin(ckv_all, "v_up", p.get("kv_stream")).reshape(
+                B, Skv, -1, m.d_v)
+            o = torch.einsum("bhqs,bshv->bqhv", pr, v.float())
+        w = torch.exp(mx - tp.all_reduce(mx, "max")).permute(0, 2, 1, 3)
+        ol = tp.all_reduce(torch.cat(
+            [o * w, pr.sum(-1, keepdim=True).permute(0, 2, 1, 3) * w], -1))
+        own = slice(tp.rank * H, (tp.rank + 1) * H)
+        ctx = (ol[:, :, own, :-1] / ol[:, :, own, -1:]).to(x.dtype)
+        if cfg.mla_absorb:
+            ctx = _einsum("bqhc,chv->bqhv", ctx, absorbed("v_up", m.d_v))
     else:
-        v = lin(ckv_all, "v_up", p.get("kv_stream")).reshape(B, Skv, H, m.d_v)
-        ctx = _einsum("bhqs,bshv->bqhv", probs, v)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        if cfg.mla_absorb:
+            ctx_c = _einsum("bhqs,bsc->bqhc", probs, ckv_all)  # latent
+            ctx = _einsum("bqhc,chv->bqhv", ctx_c, absorbed("v_up", m.d_v))
+        else:
+            v = lin(ckv_all, "v_up", p.get("kv_stream")).reshape(
+                B, Skv, -1, m.d_v)
+            ctx = _einsum("bhqs,bshv->bqhv", probs, v)
     ctx = ctx.reshape(B, Sq, H * m.d_v)
-    return lin(ctx, "wo", p.get("out_stream"))
+    return lin(ctx, "wo", p.get("out_stream"),
+               reduce=None if tp is None else tp.reduce_from)

@@ -129,15 +129,27 @@ def _expert_ffn(h: torch.Tensor, p: Params, cfg: ModelConfig,
 
 def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, plan=None,
-              use_kernels: bool = False) -> torch.Tensor:
-    """The oracle: all experts on all tokens.  ``x [T, d]``."""
+              use_kernels: bool = False, tp=None) -> torch.Tensor:
+    """The oracle: all experts on all tokens.  ``x [T, d]``.  With ``tp``
+    the stacks are the rank's experts and the result its partial sum."""
     e = cfg.moe
     probs = _router_probs(x, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)
     gates, topi = _gates(probs, e.top_k)
     mask = torch.zeros_like(probs).scatter(1, topi, gates)        # [T, E]
-    h = x[None].expand((e.n_experts_padded,) + tuple(x.shape))    # [E, T, d]
+    n, first = _own_experts(p, cfg, tp)
+    mask = mask[:, first:first + n]
+    h = x[None].expand((n,) + tuple(x.shape))                      # [E, T, d]
     y = _expert_ffn(h, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)
     return torch.einsum("te,etd->td", mask.to(y.dtype), y)
+
+
+def _own_experts(p: Params, cfg: ModelConfig, tp) -> tuple[int, int]:
+    """``(n, first)``: the experts ``[first, first + n)`` whose stacks
+    ``p`` holds — every expert, or with ``tp`` where the stacks are split
+    the rank's ``E/tp``."""
+    E = cfg.moe.n_experts_padded
+    n = E if tp is None else p["up"]["w"].shape[-3]
+    return (E, 0) if n == E else (n, tp.rank * n)
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -172,13 +184,22 @@ def route(topi: torch.Tensor, n_experts: int, C: int
 
 def moe_sorted(x: torch.Tensor, p: Params, cfg: ModelConfig,
                qcfg: QuantConfig | None, expert_fn=None, plan=None,
-               use_kernels: bool = False) -> torch.Tensor:
+               use_kernels: bool = False, tp=None) -> torch.Tensor:
     """Sort-based capacity dispatch.  ``x [T, d]``.
 
     ``expert_fn(h_ECd) -> y_ECd`` replaces the in-graph expert FFN (the
     expert-parallel hook).  The combine adds each token's kept
     contributions in ascending expert order in ``y``'s dtype — the order
-    and the roundings of the JAX package's scatter-add."""
+    and the roundings of the JAX package's scatter-add.
+
+    ``tp`` (a ``sharding.tp.Group``) where ``p``'s stacks are the rank's
+    ``E/tp`` experts (``sharding.tp.layer_view``): the routing, the
+    capacity and each assignment's buffer row are computed on every rank
+    from the same tokens; the rank fills and runs only its experts' rows
+    and returns its experts' contributions, the others' left out — a
+    partial sum that the caller's *g* completes.  The whole combine then
+    adds each token's contributions rank by rank, each rank's in expert
+    order: in f32 the unsharded sum up to rounding, not bit for bit."""
     e = cfg.moe
     T, d = x.shape
     E, K = e.n_experts_padded, e.top_k
@@ -186,18 +207,22 @@ def moe_sorted(x: torch.Tensor, p: Params, cfg: ModelConfig,
     probs = _router_probs(x, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)
     gates, topi = _gates(probs, K)
     dest, keep = route(topi, E, C)
+    n, first = _own_experts(p, cfg, tp)
+    if n < E:                    # the rank's experts' rows; the rest dropped
+        keep = keep & (dest >= first * C) & (dest < (first + n) * C)
+        dest = torch.where(keep, dest - first * C, n * C)
     tok = torch.arange(T, device=x.device).repeat_interleave(K)
-    buf = x.new_zeros((E * C + 1, d)).index_copy(0, dest.reshape(-1),
+    buf = x.new_zeros((n * C + 1, d)).index_copy(0, dest.reshape(-1),
                                                   x[tok])
     y = (expert_fn or (lambda h: _expert_ffn(
         h, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)))(
-        buf[:-1].reshape(E, C, d)).reshape(E * C, d)
+        buf[:-1].reshape(n, C, d)).reshape(n * C, d)
     # each token's K contributions, in ascending expert order
     by_e = torch.argsort(topi, dim=-1)
     dest, keep = dest.gather(1, by_e), keep.gather(1, by_e)
     g = gates.gather(1, by_e).to(y.dtype)
     contrib = torch.where(keep[..., None],
-                          y[torch.clamp(dest, max=E * C - 1)], 0.0) \
+                          y[torch.clamp(dest, max=n * C - 1)], 0.0) \
         * g[..., None]                                          # [T, K, d]
     out = contrib[:, 0]
     for k in range(1, K):
@@ -207,36 +232,63 @@ def moe_sorted(x: torch.Tensor, p: Params, cfg: ModelConfig,
 
 def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, mode: str = "sorted", plan=None,
-              use_kernels: bool = False, moe_fn=None) -> torch.Tensor:
+              use_kernels: bool = False, moe_fn=None, tp=None
+              ) -> torch.Tensor:
     """``x [B, S, d]`` → routed experts + shared experts.  ``plan`` is
     scoped to this module's path (``layers.mlp``).
 
     ``moe_fn(x, p, use_kernels)``: an override of the routed experts (the
     expert-parallel path, ``sharding.ep.make_ep_moe``), on this block's
     route; it may return None (a decode step) to fall back to the in-graph
-    path."""
+    path.
+
+    ``tp`` (a ``sharding.tp.Group``): ``p`` is the rank's shard
+    (``sharding.tp.layer_view``): its experts of each stack (every expert
+    where they do not divide the group), the shared experts' columns of
+    ``shared_up``/``shared_gate`` and rows of ``shared_down``, the router
+    whole.  The input passes *f*; the rank's routed partial sum
+    (:func:`moe_sorted`) is added to its shared experts' partial product,
+    and one *g* over the group sums them: one all-reduce of ``[B, S, d]``
+    a layer (with whole stacks the *g* sums the shared product alone).
+    ``moe_fn`` takes the whole stacks, so it cannot serve a block on
+    shards."""
     B, S, d = x.shape
     pv = plan_view(plan)
+    if tp is not None:
+        if moe_fn is not None:
+            raise ValueError("the expert-parallel hook takes the whole "
+                             "expert stacks, not a tensor-parallel rank's")
+        x = tp.copy_to(x)
     out = None if moe_fn is None else moe_fn(x, p, use_kernels)
     if out is None:
         xt = x.reshape(B * S, d)
         if mode == "dense":
             routed = moe_dense(xt, p, cfg, qcfg, plan=pv,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, tp=tp)
         else:
             routed = moe_sorted(xt, p, cfg, qcfg, plan=pv,
-                                use_kernels=use_kernels)
+                                use_kernels=use_kernels, tp=tp)
         out = routed.reshape(B, S, d)
-    if cfg.moe.n_shared:
-        ins = p.get("in_stream")
-        gate = dof.qlinear(x, p["shared_gate"], qcfg, stream=ins,
-                           bits=pv.bits("shared_gate"),
-                           use_kernels=use_kernels)
-        up = dof.qlinear(x, p["shared_up"], qcfg, stream=ins,
-                         bits=pv.bits("shared_up"), use_kernels=use_kernels)
-        h = F.silu(gate) * up
-        out = out + dof.qlinear(h, p["shared_down"], qcfg,
-                                stream=p.get("shared_act_stream"),
-                                bits=pv.bits("shared_down"),
-                                use_kernels=use_kernels)
-    return out
+    # the rank's experts' partial sum, completed by the block's one g
+    partial = (tp is not None and _own_experts(p, cfg, tp)[0]
+               < cfg.moe.n_experts_padded)
+    if not cfg.moe.n_shared:
+        return tp.reduce_from(out) if partial else out
+    if tp is None:
+        reduce = None
+    elif partial:
+        def reduce(y):
+            return tp.reduce_from(y + out)
+    else:
+        reduce = tp.reduce_from
+    ins = p.get("in_stream")
+    gate = dof.qlinear(x, p["shared_gate"], qcfg, stream=ins,
+                       bits=pv.bits("shared_gate"), use_kernels=use_kernels)
+    up = dof.qlinear(x, p["shared_up"], qcfg, stream=ins,
+                     bits=pv.bits("shared_up"), use_kernels=use_kernels)
+    h = F.silu(gate) * up
+    shared = dof.qlinear(h, p["shared_down"], qcfg,
+                         stream=p.get("shared_act_stream"),
+                         bits=pv.bits("shared_down"),
+                         use_kernels=use_kernels, reduce=reduce)
+    return shared if partial else out + shared

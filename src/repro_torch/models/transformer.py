@@ -29,19 +29,22 @@ where it is used, as ``sharding.tp`` views it: a layer's leaves at the
 start of that layer's body, inside the remat region (so under remat only
 one layer's weights live at a time, and the backward takes them again),
 the embedding, head and final norms at the start of the forward.  On a
-mesh whose ``model`` axis has more than one rank, the dense attention (not
-MLA) and the dense MLP (not MoE) of a stacked layer run on the rank's
-shards — columns, rows and heads, with *f*/*g* over ``model`` — and the
-embedding on its vocabulary rows (``sharding.tp.layer_view``,
-``embed_view``); an exported layer is dequantized there, each rank its own
-shard.  Every other leaf is gathered whole: the MoE experts, MLA, Mamba2,
-the hybrid's shared block, the encoder-decoder's layers, the norms, and in
-a cache-free forward the head.  A forward with a cache (prefill and
-decode: the dry-run's inference cells) takes its DTensor cache leaves as
-the rank's local shards (``sharding.tp.cache_view``): the dense attention
-writes and reads the k/v as they are split over ``model`` (by KV heads,
-by the sequence, or whole on every rank; ``models.attention``), and the
-head is vocabulary-parallel, so the logits are the rank's slice of the
+mesh whose ``model`` axis has more than one rank, the dense attention and
+the dense MLP of a stacked layer run on the rank's shards — columns, rows
+and heads, with *f*/*g* over ``model`` — and the embedding on its
+vocabulary rows (``sharding.tp.layer_view``, ``embed_view``); an exported
+layer is dequantized there, each rank its own shard, and on it MLA runs
+on the rank's heads and the MoE block on its experts and shared experts'
+columns and rows.  Every other leaf is gathered whole: in the train step
+the MoE experts and MLA; everywhere Mamba2, the hybrid's shared block, the
+encoder-decoder's layers, the norms, and in a cache-free forward the
+head.  A forward with a cache (prefill and decode: the dry-run's
+inference cells) takes its DTensor cache leaves as the rank's local
+shards (``sharding.tp.cache_view``): the dense attention writes and reads
+the k/v as they are split over ``model`` (by KV heads, by the sequence,
+or whole on every rank; ``models.attention``), MLA its latent
+``ckv``/``kr`` (by the sequence, or whole), and the head is
+vocabulary-parallel, so the logits are the rank's slice of the
 vocabulary.  Each view states how its gradient relates to the model
 group's (``sharding.tp``'s rule).  The batch itself is split over the
 ``dp`` axes before the forward (``launch.train.local_rows``); a cache
@@ -323,7 +326,7 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     """One pre-norm attention + MLP layer; ``kv`` is how ``cache``'s k/v
     are split over ``model`` (``sharding.tp.cache_view``)."""
     lp, attn_tp, mlp_tp = tp_lib.layer_view(lp, cfg, x.dtype,
-                                            cache=cache is not None)
+                                            cache=cache is not None, kv=kv)
     if attn_tp is not None and cache is not None:
         attn_tp = dataclasses.replace(attn_tp, kv=kv)
     elif kv is not None:
@@ -333,7 +336,8 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
     tap(taps, prefix + ".attn_in", h)
     if cfg.mla is not None:           # taps nothing inside, as the JAX package
         a = mla_attention(h, lp["attn"], cfg, qcfg, positions, cache,
-                          plan=pv.child("attn"), use_kernels=use_kernels)
+                          plan=pv.child("attn"), use_kernels=use_kernels,
+                          tp=attn_tp)
     else:
         a = attention(h, lp["attn"], cfg, qcfg, positions, cache,
                       plan=pv.child("attn"), use_kernels=use_kernels,
@@ -346,7 +350,8 @@ def _attn_block(x, lp, cfg, qcfg, positions, cache, pv, use_kernels, taps,
         m = moe_block(h, lp["mlp"], cfg, qcfg,
                       mode=_RUNTIME.get("moe_mode", "sorted"),
                       moe_fn=_RUNTIME.get("moe_fn"),
-                      plan=pv.child("mlp"), use_kernels=use_kernels)
+                      plan=pv.child("mlp"), use_kernels=use_kernels,
+                      tp=mlp_tp)
     else:
         m = mlp(h, lp["mlp"], qcfg, plan=pv.child("mlp"), taps=taps,
                 prefix=prefix + ".mlp", use_kernels=use_kernels,

@@ -37,6 +37,13 @@ forward with a cache takes the cache's DTensor leaves as the rank's
 shards (:func:`cache_view`), the k/v split over ``model`` by KV heads, by
 the sequence, or not at all (``Group.kv``); ``models.attention`` then
 gathers this step's k/v activations where it needs them, never a weight.
+On that artifact MoE runs on the rank's experts (each stack's ``q`` split
+over ``model`` by experts, the shared experts column- and row-parallel, the
+router whole; one *g* a layer) and MLA on the rank's heads (``q_up``,
+``k_up``, ``v_up`` its columns, ``wo`` its rows, ``q_down``/``kv_down``
+whole), its latent ``ckv``/``kr`` split over the sequence or whole; in the
+default form over a sequence split ``k_up``/``v_up`` are the one weight
+gathered over ``model``, to expand the rank's chunk for every head.
 
 **The gradient rule** (:data:`SHARD`, :data:`PARTIAL`, :data:`WHOLE`):
 each view declares how the rank's gradient of the leaf relates to its
@@ -209,21 +216,28 @@ class Group:
         return _wait(_funcol().all_reduce(x.contiguous(), op, self.group))
 
 
-#: the KV groups made for a model group: its process group's id → (the
-#: process group, kept so the id is not reused; {ranks a head: group})
-_KV_GROUPS: dict[int, tuple[Any, dict]] = {}
+#: the KV groups made in a world: (the world's id, the ``model`` group's
+#: ranks) → (the world, kept so its id is not reused; {ranks a head: group}).
+#: Keyed by ranks, not by the process-group object: a DTensor's mesh may be
+#: another mesh of the same ranks and names (DTensor's sharding cache
+#: compares meshes by value), whose ``get_group`` answers another object
+_KV_GROUPS: dict[tuple, tuple[Any, dict]] = {}
 
 
 def _kv_group(mesh, s: int):
     """The process group of this rank's ``s`` consecutive ``model`` ranks
     (one KV head's).  Every rank makes every such group of the mesh, in
-    the same order, the first time (``new_group`` is collective)."""
+    the same order, the first time (``new_group`` is collective; reading
+    the mesh's ranks is what a traced step cannot do, so :func:`prepare`
+    makes them before)."""
     names = mesh.mesh_dim_names
     if names[-1] != AXIS:
         raise ValueError(f"the {AXIS!r} axis must be the mesh's last: "
                          f"{names}")
-    pg = mesh.get_group(AXIS)
-    _, made = _KV_GROUPS.setdefault(id(pg), (pg, {}))
+    world = dist.group.WORLD
+    key = (id(world),
+           tuple(dist.get_process_group_ranks(mesh.get_group(AXIS))))
+    _, made = _KV_GROUPS.setdefault(key, (world, {}))
     if s not in made:
         ranks = mesh.mesh.reshape(-1, s).tolist()
         mine = None
@@ -450,18 +464,119 @@ def _mlp_view(p: dict, g: Group, dtype) -> dict:
     return out
 
 
-def layer_view(lp: dict, cfg, dtype=None, cache: bool = False
+def _mla_fits(p: dict, cfg, size: int) -> bool:
+    """Whether an exported MLA block can run on the rank's heads: ``q_up``,
+    ``k_up``, ``v_up`` split on ``model`` by columns, ``wo`` by rows, and
+    its heads falling whole onto ranks."""
+    want = {"q_up": -1, "k_up": -1, "v_up": -1, "wo": -2}
+    if not all(dof.is_exported(p[n]) and _model_shard_dim(p[n]["q"]) == d
+               for n, d in want.items()):
+        return False
+    m = cfg.mla
+    return (p["q_up"]["q"].shape[-1] // (m.d_nope + m.d_rope)) % size == 0
+
+
+def _mla_view(p: dict, g: Group, dtype, whole_up: bool) -> dict:
+    """An exported MLA block on the rank's heads: ``q_up`` its heads'
+    columns, ``wo`` their rows; ``k_up``/``v_up`` its heads' columns, or
+    (``whole_up``: the default form over a cache split over the sequence,
+    which expands the rank's chunk for every head) gathered whole over
+    ``model`` and dequantized on the rank; ``q_down``, ``kv_down`` and the
+    norms whole."""
+    out = {"q_up": _export_view(p["q_up"], "col", g.rank, g.size, dtype),
+           "wo": _export_view(p["wo"], "row", g.rank, g.size, dtype)}
+    for n in ("k_up", "v_up"):
+        out[n] = (gather(p[n], dtype) if whole_up
+                  else _export_view(p[n], "col", g.rank, g.size, dtype))
+    for n in ("q_down", "kv_down", "q_norm", "kv_norm"):
+        out[n] = gather(p[n], dtype)
+    unknown = set(p) - set(out)
+    if unknown:
+        raise ValueError(f"MLA leaves with no tensor-parallel view: "
+                         f"{sorted(unknown)}")
+    return out
+
+
+#: an exported MoE block's expert stacks and its shared experts' split
+_MOE_SPLIT = {"up": -3, "gate": -3, "down": -3, "shared_up": -1,
+              "shared_gate": -1, "shared_down": -2}
+
+
+def _moe_stacks(p: dict) -> bool | None:
+    """Whether an exported MoE block runs on shards with its expert stacks
+    split on ``model`` by experts (True) or whole (False, where the
+    experts do not divide ``model``: then its shared experts, split by
+    columns and rows, are what runs on shards); None where it cannot:
+    leaves not exported or not split as the layout has them, or nothing
+    split at all."""
+    if not all(dof.is_exported(p[n]) for n in _MOE_SPLIT if n in p):
+        return None
+    dims = {n: _model_shard_dim(p[n]["q"]) for n in _MOE_SPLIT if n in p}
+    stacks = {dims[n] for n in ("up", "gate", "down")}
+    shared = [dims[n] == d for n, d in _MOE_SPLIT.items()
+              if n.startswith("shared") and n in dims]
+    if stacks not in ({-3}, {None}) or not all(shared) or (
+            stacks == {None} and not shared):
+        return None
+    return stacks == {-3}
+
+
+def _experts_view(ex: dict, rank: int, dtype) -> dict:
+    """An exported expert stack ``q [E, in(/2), out]``'s deploy view on the
+    rank's ``E/tp`` experts: its ``q`` shard, ``s_wr`` (and a bias) sliced
+    to those experts, the stack's one ``s_wl [in]`` whole — the matching
+    experts of the whole stack's dequantization, bit for bit."""
+    if dtype is None:
+        raise ValueError("an exported stack's view needs the dtype to "
+                         "dequantize to")
+    q = view(ex["q"], SHARD)
+    n = q.shape[-3]
+    out = {"q": q}
+    for k, t in ex.items():
+        if k != "q":
+            t = view(t, WHOLE)
+            out[k] = t[rank * n:(rank + 1) * n] if k in ("s_wr", "b") else t
+    return dof.deploy_node(out, dtype)
+
+
+def _moe_view(p: dict, g: Group, dtype, stacks: bool) -> dict:
+    """An exported MoE block on the rank's shards: its experts of each
+    stack (``stacks``; else, where the experts do not divide ``model``,
+    every expert, gathered whole), the shared experts' column
+    (``shared_up``/``shared_gate``) and row (``shared_down``) views, the
+    router whole."""
+    out = {n: _experts_view(p[n], g.rank, dtype) if stacks
+           else gather(p[n], dtype) for n in ("up", "gate", "down")}
+    for n in ("shared_up", "shared_gate", "shared_down"):
+        if n in p:
+            out[n] = _export_view(p[n], "row" if n == "shared_down"
+                                  else "col", g.rank, g.size, dtype)
+    out["router"] = gather(p["router"], dtype)
+    unknown = set(p) - set(out)
+    if unknown:
+        raise ValueError(f"MoE leaves with no tensor-parallel view: "
+                         f"{sorted(unknown)}")
+    return out
+
+
+def layer_view(lp: dict, cfg, dtype=None, cache: bool = False,
+               kv: str | None = None
                ) -> tuple[dict, Group | None, Group | None]:
     """``(tree, attn, mlp)``: one layer's leaves as the rank computes them,
     and the ``Group`` its attention and its MLP run on shards over (None
-    for a block gathered whole).  The dense attention (not MLA) runs on
-    shards where its four weights are split on ``model`` as the layout has
-    them and its heads fall whole onto ranks (or one KV head over ``tp /
-    Hkv`` ranks); the dense MLP (not MoE) where its weights are split so.
-    Every other leaf is gathered whole (:func:`gather`).  An exported
-    layer (the deployed artifact's ``q`` leaves) is dequantized to
-    ``dtype`` here, each rank its own shard; ``cache`` says the forward
-    holds a cache."""
+    for a block gathered whole).  On shards: the dense attention where its
+    four weights are split on ``model`` as the layout has them and its
+    heads fall whole onto ranks (or one KV head over ``tp / Hkv`` ranks);
+    the dense MLP where its weights are split so; and on the deployed
+    artifact (exported leaves, no gradient) MLA on the rank's heads
+    (:func:`_mla_view`) and the MoE block on the rank's experts and shared
+    experts' columns (:func:`_moe_view`) where their leaves are split so —
+    where the heads or the experts do not divide ``model``, ``param_spec``
+    leaves them replicated, and MLA, or the routed experts, are then
+    gathered whole.  Every other leaf is gathered whole
+    (:func:`gather`).  An exported layer is dequantized to ``dtype`` here,
+    each rank its own shard; ``cache`` says the forward holds a cache,
+    ``kv`` how it is split over ``model`` (:func:`cache_view`)."""
     found = _group_of(lp)
     if found is None:
         return gather(lp, dtype), None, None
@@ -475,8 +590,17 @@ def layer_view(lp: dict, cfg, dtype=None, cache: bool = False
                 out[k] = _attn_view(v, g, mesh, split, dtype, cache)
                 attn = g
                 continue
+        if k == "attn" and cfg.mla is not None and _mla_fits(v, cfg, g.size):
+            whole_up = cache and kv == "seq" and not cfg.mla_absorb
+            out[k], attn = _mla_view(v, g, dtype, whole_up), g
+            continue
         if k == "mlp" and cfg.moe is None and _mlp_fits(v):
             out[k], mlp = _mlp_view(v, g, dtype), g
+            continue
+        stacks = (_moe_stacks(v) if k == "mlp" and cfg.moe is not None
+                  else None)
+        if stacks is not None:
+            out[k], mlp = _moe_view(v, g, dtype, stacks), g
             continue
         out[k] = gather(v, dtype)
     return out, attn, mlp
@@ -528,8 +652,11 @@ def head_view(p: dict, dtype=None) -> tuple[dict, Group | None]:
 # the cache of a forward on shards
 # --------------------------------------------------------------------------
 
-#: a k/v cache leaf ``[L, B, T, Hkv, hd]``'s dimension → its split
-_KV_SPLIT = {3: "heads", 2: "seq"}
+#: the cache leaves that may be split over ``model``, each dimension's
+#: split: the k/v ``[L, B, T, Hkv, hd]`` by heads or the sequence, the MLA
+#: latent ``ckv``/``kr`` ``[L, B, T, lat]`` by the sequence
+_SPLITS = {("k",): {3: "heads", 2: "seq"}, ("v",): {3: "heads", 2: "seq"},
+           ("ckv",): {2: "seq"}, ("kr",): {2: "seq"}}
 
 
 def cache_view(cache) -> tuple[Any, str | None]:
@@ -537,9 +664,9 @@ def cache_view(cache) -> tuple[Any, str | None]:
     rank's local tensor — its rows of the batch, and its part over
     ``model`` — which shares the DTensor's storage, so the forward's
     in-place writes land in it; ``kv`` is how the top-level ``k``/``v``
-    are split over ``model``: ``"heads"``, ``"seq"`` or None (whole).  No
-    other leaf may be split over ``model``.  A cache with no DTensor leaf
-    is returned as it is."""
+    (or MLA's ``ckv``/``kr``) are split over ``model``: ``"heads"``,
+    ``"seq"`` or None (whole).  No other leaf may be split over ``model``.
+    A cache with no DTensor leaf is returned as it is."""
     if cache is None or not any(is_dtensor(t) for t in _leaves(cache)):
         return cache, None
     from torch.distributed.tensor import Shard
@@ -553,19 +680,20 @@ def cache_view(cache) -> tuple[Any, str | None]:
         names = node.device_mesh.mesh_dim_names
         pl = node.placements[names.index(AXIS)] if AXIS in names else None
         if isinstance(pl, Shard) and model_size(node.device_mesh) > 1:
-            if path not in (("k",), ("v",)) or pl.dim not in _KV_SPLIT:
+            if pl.dim not in _SPLITS.get(path, {}):
                 raise ValueError(f"cache leaf {'.'.join(path)} is split "
                                  f"over {AXIS!r} on dimension {pl.dim}; "
-                                 f"only the top-level k/v may be, on "
-                                 f"their heads or sequence")
-            kv.add(_KV_SPLIT[pl.dim])
-        elif path in (("k",), ("v",)):
+                                 f"only the top-level k/v may be, on their "
+                                 f"heads or sequence, and ckv/kr on their "
+                                 f"sequence")
+            kv.add(_SPLITS[path][pl.dim])
+        elif path in _SPLITS:
             kv.add(None)
         return node.to_local()
 
     out = local(cache, ())
     if len(kv) > 1:
-        raise ValueError(f"the cache's k and v are split differently: {kv}")
+        raise ValueError(f"the cache's leaves are split differently: {kv}")
     return out, (kv.pop() if kv else None)
 
 
