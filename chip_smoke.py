@@ -4590,15 +4590,21 @@ def tp_serve_path(cfg) -> dict:
     against its plain version."""
     out = _tp_serve(cfg, tuple((tp, "heads", False) for tp in TP_SIZES)
                     + ((TP_SEQ, "seq", False),), 26, "tp-serve")
-    c = dataclasses.replace(cfg, n_layers=TP_LAYERS)
-    lengths = [p + TP_SERVE["steps"] for p in TP_SERVE_POS]
-    out["rank_rows"] = {
-        f"Hkv{hkv}": _k2_rank_row(
-            TP_SERVE["rows"], hkv, c.n_heads_padded // c.n_kv_heads_padded,
-            c.head_dim, TP_SERVE["depth"], lengths)
-        for hkv in sorted({c.n_kv_heads_padded // tp for tp in TP_SIZES},
-                          reverse=True)}
+    out["rank_rows"] = _k2_rank_rows(cfg, TP_SIZES)
     return out
+
+
+def _k2_rank_rows(cfg, sizes) -> dict:
+    """:func:`_k2_rank_row` at each KV-head split of ``sizes``: a rank's
+    ``[rows, depth, Hkv/tp, hd]`` shard, the lengths of ``TP_SERVE``'s
+    per-slot decode."""
+    lengths = [p + TP_SERVE["steps"] for p in TP_SERVE_POS]
+    return {f"Hkv{hkv}": _k2_rank_row(
+                TP_SERVE["rows"], hkv,
+                cfg.n_heads_padded // cfg.n_kv_heads_padded, cfg.head_dim,
+                TP_SERVE["depth"], lengths)
+            for hkv in sorted({cfg.n_kv_heads_padded // tp for tp in sizes},
+                              reverse=True)}
 
 
 def tp_serve_moe_path(moe_cfg, mla_cfg) -> dict:
@@ -4606,10 +4612,13 @@ def tp_serve_moe_path(moe_cfg, mla_cfg) -> dict:
     the rank's shards (``sharding.tp``'s ``_moe_view``/``_mla_view``;
     :func:`_tp_serve`): qwen2-moe at ``TP_MOE_LAYOUTS``, deepseek-v2 at
     ``TP_MLA_LAYOUTS``.  No kernel source is new: K2 runs on each
-    qwen2-moe rank's KV heads; MLA and the experts' products run none, in
-    either package."""
-    return {"qwen2_moe": _tp_serve(moe_cfg, TP_MOE_LAYOUTS, 28,
-                                   "tp-serve-moe"),
+    qwen2-moe rank's KV heads, and is held against its plain version at
+    those shards; MLA and the experts' products run none, in either
+    package."""
+    moe = _tp_serve(moe_cfg, TP_MOE_LAYOUTS, 28, "tp-serve-moe")
+    moe["rank_rows"] = _k2_rank_rows(
+        moe_cfg, tuple(tp for tp, kv, _ in TP_MOE_LAYOUTS if kv == "heads"))
+    return {"qwen2_moe": moe,
             "deepseek_v2": _tp_serve(mla_cfg, TP_MLA_LAYOUTS, 30,
                                      "tp-serve-moe")}
 

@@ -190,11 +190,22 @@ def _seq_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _write_chunk(cv, v, pos, off, Tc * tp.size)
     o, m, l = _sdpa_partial(q, ck, cv, causal=Sq > 1, q_offset=pos,
                             kv_len=pos + Sq, k_offset=off)
+    return _combine(o, m, l, tp).to(cv.dtype)
+
+
+def _combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, tp
+             ) -> torch.Tensor:
+    """The flash-decoding combine of every rank's chunk of a sequence
+    split: ``o [B, Sq, H, w]`` the chunk's unnormalized output for every
+    head, ``m``/``l [B, Sq, H, 1]`` its row max and sum
+    (:func:`_sdpa_partial`).  An all-reduce of the row max, then one of
+    the rescaled outputs and sums; returns the rank's ``H / tp.size``
+    heads' normalized output, f32."""
     w = torch.exp(m - tp.all_reduce(m, "max"))
     ol = tp.all_reduce(torch.cat([o * w, l * w], dim=-1))
-    h = H // tp.size
+    h = o.shape[2] // tp.size
     own = slice(tp.rank * h, (tp.rank + 1) * h)
-    return (ol[:, :, own, :hd] / ol[:, :, own, hd:]).to(cv.dtype)
+    return ol[:, :, own, :-1] / ol[:, :, own, -1:]
 
 
 def _mask(q_offset, Sq: int, Skv: int, causal: bool, kv_len,
@@ -643,11 +654,9 @@ def mla_attention(x: torch.Tensor, p: Params, cfg: ModelConfig,
             v = lin(ckv_all, "v_up", p.get("kv_stream")).reshape(
                 B, Skv, -1, m.d_v)
             o = torch.einsum("bhqs,bshv->bqhv", pr, v.float())
-        w = torch.exp(mx - tp.all_reduce(mx, "max")).permute(0, 2, 1, 3)
-        ol = tp.all_reduce(torch.cat(
-            [o * w, pr.sum(-1, keepdim=True).permute(0, 2, 1, 3) * w], -1))
-        own = slice(tp.rank * H, (tp.rank + 1) * H)
-        ctx = (ol[:, :, own, :-1] / ol[:, :, own, -1:]).to(x.dtype)
+        ctx = _combine(o, mx.permute(0, 2, 1, 3),
+                       pr.sum(-1, keepdim=True).permute(0, 2, 1, 3),
+                       tp).to(x.dtype)
         if cfg.mla_absorb:
             ctx = _einsum("bqhc,chv->bqhv", ctx, absorbed("v_up", m.d_v))
     else:

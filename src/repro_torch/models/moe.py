@@ -129,16 +129,13 @@ def _expert_ffn(h: torch.Tensor, p: Params, cfg: ModelConfig,
 
 def moe_dense(x: torch.Tensor, p: Params, cfg: ModelConfig,
               qcfg: QuantConfig | None, plan=None,
-              use_kernels: bool = False, tp=None) -> torch.Tensor:
-    """The oracle: all experts on all tokens.  ``x [T, d]``.  With ``tp``
-    the stacks are the rank's experts and the result its partial sum."""
+              use_kernels: bool = False) -> torch.Tensor:
+    """The oracle: all experts on all tokens.  ``x [T, d]``."""
     e = cfg.moe
     probs = _router_probs(x, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)
     gates, topi = _gates(probs, e.top_k)
     mask = torch.zeros_like(probs).scatter(1, topi, gates)        # [T, E]
-    n, first = _own_experts(p, cfg, tp)
-    mask = mask[:, first:first + n]
-    h = x[None].expand((n,) + tuple(x.shape))                      # [E, T, d]
+    h = x[None].expand((e.n_experts_padded,) + tuple(x.shape))    # [E, T, d]
     y = _expert_ffn(h, p, cfg, qcfg, plan=plan, use_kernels=use_kernels)
     return torch.einsum("te,etd->td", mask.to(y.dtype), y)
 
@@ -250,28 +247,31 @@ def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
     (:func:`moe_sorted`) is added to its shared experts' partial product,
     and one *g* over the group sums them: one all-reduce of ``[B, S, d]``
     a layer (with whole stacks the *g* sums the shared product alone).
-    ``moe_fn`` takes the whole stacks, so it cannot serve a block on
-    shards."""
+    ``moe_fn`` takes the whole stacks, and the dense oracle every expert,
+    so neither serves a block whose stacks are split."""
     B, S, d = x.shape
     pv = plan_view(plan)
+    # the rank's experts' partial sum, completed by the block's one g
+    partial = (tp is not None and _own_experts(p, cfg, tp)[0]
+               < cfg.moe.n_experts_padded)
     if tp is not None:
         if moe_fn is not None:
             raise ValueError("the expert-parallel hook takes the whole "
                              "expert stacks, not a tensor-parallel rank's")
+        if partial and mode == "dense":
+            raise ValueError("the dense oracle runs every expert: its "
+                             "stacks cannot be a tensor-parallel rank's")
         x = tp.copy_to(x)
     out = None if moe_fn is None else moe_fn(x, p, use_kernels)
     if out is None:
         xt = x.reshape(B * S, d)
         if mode == "dense":
             routed = moe_dense(xt, p, cfg, qcfg, plan=pv,
-                               use_kernels=use_kernels, tp=tp)
+                               use_kernels=use_kernels)
         else:
             routed = moe_sorted(xt, p, cfg, qcfg, plan=pv,
                                 use_kernels=use_kernels, tp=tp)
         out = routed.reshape(B, S, d)
-    # the rank's experts' partial sum, completed by the block's one g
-    partial = (tp is not None and _own_experts(p, cfg, tp)[0]
-               < cfg.moe.n_experts_padded)
     if not cfg.moe.n_shared:
         return tp.reduce_from(out) if partial else out
     if tp is None:
